@@ -3,41 +3,59 @@
 
 Usage, from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--walk-ab]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
-drives the batched Needleman-Wunsch main path through the user entry
-points, with inputs made by numpy from a fixed seed:
+drives four main paths through the user entry points, with inputs made by
+numpy from a fixed seed:
 
-1. each kernel against its plain PyTorch version on the same CUDA tensors
-   (exact equality): a ragged DNA batch (B = 64, lengths 1-512) and 1-10 kb
-   pairs padded to the widths the main path gives the kernels (2,048 and
-   6,144 lanes in opt-in shared memory, 10,240 in global scratch); then
-   kernel and plain timed with CUDA events at B = 256, L = 512;
-2. ``NeedlemanWunsch(device="cuda").score_batch`` on 4,096 pairs of length
-   512, and ``score_pairs_stream`` on 65,536 pairs of 1-10 kb (BASELINE.json
-   configs[4]);
-3. ``align_batch`` on 512 pairs of 256-512 and on 1,024 pairs of 1-10 kb.
+1. each kernel and scoring mode against its plain PyTorch version on the
+   same CUDA tensors (exact equality on the valid cells): ragged DNA and
+   BLOSUM62 protein batches (B = 64), 1-10 kb pairs padded to the widths
+   the main path gives the kernels (2,048 and 6,144 lanes in opt-in shared
+   memory, 10,240 in global scratch), and the SW hit loop and walks on the
+   harvested candidates; then kernel and plain timed with CUDA events at
+   B = 256, L = 512;
+2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
+   ``score_pairs_stream`` on 65,536 pairs of 1-10 kb (BASELINE.json
+   configs[4]), ``align_batch`` on 512 x 256-512 and 1,024 x 1-10 kb;
+3. path ``nw_table``, NW with BLOSUM62 (the substitution-table mode):
+   ``score_batch`` on 4,096 protein pairs of 100-1,000 aa and
+   ``align_batch`` on 256 of them;
+4. paths ``sw`` (DNA, SW default scoring) and ``sw_table`` (protein,
+   BLOSUM62, BASELINE.json configs[2]): ``SmithWaterman.best_score_batch``
+   on 4,096 DNA pairs x 512, 4,096 DNA pairs of 1-10 kb and 4,096 protein
+   pairs of 100-1,000 aa; ``align_batch`` jobs consuming their first hits
+   per pair: 512 DNA pairs of 256-512 bp without a hint (16 hits), 256 DNA
+   pairs of 1-10 kb with a planted segment and min_score = best - 10
+   (8 hits), and 1,024 protein pairs with a planted homologous segment and
+   min_score 100, twice the random background (8 hits, --maxhits).
 
-Phases 2-3 hold their results against the plain versions on the card (all
-pairs at 512 bp, a sample at 1-10 kb) and, on a sample, against an
-independent row-wise numpy Gotoh written here: its optimum must equal the
-score, and every sampled alignment must spell both inputs and rescore to
-that optimum.  Launch counts are zeroed just before phase 2 and must show
-every kernel of the path; the plain versions must see no CUDA tensor in
-phases 2-3.  ``--profile DIR`` then runs each main-path job once more
-under ``torch.profiler``, prints its device time and busy share and writes
-the ``key_averages`` tables to DIR.
+Each path is held against the plain versions on the card (a sample) and
+against numpy Gotoh recurrences written here, global and local, with
+equality scoring or the BLOSUM62 table read from the repository's matrix
+file: the optimum must equal the score, and every sampled NW alignment and
+SW hit must spell its inputs and rescore to its score.  Launch counts are
+zeroed just before each path and read just after it; a kernel of the path
+that was not launched fails the run, and the plain versions must see no
+CUDA tensor in the paths.  ``--walk-ab`` instead times the first
+``AB_PAIRS`` pairs of each SW align job under each walk branch (every pair
+on the host walk, then every pair's hits found on the card), host, device,
+device, host, and stops: the measurement behind the walk cutover
+``_SW_DEVWALK_CANDS``.  ``--profile DIR`` runs
+each main-path job once more under ``torch.profiler``, prints its device
+time and busy share and writes the ``key_averages`` tables to DIR.
 
-The second-to-last line is a JSON summary of the kernels, the last line
-``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0);
-without a CUDA device it exits with code 1 and prints no result.  It
-imports no JAX.
+The second-to-last line is a JSON summary of the kernels and modes, the
+last line ``{"ok": true, "device": {...}}``.  Any failure raises (exit
+code != 0); without a CUDA device it exits with code 1 and prints no
+result.  It imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -48,14 +66,34 @@ import numpy as np
 import torch
 
 SEED = 1729
+_CSRC = "seqalign_tpu_torch/csrc/"
+_B1 = "seqalign_tpu/ops/pallas_dp2.py:199"
+_B2 = "seqalign_tpu/ops/pallas_dp2.py:780"
+_SWW = "seqalign_tpu/ops/traceback.py:607"
+# sw_hits takes over the host hit loop of SwHitIterator.fetch
+_SWH = "seqalign_tpu/ops/traceback.py:376"
+# row -> (launch counter, source, TPU kernel replaced); a "[table]" row is
+# the substitution-table mode of its kernel, launched by the path
+# "<kernel family>_table"
 KERNELS = {
-    "nw_scores": ("seqalign_tpu_torch/csrc/nw_scores.cu",
-                  "seqalign_tpu/ops/pallas_dp2.py:199"),
-    "nw_fill_dirs": ("seqalign_tpu_torch/csrc/nw_dirs.cu",
-                     "seqalign_tpu/ops/pallas_dp2.py:780"),
-    "nw_walk": ("seqalign_tpu_torch/csrc/nw_walk.cu",
-                "seqalign_tpu/ops/traceback.py:515"),
+    "nw_scores": ("nw_scores", "nw_scores.cu", _B1),
+    "nw_fill_dirs": ("nw_fill_dirs", "nw_dirs.cu", _B2),
+    "nw_walk": ("nw_walk", "nw_walk.cu", "seqalign_tpu/ops/traceback.py:515"),
+    "nw_scores[table]": ("nw_scores", "nw_scores.cu", _B1),
+    "nw_fill_dirs[table]": ("nw_fill_dirs", "nw_dirs.cu", _B2),
+    "sw_scores": ("sw_scores", "sw_scores.cu", _B1),
+    "sw_fill_dirs": ("sw_fill_dirs", "sw_dirs.cu", _B2),
+    "sw_walk": ("sw_walk", "sw_walk.cu", _SWW),
+    "sw_hits": ("sw_hits", "sw_hits.cu", _SWH),
+    "sw_scores[table]": ("sw_scores", "sw_scores.cu", _B1),
+    "sw_fill_dirs[table]": ("sw_fill_dirs", "sw_dirs.cu", _B2),
+    "sw_walk[table]": ("sw_walk", "sw_walk.cu", _SWW),
+    "sw_hits[table]": ("sw_hits", "sw_hits.cu", _SWH),
 }
+PATHS = {"nw": ("nw_scores", "nw_fill_dirs", "nw_walk"),
+         "nw_table": ("nw_scores", "nw_fill_dirs", "nw_walk"),
+         "sw": ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits"),
+         "sw_table": ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")}
 # phase 1 at main-path widths (width, shortest, longest, pairs): 36 bytes
 # per lane of rolling diagonals are 73,764 B at 2,048 lanes (above 48 KB:
 # opt-in shared memory), 221,220 B at 6,144 (the widest bucket that fits
@@ -64,12 +102,26 @@ WIDE = ((2048, 1000, 2048, 4), (6144, 4097, 6144, 4), (10240, 7169, 10000, 4))
 SHORT_BATCH = 4096
 STREAM_PAIRS = 65_536  # BASELINE.json configs[4]
 ALIGN_LONG_PAIRS = 1024
+PROTEIN_PAIRS = 4096  # BASELINE.json configs[2]: 100-1,000 aa
+NW_TABLE_ALIGN = 256
+SW_LONG_PAIRS = 4096
+# SW align jobs: (name, pairs, hits consumed per pair)
+SW_JOB1 = ("job 1", 512, 16)
+SW_JOB2 = ("job 2", 1024, 8)
+SW_JOB3 = ("job 3", 256, 8)
+AB_PAIRS = 64  # pairs of each SW align job in the walk-branch A/B
+PROTEIN_MIN_SCORE = 100  # random 1,000 x 1,000 aa pairs score 42-57
 DNA = np.frombuffer(b"acgtACGT", np.uint8)
+AMINO = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
 GAP = ord("-")
+BLOSUM62_FILE = "seqalign_tpu/data/scoring/BLOSUM62.txt"
+
+
+_T0 = time.perf_counter()
 
 
 def log(*args):
-    print(*args, flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
 
 
 def gpu_name_power() -> str:
@@ -79,28 +131,60 @@ def gpu_name_power() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def dna(rng, n, lo, hi):
-    """``n`` DNA strings of mixed case, lengths uniform in [lo, hi]."""
+def seqs(rng, n, lo, hi, alpha=DNA):
+    """``n`` strings over ``alpha``, lengths uniform in [lo, hi]."""
     lens = rng.integers(lo, hi + 1, n)
-    blob = DNA[rng.integers(0, len(DNA), int(lens.sum()), dtype=np.uint8)]
+    blob = alpha[rng.integers(0, len(alpha), int(lens.sum()), dtype=np.uint8)]
     blob = blob.tobytes().decode()
     ends = np.cumsum(lens).tolist()
     return [blob[e - k:e] for e, k in zip(ends, lens.tolist())]
 
 
-def packed(params, seqs_a, seqs_b, dev, width=None):
-    """Pad + fold a batch on ``dev``: both sides to ``width``, or each to
-    its pow2 / 1024-granular width."""
-    from seqalign_tpu_torch.ops.pack import pack_inputs_mm, pad_width
+def dna(rng, n, lo, hi):
+    return seqs(rng, n, lo, hi)
+
+
+def planted(rng, alpha, n, lo, hi, frac, sub):
+    """``n`` random pairs, lengths in [lo, hi], each with a segment of a
+    (a ``frac`` range share of the shorter side) copied into b with
+    substitutions at rate ``sub`` and 1-3 indels of 1-3 letters."""
+    A, B = seqs(rng, n, lo, hi, alpha), seqs(rng, n, lo, hi, alpha)
+    for i in range(n):
+        a = np.frombuffer(A[i].encode(), np.uint8)
+        b = np.frombuffer(B[i].encode(), np.uint8).copy()
+        k = max(1, int(min(len(a), len(b)) * rng.uniform(*frac)))
+        pa = int(rng.integers(0, len(a) - k + 1))
+        seg = a[pa:pa + k].copy()
+        hit = rng.random(k) < sub
+        seg[hit] = alpha[rng.integers(0, len(alpha), int(hit.sum()))]
+        for _ in range(int(rng.integers(1, 4))):
+            p, m = int(rng.integers(0, len(seg))), int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                seg = np.delete(seg, slice(p, p + m))
+            else:
+                seg = np.insert(seg, p, alpha[rng.integers(0, len(alpha), m)])
+        seg = seg[:len(b)]
+        pb = int(rng.integers(0, len(b) - len(seg) + 1))
+        b[pb:pb + len(seg)] = seg
+        B[i] = b.tobytes().decode()
+    return A, B
+
+
+def packed(sc, params, seqs_a, seqs_b, dev, width=None):
+    """Pack a batch on ``dev`` for its scoring mode: both sides to
+    ``width``, or each to its pow2 / 1024-granular width.  Returns the
+    (ac, bc, na, nb) tensors, the batch's params and the host lengths."""
+    from seqalign_tpu_torch.ops.pack import pack_batch, pad_width
 
     la = width or pad_width(max(map(len, seqs_a)))
     lb = width or pad_width(max(map(len, seqs_b)))
-    return tuple(torch.from_numpy(v).to(dev)
-                 for v in pack_inputs_mm(params, seqs_a, seqs_b, la, lb))
+    ac, bc, na, nb, bp = pack_batch(sc, params, seqs_a, seqs_b, la, lb)
+    return (tuple(torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)),
+            bp, (na, nb))
 
 
 def valid_cells(dirs, na, nb):
-    """Mask of the cells 1 <= y <= nb, 1 <= x <= na of skewed dirs."""
+    """Mask of the cells 1 <= y <= nb, 1 <= x <= na of a skewed plane."""
     _, D, LBp = dirs.shape
     y = torch.arange(LBp, device=dirs.device)[None, None, :]
     x = torch.arange(D, device=dirs.device)[None, :, None] + 2 - y
@@ -113,9 +197,11 @@ def max_abs(*pairs) -> int:
                for a, b in pairs)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, CUDA events, after
+    one warm-up run unless ``warm`` is false."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -127,66 +213,182 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def kernels_vs_plain(params, seqs_a, seqs_b, dev, width=None):
-    """Max |kernel - plain| of each kernel on one batch."""
-    from seqalign_tpu_torch.ops import kernels
-    from seqalign_tpu_torch.ops.dp import nw_fill_dirs_plain, nw_scores_plain
-    from seqalign_tpu_torch.ops.traceback import nw_walk_plain
+def walk_starts(cands, na, per_pair, dev):
+    """Walk starts (jw, x0, y0, s0) on the card for the ``per_pair``
+    best-scoring harvested candidates of each pair."""
+    jw, fl, sc0 = [], [], []
+    for j, (f, s) in enumerate(cands):
+        top = np.argsort(-s.astype(np.int64), kind="stable")[:per_pair]
+        jw.append(np.full(len(top), j))
+        fl.append(f[top])
+        sc0.append(s[top])
+    jw = np.concatenate(jw)
+    fl = np.concatenate(fl)
+    w = np.asarray(na, np.int64)[jw] + 1
+    return [torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+            for v in (jw, fl % w, fl // w, np.concatenate(sc0))]
 
-    ac, bc, na, nb = packed(params, seqs_a, seqs_b, dev, width)
-    s, c = kernels.nw_scores(ac, bc, na, nb, params)
-    sp, cp = nw_scores_plain(ac, bc, na, nb, params)
-    err = {"nw_scores": max_abs((s, sp), (c, cp))}
-    d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, params)
-    dpl, dcp = nw_fill_dirs_plain(ac, bc, na, nb, params)
-    v = valid_cells(d, na, nb)
-    err["nw_fill_dirs"] = max_abs((d[v], dpl[v]), (dc, dcp))
-    del v, dpl
+
+def hit_args(d, ac, bc, na, m, na_h, nb_h, thr, bp, k):
+    """The arguments of ``sw_hits`` for the candidates of M at ``thr``."""
+    from seqalign_tpu_torch.ops.dp import sw_sorted_candidates
+
+    flat, score, off = sw_sorted_candidates(m, na_h, nb_h, thr)
+    return d, ac, bc, na, flat, score, off[:-1], off[1:], bp, k
+
+
+def near_best(scores):
+    """Harvest thresholds 20 below each pair's best score: the walk checks
+    start at the best cells without harvesting the whole plane."""
+    return np.maximum(scores.cpu().numpy().astype(np.int64) - 20, 1)
+
+
+def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
+                     sw=True):
+    """Max |kernel - plain| of each kernel and mode on one batch."""
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
+                                           nw_scores_plain,
+                                           sw_extract_candidates,
+                                           sw_fill_dirs_plain,
+                                           sw_scores_plain)
+    from seqalign_tpu_torch.ops.pack import m16_safe
+    from seqalign_tpu_torch.ops.traceback import (nw_walk_plain,
+                                                  sw_hits_plain,
+                                                  sw_walk_plain)
+
+    (ac, bc, na, nb), bp, (na_h, nb_h) = packed(sc, params, seqs_a, seqs_b,
+                                                 dev, width)
+    mode = "" if bp.sub is None else "[table]"
     cap = int((na + nb).max())
-    o, os_ = kernels.nw_walk(d, dc, na, nb, cap)
-    op, osp = nw_walk_plain(d, dc, na, nb, cap)
-    err["nw_walk"] = max_abs((o, op), (os_, osp))
+    err = {}
+    if nw:
+        s, c = kernels.nw_scores(ac, bc, na, nb, bp)
+        sp, cp = nw_scores_plain(ac, bc, na, nb, bp)
+        err["nw_scores" + mode] = max_abs((s, sp), (c, cp))
+        d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
+        dpl, dcp = nw_fill_dirs_plain(ac, bc, na, nb, bp)
+        v = valid_cells(d, na, nb)
+        err["nw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (dc, dcp))
+        del v, dpl
+        o, os_ = kernels.nw_walk(d, dc, na, nb, cap)
+        op, osp = nw_walk_plain(d, dc, na, nb, cap)
+        err["nw_walk"] = max_abs((o, op), (os_, osp))
+        del d
+    if sw:
+        s = kernels.sw_scores(ac, bc, na, nb, bp)
+        err["sw_scores" + mode] = max_abs((s, sw_scores_plain(ac, bc, na, nb,
+                                                              bp)))
+        m16 = m16_safe(sc, ac.shape[1], bc.shape[1])
+        d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
+        dpl, mpl = sw_fill_dirs_plain(ac, bc, na, nb, bp, m16)
+        v = valid_cells(d, na, nb)
+        err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (m[v], mpl[v]))
+        del v, dpl, mpl
+        # the hit loop hint-less on the ragged batches (the mask in shared
+        # memory), near the best cells at the wide widths (global memory)
+        args = hit_args(d, ac, bc, na, m, na_h, nb_h,
+                        1 if width is None else near_best(s), bp, 16)
+        err["sw_hits" + mode] = max_abs(*zip(kernels.sw_hits(*args),
+                                             sw_hits_plain(*args)))
+        del args
+        starts = walk_starts(sw_extract_candidates(m, na_h, nb_h,
+                                                   near_best(s)), na_h, 16,
+                             dev)
+        del m
+        o = kernels.sw_walk(d, ac, bc, *starts, bp, cap)
+        err["sw_walk" + mode] = max_abs((o, sw_walk_plain(d, ac, bc, *starts,
+                                                          bp, cap)))
     torch.cuda.synchronize()
     return err
 
 
-def phase1(params, rng, dev):
-    """Each kernel against its plain version at the main path's widths;
-    then both timed."""
+def phase1(scs, rng, dev):
+    """Each kernel and mode against its plain version at the main path's
+    widths; then both timed."""
+    from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
-    from seqalign_tpu_torch.ops.dp import nw_fill_dirs_plain, nw_scores_plain
-    from seqalign_tpu_torch.ops.traceback import nw_walk_plain
+    from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
+                                           nw_scores_plain,
+                                           sw_extract_candidates,
+                                           sw_fill_dirs_plain,
+                                           sw_scores_plain)
+    from seqalign_tpu_torch.ops.traceback import (nw_walk_plain,
+                                                  sw_hits_plain,
+                                                  sw_walk_plain)
 
+    nw_sc, sw_sc, prot_sc = scs["nw"], scs["sw"], scs["table"]
+    params = {k: kernel_params(v, dev) for k, v in scs.items()}
     err = dict.fromkeys(KERNELS, 0)
-    batches = [("B=64 ragged 1-512", 64, 1, 512, None)] + [
-        (f"B={n} {lo}-{hi} bp at width {w}", n, lo, hi, w)
-        for w, lo, hi, n in WIDE]
-    for label, n, lo, hi, width in batches:
+    batches = [("NW DNA B=64 ragged 1-512", "nw", 64, 1, 512, None, DNA,
+                True, False),
+               ("SW DNA B=64 ragged 1-512", "sw", 64, 1, 512, None, DNA,
+                False, True),
+               ("BLOSUM62 protein B=64 ragged 1-1000", "table", 64, 1, 1000,
+                None, AMINO, True, True)]
+    for w, lo, hi, n in WIDE:
+        batches += [(f"NW DNA B={n} {lo}-{hi} bp at width {w}", "nw", n, lo,
+                     hi, w, DNA, True, False),
+                    (f"SW DNA B={n} {lo}-{hi} bp at width {w}", "sw", n, lo,
+                     hi, w, DNA, False, True)]
+    for label, k, n, lo, hi, width, alpha, nw, sw in batches:
         t0 = time.perf_counter()
-        e = kernels_vs_plain(params, dna(rng, n, lo, hi), dna(rng, n, lo, hi),
-                             dev, width)
+        e = kernels_vs_plain(scs[k], params[k], seqs(rng, n, lo, hi, alpha),
+                             seqs(rng, n, lo, hi, alpha), dev, width, nw, sw)
         log(f"phase 1: kernel vs plain on {label}: max |diff| {e} "
             f"({time.perf_counter() - t0:.1f} s)")
-        err = {k: max(err[k], e[k]) for k in err}
+        err.update({r: max(err[r], v) for r, v in e.items()})
     if any(err.values()):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{err}")
 
-    ac, bc, na, nb = packed(params, dna(rng, 256, 512, 512),
-                            dna(rng, 256, 512, 512), dev)
-    d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, params)
-    times = {
-        "nw_scores": (
-            cuda_ms(lambda: kernels.nw_scores(ac, bc, na, nb, params), 10),
-            cuda_ms(lambda: nw_scores_plain(ac, bc, na, nb, params), 2)),
-        "nw_fill_dirs": (
-            cuda_ms(lambda: kernels.nw_fill_dirs(ac, bc, na, nb, params),
-                    10),
-            cuda_ms(lambda: nw_fill_dirs_plain(ac, bc, na, nb, params), 2)),
-        "nw_walk": (
-            cuda_ms(lambda: kernels.nw_walk(d, dc, na, nb, 1024), 10),
-            cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 2)),
-    }
+    times = {}
+    for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
+        sc, p = scs[key], params[key]
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, p, seqs(rng, 256, 512, 512, alpha),
+            seqs(rng, 256, 512, 512, alpha), dev)
+        mode = "" if bp.sub is None else "[table]"
+        if key in ("nw", "table"):
+            d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
+            times["nw_scores" + mode] = (
+                cuda_ms(lambda: kernels.nw_scores(ac, bc, na, nb, bp), 10),
+                cuda_ms(lambda: nw_scores_plain(ac, bc, na, nb, bp), 2))
+            times["nw_fill_dirs" + mode] = (
+                cuda_ms(lambda: kernels.nw_fill_dirs(ac, bc, na, nb, bp), 10),
+                cuda_ms(lambda: nw_fill_dirs_plain(ac, bc, na, nb, bp), 2))
+            if key == "nw":
+                times["nw_walk"] = (
+                    cuda_ms(lambda: kernels.nw_walk(d, dc, na, nb, 1024), 10),
+                    cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 2))
+            del d
+        if key in ("sw", "table"):
+            m16 = True  # 11 * 512 and 2 * 512 are below the int16 gate
+            d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
+            # the hit loop on every candidate, as job 1 runs it
+            args = hit_args(d, ac, bc, na, m, na_h, nb_h, 1, bp, 16)
+            starts = walk_starts(sw_extract_candidates(
+                m, na_h, nb_h, near_best(kernels.sw_scores(ac, bc, na, nb,
+                                                           bp))), na_h, 16,
+                dev)
+            del m
+            times["sw_scores" + mode] = (
+                cuda_ms(lambda: kernels.sw_scores(ac, bc, na, nb, bp), 10),
+                cuda_ms(lambda: sw_scores_plain(ac, bc, na, nb, bp), 2))
+            times["sw_fill_dirs" + mode] = (
+                cuda_ms(lambda: kernels.sw_fill_dirs(ac, bc, na, nb, bp,
+                                                     m16), 10),
+                cuda_ms(lambda: sw_fill_dirs_plain(ac, bc, na, nb, bp, m16),
+                        2))
+            times["sw_walk" + mode] = (
+                cuda_ms(lambda: kernels.sw_walk(d, ac, bc, *starts, bp,
+                                                1024), 10),
+                cuda_ms(lambda: sw_walk_plain(d, ac, bc, *starts, bp, 1024),
+                        2))
+            times["sw_hits" + mode] = (
+                cuda_ms(lambda: kernels.sw_hits(*args), 10),
+                cuda_ms(lambda: sw_hits_plain(*args), 1, warm=False))
+            del d, args
     for k, (t, tp) in times.items():
         log(f"phase 1: {k} at B=256 L=512: kernel {t:.4f} ms, plain "
             f"{tp:.4f} ms")
@@ -197,7 +399,9 @@ class PlainGuard:
     """Replaces the plain versions the wrappers call with versions that
     raise on a CUDA tensor, for the main-path phases."""
 
-    NAMES = ("nw_scores_plain", "nw_fill_dirs_plain", "nw_walk_plain")
+    NAMES = ("nw_scores_plain", "nw_fill_dirs_plain", "nw_walk_plain",
+             "sw_scores_plain", "sw_fill_dirs_plain", "sw_walk_plain",
+             "sw_hits_plain")
 
     def __enter__(self):
         from seqalign_tpu_torch.ops import kernels
@@ -233,77 +437,144 @@ def timed(fn):
         return out, time.perf_counter() - t0
 
 
-def plain_scores(params, seqs_a, seqs_b, dev):
-    from seqalign_tpu_torch.ops.dp import nw_scores_plain
+def plain_scores(sc, params, seqs_a, seqs_b, dev, local=False):
+    from seqalign_tpu_torch.ops.dp import nw_scores_plain, sw_scores_plain
 
-    s, _ = nw_scores_plain(*packed(params, seqs_a, seqs_b, dev), params)
-    return s.cpu().numpy()
-
-
-def fold(sc, s: str) -> np.ndarray:
-    c = np.frombuffer(s.encode("latin-1"), np.uint8)
-    if sc.case_sensitive:
-        return c
-    return np.where((c >= 65) & (c <= 90), c + 32, c)
+    t, bp, _ = packed(sc, params, seqs_a, seqs_b, dev)
+    if local:
+        return sw_scores_plain(*t, bp).cpu().numpy()
+    return nw_scores_plain(*t, bp)[0].cpu().numpy()
 
 
-def gotoh_score(sc, a: str, b: str) -> int:
-    """Optimal global score by Gotoh's recurrence, one row of b at a time
-    in int64 numpy; the horizontal gap run is a running max."""
-    fa, fb = fold(sc, a), fold(sc, b)
-    go, ge = sc.gap_open, sc.gap_extend
+def plain_hits(sc, params, a, b, min_score, k, dev):
+    """The first ``k`` hits of one pair from the plain SW fill and harvest
+    on the card, walked on the host."""
+    from seqalign_tpu_torch.ops.dp import (sw_extract_candidates,
+                                           sw_fill_dirs_plain)
+    from seqalign_tpu_torch.ops.traceback import SwHitIterator
+
+    (ac, bc, na, nb), bp, (na_h, nb_h) = packed(sc, params, [a], [b], dev)
+    dirs, m = sw_fill_dirs_plain(ac, bc, na, nb, bp)
+    cands = sw_extract_candidates(m, na_h, nb_h, min_score)
+    it = SwHitIterator(sc, a, b, int(na_h[0]), int(nb_h[0]),
+                       dirs[0].cpu().numpy(), cands[0])
+    return list(itertools.islice(it, k))
+
+
+def eq_table(sc) -> np.ndarray:
+    """Equality scoring as a 256 x 256 table: match when the bytes are
+    equal after case folding (unless case sensitive), else mismatch."""
+    c = np.arange(256)
+    f = c if sc.case_sensitive else np.where((c >= 65) & (c <= 90), c + 32, c)
+    return np.where(f[:, None] == f[None, :], sc.match,
+                    sc.mismatch).astype(np.int64)
+
+
+def blosum62_table(sc) -> np.ndarray:
+    """The BLOSUM62 file of the repository as a 256 x 256 table, letters
+    of either case; other pairs score by equality."""
+    t = eq_table(sc)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        BLOSUM62_FILE)
+    with open(path) as fh:
+        rows = [ln.split() for ln in fh if ln.strip()
+                and not ln.startswith("#")]
+    cols = rows[0]
+    for r in rows[1:]:
+        for cb, v in zip(cols, r[1:]):
+            for x in {r[0].upper(), r[0].lower()}:
+                for y in {cb.upper(), cb.lower()}:
+                    t[ord(x), ord(y)] = int(v)
+    return t
+
+
+def gotoh(table, go, ge, a: str, b: str, local=False) -> int:
+    """Optimal global (NW) or local (SW, every cell floored at 0) score by
+    Gotoh's recurrence, one row of b at a time in int64 numpy; the
+    horizontal gap run is a running max."""
+    ca = np.frombuffer(a.encode("latin-1"), np.uint8)
+    cb = np.frombuffer(b.encode("latin-1"), np.uint8)
     gop = go + ge
-    neg = -(1 << 40)
+    lo = 0 if local else -(1 << 40)
     x = np.arange(len(a) + 1, dtype=np.int64)
-    M = np.full(len(a) + 1, neg, np.int64)
+    M = np.full(len(a) + 1, lo, np.int64)
     M[0] = 0
     Ga = M.copy()  # gap in a: from the row above
-    Gb = go + x * ge  # gap in b: from the left
+    Gb = M.copy() if local else go + x * ge  # gap in b: from the left
     Gb[0] = 0
+    best = 0
     for y in range(1, len(b) + 1):
-        ss = np.where(fa == fb[y - 1], sc.match, sc.mismatch)
-        best = np.maximum(M, np.maximum(Ga, Gb))
+        ss = table[ca, cb[y - 1]]
         M2 = np.empty_like(M)
-        M2[0] = neg
-        M2[1:] = best[:-1] + ss
+        M2[0] = lo
+        M2[1:] = np.maximum(M, np.maximum(Ga, Gb))[:-1] + ss
         Ga2 = np.maximum(np.maximum(M, Gb) + gop, Ga + ge)
-        Ga2[0] = go + y * ge
-        run = np.maximum.accumulate(np.maximum(M2, Ga2) - x * ge)
+        Ga2[0] = 0 if local else go + y * ge
+        if local:
+            M2 = np.maximum(M2, 0)
+            Ga2 = np.maximum(Ga2, 0)
+        run = np.maximum.accumulate(
+            np.maximum(np.maximum(M2, Ga2) + gop, lo) - x * ge)
         Gb2 = np.empty_like(M)
-        Gb2[0] = neg
-        Gb2[1:] = run[:-1] + gop + (x[1:] - 1) * ge
+        Gb2[0] = lo
+        Gb2[1:] = run[:-1] + (x[1:] - 1) * ge
         M, Ga, Gb = M2, Ga2, Gb2
-    return int(max(M[-1], Ga[-1], Gb[-1]))
+        best = max(best, int(M.max()))
+    return best if local else int(max(M[-1], Ga[-1], Gb[-1]))
 
 
-def rescore(sc, ra: str, rb: str) -> int:
+def rescore(table, go, ge, ra: str, rb: str) -> int:
     """Affine score of an alignment's columns; a gap column opens a gap
     unless the column before it is a gap in the same sequence."""
-    ca, cb = fold(sc, ra), fold(sc, rb)
+    ca = np.frombuffer(ra.encode("latin-1"), np.uint8)
+    cb = np.frombuffer(rb.encode("latin-1"), np.uint8)
     kind = np.where(ca == GAP, 1, np.where(cb == GAP, 2, 0))
     prev = np.concatenate([[0], kind[:-1]])
-    gap = np.where(kind == prev, sc.gap_extend, sc.gap_open + sc.gap_extend)
-    ss = np.where(ca == cb, sc.match, sc.mismatch)
-    return int(np.where(kind == 0, ss, gap).sum())
+    gap = np.where(kind == prev, ge, go + ge)
+    return int(np.where(kind == 0, table[ca, cb], gap).sum())
 
 
-def witness_scores(sc, A, B, scores, idx, what):
+def witness_scores(table, sc, A, B, scores, idx, what, local=False):
     for i in idx:
-        if int(scores[i]) != gotoh_score(sc, A[i], B[i]):
+        opt = gotoh(table, sc.gap_open, sc.gap_extend, A[i], B[i], local)
+        if int(scores[i]) != opt:
             raise AssertionError(f"{what} pair {i}: score {scores[i]} is "
-                                 f"not the numpy Gotoh optimum")
+                                 f"not the numpy Gotoh optimum {opt}")
 
 
-def witness_alignment(sc, a, b, aln, what):
+def witness_alignment(table, sc, a, b, aln, what):
     ra, rb = aln.result_a, aln.result_b
     if (len(ra) != len(rb) or ra.replace("-", "") != a
             or rb.replace("-", "") != b
             or any(p == q == "-" for p, q in zip(ra, rb))):
         raise AssertionError(f"{what}: the strings do not spell the pair")
-    opt = gotoh_score(sc, a, b)
-    if not aln.score == rescore(sc, ra, rb) == opt:
+    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b)
+    got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb)
+    if not aln.score == got == opt:
         raise AssertionError(f"{what}: score {aln.score}, columns rescore "
-                             f"to {rescore(sc, ra, rb)}, optimum {opt}")
+                             f"to {got}, optimum {opt}")
+
+
+def witness_hits(table, sc, a, b, hits, min_score, what):
+    """SW hits: the first is the local optimum (when that reaches the
+    hint), each spells a substring of both inputs and rescores to its
+    score."""
+    for h in hits:
+        ra, rb = h.result_a, h.result_b
+        if (len(ra) != len(rb)
+                or ra.replace("-", "") != a[h.pos_a:h.pos_a + h.len_a]
+                or rb.replace("-", "") != b[h.pos_b:h.pos_b + h.len_b]
+                or any(p == q == "-" for p, q in zip(ra, rb))):
+            raise AssertionError(f"{what}: a hit does not spell its inputs")
+        got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb)
+        if got != h.score:
+            raise AssertionError(f"{what}: hit score {h.score}, columns "
+                                 f"rescore to {got}")
+    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True)
+    first = hits[0].score if hits else None
+    if (opt >= max(min_score, 1)) != bool(hits) or (hits and first != opt):
+        raise AssertionError(f"{what}: first hit {first}, local optimum "
+                             f"{opt}")
 
 
 def rate(label, n_pairs, cells, secs, gpu):
@@ -315,33 +586,25 @@ def cells_of(A, B):
     return sum(len(a) * len(b) for a, b in zip(A, B))
 
 
-def counted(before, what):
-    from seqalign_tpu_torch import kernel_launch_counts
-
-    now = kernel_launch_counts()
-    for k in what:
-        if now[k] <= before.get(k, 0):
-            raise AssertionError(f"{k} was not launched: {before} -> {now}")
-    return now
-
-
-def phase2(nw, rng, dev, gpu, jobs):
-    """Scores through the aligner: the headline shape and the stream."""
+def phase_nw(nw, rng, dev, gpu, jobs):
+    """Path nw: scores (the headline shape and the stream) and
+    alignments, short and 1-10 kb."""
     sc, params = nw.scoring, nw.params
+    table = eq_table(sc)
     A, B = (dna(rng, SHORT_BATCH, 512, 512), dna(rng, SHORT_BATCH, 512, 512))
-    label = f"phase 2 score_batch {SHORT_BATCH} x 512"
+    label = f"nw score_batch {SHORT_BATCH} x 512"
     got, secs = timed(lambda: nw.score_batch(A, B))
     rate(label, len(A), cells_of(A, B), secs, gpu)
-    jobs[label] = (lambda: nw.score_batch(A, B), secs)
-    if not np.array_equal(got, plain_scores(params, A, B, dev)):
+    jobs[label] = (lambda A=A, B=B: nw.score_batch(A, B), secs)
+    if not np.array_equal(got, plain_scores(sc, params, A, B, dev)):
         raise AssertionError("score_batch disagrees with the plain version")
-    witness_scores(sc, A, B, got, rng.choice(len(A), 32, replace=False),
-                   "score_batch")
+    witness_scores(table, sc, A, B, got,
+                   rng.choice(len(A), 32, replace=False), "score_batch")
 
     t0 = time.perf_counter()
     LA = dna(rng, STREAM_PAIRS, 1000, 10000)
     LB = dna(rng, STREAM_PAIRS, 1000, 10000)
-    log(f"phase 2: made {STREAM_PAIRS} pairs of 1-10 kb in "
+    log(f"nw: made {STREAM_PAIRS} pairs of 1-10 kb in "
         f"{time.perf_counter() - t0:.1f} s")
 
     def stream():
@@ -351,40 +614,237 @@ def phase2(nw, rng, dev, gpu, jobs):
             out[idx] = s
         return out
 
-    label = f"phase 2 score_pairs_stream {STREAM_PAIRS} x 1-10kb"
+    label = f"nw score_pairs_stream {STREAM_PAIRS} x 1-10kb"
     got, secs = timed(stream)
     rate(label, len(LA), cells_of(LA, LB), secs, gpu)
     jobs[label] = (stream, secs)
     sample = rng.choice(len(LA), 64, replace=False)
-    want = plain_scores(params, [LA[i] for i in sample],
+    want = plain_scores(sc, params, [LA[i] for i in sample],
                         [LB[i] for i in sample], dev)
     if not np.array_equal(got[sample], want):
         raise AssertionError("score_pairs_stream disagrees with the plain "
                              "version")
-    witness_scores(sc, LA, LB, got, sample[:2], "score_pairs_stream")
+    witness_scores(table, sc, LA, LB, got, sample[:2], "score_pairs_stream")
 
-
-def phase3(nw, rng, dev, gpu, jobs):
-    """Alignments through the aligner, short and 1-10 kb."""
-    sc, params = nw.scoring, nw.params
     for n, lo, hi, n_plain, n_check in ((512, 256, 512, 512, 32),
                                         (ALIGN_LONG_PAIRS, 1000, 10000, 32,
                                          2)):
         A, B = dna(rng, n, lo, hi), dna(rng, n, lo, hi)
-        label = (f"phase 3 align_batch {n} x "
+        label = (f"nw align_batch {n} x "
                  + (f"{lo}-{hi}" if hi < 1000 else "1-10kb"))
         alns, secs = timed(lambda: nw.align_batch(A, B))
         rate(label, len(A), cells_of(A, B), secs, gpu)
         jobs[label] = (lambda A=A, B=B: nw.align_batch(A, B), secs)
         sample = (np.arange(n) if n_plain >= n
                   else rng.choice(n, n_plain, replace=False))
-        want = plain_scores(params, [A[i] for i in sample],
+        want = plain_scores(sc, params, [A[i] for i in sample],
                             [B[i] for i in sample], dev)
         if [alns[i].score for i in sample] != want.tolist():
             raise AssertionError(f"{label}: scores disagree with the plain "
                                  f"version")
         for i in rng.choice(n, n_check, replace=False):
-            witness_alignment(sc, A[i], B[i], alns[i], f"{label} pair {i}")
+            witness_alignment(table, sc, A[i], B[i], alns[i],
+                              f"{label} pair {i}")
+
+
+def phase_nw_table(nwp, rng, dev, gpu, jobs):
+    """Path nw_table: NW under BLOSUM62 on protein pairs."""
+    sc, params = nwp.scoring, nwp.params
+    table = blosum62_table(sc)
+    A = seqs(rng, PROTEIN_PAIRS, 100, 1000, AMINO)
+    B = seqs(rng, PROTEIN_PAIRS, 100, 1000, AMINO)
+    label = f"nw_table score_batch {PROTEIN_PAIRS} x 100-1000 aa"
+    got, secs = timed(lambda: nwp.score_batch(A, B))
+    rate(label, len(A), cells_of(A, B), secs, gpu)
+    jobs[label] = (lambda A=A, B=B: nwp.score_batch(A, B), secs)
+    sample = rng.choice(len(A), 64, replace=False)
+    if not np.array_equal(got[sample], plain_scores(
+            sc, params, [A[i] for i in sample], [B[i] for i in sample],
+            dev)):
+        raise AssertionError(f"{label}: disagrees with the plain version")
+    witness_scores(table, sc, A, B, got, sample[:4], label)
+    A, B = A[:NW_TABLE_ALIGN], B[:NW_TABLE_ALIGN]
+    label = f"nw_table align_batch {NW_TABLE_ALIGN} x 100-1000 aa"
+    alns, secs = timed(lambda: nwp.align_batch(A, B))
+    rate(label, len(A), cells_of(A, B), secs, gpu)
+    jobs[label] = (lambda: nwp.align_batch(A, B), secs)
+    if [a.score for a in alns] != got[:NW_TABLE_ALIGN].tolist():
+        raise AssertionError(f"{label}: scores disagree with score_batch")
+    for i in rng.choice(len(A), 4, replace=False):
+        witness_alignment(table, sc, A[i], B[i], alns[i], f"{label} pair {i}")
+
+
+def sw_scores_job(sw, table, rng, dev, gpu, jobs, label, A, B, n_plain,
+                  n_check):
+    got, secs = timed(lambda: sw.best_score_batch(A, B))
+    rate(label, len(A), cells_of(A, B), secs, gpu)
+    jobs[label] = (lambda: sw.best_score_batch(A, B), secs)
+    sample = rng.choice(len(A), n_plain, replace=False)
+    want = plain_scores(sw.scoring, sw.params, [A[i] for i in sample],
+                        [B[i] for i in sample], dev, local=True)
+    if not np.array_equal(got[sample], want):
+        raise AssertionError(f"{label}: disagrees with the plain version")
+    witness_scores(table, sw.scoring, A, B, got, sample[:n_check], label,
+                   local=True)
+    return got
+
+
+def consume(sw, A, B, mins, k, stats=None):
+    """``align_batch`` and the first ``k`` hits of every pair; ``stats``
+    gets the candidate counts, the walk branch of each pair, the device
+    bytes the live iterators hold and the iterators."""
+    from seqalign_tpu_torch.ops.traceback import SwDeviceHits
+
+    base = torch.cuda.memory_allocated()
+    its = sw.align_batch(A, B, mins)
+    if stats is not None:
+        stats["held"] = torch.cuda.memory_allocated() - base
+        stats["cands"] = np.array([it.n_candidates for it in its])
+        stats["device_walk"] = sum(isinstance(it, SwDeviceHits) for it in its)
+        stats["its"] = its
+    return [list(itertools.islice(it, k)) for it in its]
+
+
+def sw_align_job(sw, table, rng, dev, gpu, jobs, job, A, B, mins, n_plain,
+                 n_check):
+    name, n, k = job
+    label = f"sw align_batch {name}: {n} pairs, first {k} hits"
+    stats = {}
+    hits, secs = timed(lambda: consume(sw, A, B, mins, k, stats))
+    rate(label, n, cells_of(A, B), secs, gpu)
+    c = stats["cands"]
+    log(f"{label}: candidates per pair min {c.min()} median "
+        f"{int(np.median(c))} max {c.max()} (total {c.sum()}); hits found "
+        f"on the card for {stats['device_walk']} pairs, host walk "
+        f"{n - stats['device_walk']} pairs; live iterators hold "
+        f"{stats['held']} device bytes; {sum(map(len, hits))} hits")
+    jobs[label] = (lambda: consume(sw, A, B, mins, k), secs)
+    m = [1] * n if mins is None else mins
+    for i in rng.choice(n, n_plain, replace=False):
+        # a deeper consumer: 3 k hits more, a second device round
+        more = list(itertools.islice(stats["its"][i], 3 * k))
+        want = plain_hits(sw.scoring, sw.params, A[i], B[i], m[i], 4 * k,
+                          dev)
+        if hits[i] + more != want:
+            raise AssertionError(f"{label} pair {i}: hits disagree with the "
+                                 f"plain versions")
+    for i in rng.choice(n, n_check, replace=False):
+        witness_hits(table, sw.scoring, A[i], B[i], hits[i], m[i],
+                     f"{label} pair {i}")
+
+
+def job1_inputs(rng, n):
+    """Job 1: DNA pairs of 256-512 bp, no hint."""
+    return dna(rng, n, 256, 512), dna(rng, n, 256, 512), None
+
+
+def job3_inputs(sw, rng, n):
+    """Job 3: DNA pairs of 1-10 kb with a planted segment, aligned in two
+    passes: best scores first, then the hits within 10 of each pair's
+    best (random DNA under the SW default is in the linear phase, so a
+    fixed threshold would harvest most of a long pair, and best - 100
+    still harvests ~180 k cells per pair)."""
+    A, B = planted(rng, DNA, n, 1000, 10000, (0.3, 0.5), 0.03)
+    best, _ = timed(lambda: sw.best_score_batch(A, B))
+    return A, B, [max(1, int(s) - 10) for s in best]
+
+
+def job2_inputs(rng, n):
+    """Job 2 (BASELINE.json configs[2]): protein pairs of 100-1,000 aa
+    with a planted homologous segment, min_score above the background."""
+    A, B = planted(rng, AMINO, n, 100, 1000, (0.1, 0.3), 0.25)
+    return A, B, [PROTEIN_MIN_SCORE] * n
+
+
+def phase_sw(sw, rng, dev, gpu, jobs):
+    """Path sw: SW default scoring on DNA."""
+    table = eq_table(sw.scoring)
+    A, B = dna(rng, SHORT_BATCH, 512, 512), dna(rng, SHORT_BATCH, 512, 512)
+    sw_scores_job(sw, table, rng, dev, gpu, jobs,
+                  f"sw best_score_batch {SHORT_BATCH} x 512", A, B, 256, 8)
+    A = dna(rng, SW_LONG_PAIRS, 1000, 10000)
+    B = dna(rng, SW_LONG_PAIRS, 1000, 10000)
+    sw_scores_job(sw, table, rng, dev, gpu, jobs,
+                  f"sw best_score_batch {SW_LONG_PAIRS} x 1-10kb", A, B, 8, 2)
+    sw_align_job(sw, table, rng, dev, gpu, jobs, SW_JOB1,
+                 *job1_inputs(rng, SW_JOB1[1]), 4, 4)
+    sw_align_job(sw, table, rng, dev, gpu, jobs, SW_JOB3,
+                 *job3_inputs(sw, rng, SW_JOB3[1]), 1, 2)
+
+
+def phase_sw_table(swp, rng, dev, gpu, jobs):
+    """Path sw_table: BLOSUM62 on protein (BASELINE.json configs[2])."""
+    table = blosum62_table(swp.scoring)
+    A = seqs(rng, PROTEIN_PAIRS, 100, 1000, AMINO)
+    B = seqs(rng, PROTEIN_PAIRS, 100, 1000, AMINO)
+    sw_scores_job(swp, table, rng, dev, gpu, jobs,
+                  f"sw_table best_score_batch {PROTEIN_PAIRS} x 100-1000 aa",
+                  A, B, 64, 4)
+    sw_align_job(swp, table, rng, dev, gpu, jobs, SW_JOB2,
+                 *job2_inputs(rng, SW_JOB2[1]), 4, 4)
+
+
+def consume_per_pair(sw, A, B, mins, k):
+    """``align_batch`` wall seconds, then each pair's seconds for its first
+    ``k`` hits, and the pairs' candidate counts."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    its = sw.align_batch(A, B, mins)
+    t_batch = time.perf_counter() - t0
+    secs = []
+    for it in its:
+        t0 = time.perf_counter()
+        list(itertools.islice(it, k))
+        secs.append(time.perf_counter() - t0)
+    return t_batch, np.array(secs), np.array([it.n_candidates for it in its])
+
+
+AB_BINS = (-1, 256, 1024, 4096, 16384, 65536, 262144, 1 << 62)
+
+
+def walk_ab(sw, swp, rng, gpu):
+    """The first AB_PAIRS pairs of each SW align job under each walk
+    branch, host, device, device, host: the whole job's wall seconds, and
+    each pair's consume seconds summed by its candidate count."""
+    from seqalign_tpu_torch import aligners
+
+    m = AB_PAIRS
+    entries = [(sw, SW_JOB1, *job1_inputs(rng, m)),
+               (sw, SW_JOB3, *job3_inputs(sw, rng, m)),
+               (swp, SW_JOB2, *job2_inputs(rng, m))]
+    saved = aligners._SW_DEVWALK_CANDS
+    try:
+        for s, (name, _, k), A, B, mins in entries:
+            batch = {"host": [], "device": []}
+            pair = {"host": 0.0, "device": 0.0}
+            for branch in ("host", "device", "device", "host"):
+                aligners._SW_DEVWALK_CANDS = -1 if branch == "host" else saved
+                with PlainGuard():
+                    tb, secs, c = consume_per_pair(s, A, B, mins, k)
+                batch[branch].append(tb + secs.sum())
+                pair[branch] = pair[branch] + secs / 2
+            log(f"walk A/B {name}, {m} pairs, first {k} hits: candidates "
+                f"per pair median {int(np.median(c))} max {c.max()}; job "
+                f"wall host " + ", ".join(f"{t:.4f}" for t in batch["host"])
+                + " s; device " + ", ".join(f"{t:.4f}" for t in
+                                            batch["device"]) + f" s [{gpu}]")
+            for lo, hi in zip(AB_BINS, AB_BINS[1:]):
+                sel = (c > lo) & (c <= hi)
+                if sel.any():
+                    log(f"walk A/B {name}: {int(sel.sum())} pairs of {lo + 1}"
+                        f"-{hi if hi < AB_BINS[-1] else 'inf'} candidates: "
+                        f"consume host {pair['host'][sel].sum():.4f} s, "
+                        f"device {pair['device'][sel].sum():.4f} s")
+    finally:
+        aligners._SW_DEVWALK_CANDS = saved
+
+
+def counted(path, counts):
+    for k in PATHS[path]:
+        if counts[k] <= 0:
+            raise AssertionError(f"path {path}: {k} was not launched: "
+                                 f"{counts}")
+    log(f"kernel launches in path {path}: {counts}")
 
 
 def _self_device_us(e) -> float:
@@ -427,6 +887,9 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="profile each main-path job and write the tables "
                          "to DIR")
+    ap.add_argument("--walk-ab", action="store_true",
+                    help="only time the SW align jobs' first pairs under "
+                         "both walk branches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -436,8 +899,9 @@ def main() -> int:
     import seqalign_tpu_torch as port
     from seqalign_tpu_torch.ops import build
 
+    t_run = time.perf_counter()
     gpu = gpu_name_power()
-    log(gpu)
+    print(gpu, flush=True)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -447,24 +911,44 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     nw = port.NeedlemanWunsch(device="cuda")
-    err, times = phase1(nw.params, rng, dev)
+    nwp = port.NeedlemanWunsch(port.presets.scoring_system_BLOSUM62(),
+                               device="cuda")
+    sw = port.SmithWaterman(device="cuda")
+    swp = port.SmithWaterman(port.presets.scoring_system_BLOSUM62(),
+                             device="cuda")
+    if args.walk_ab:
+        walk_ab(sw, swp, rng, gpu)
+        return 0
+    err, times = phase1({"nw": nw.scoring, "sw": sw.scoring,
+                         "table": nwp.scoring}, rng, dev)
 
     jobs: dict = {}
-    port.reset_kernel_launch_counts()
-    phase2(nw, rng, dev, gpu, jobs)
-    after2 = counted({}, ["nw_scores"])
-    phase3(nw, rng, dev, gpu, jobs)
-    launches = counted(after2, ["nw_fill_dirs", "nw_walk"])
-    log(f"kernel launches in phases 2-3: {launches}")
+    launches = {}
+    for path, run in (("nw", lambda: phase_nw(nw, rng, dev, gpu, jobs)),
+                      ("nw_table", lambda: phase_nw_table(nwp, rng, dev, gpu,
+                                                          jobs)),
+                      ("sw", lambda: phase_sw(sw, rng, dev, gpu, jobs)),
+                      ("sw_table", lambda: phase_sw_table(swp, rng, dev, gpu,
+                                                          jobs))):
+        t0 = time.perf_counter()
+        port.reset_kernel_launch_counts()
+        run()
+        launches[path] = port.kernel_launch_counts()
+        counted(path, launches[path])
+        log(f"path {path} done in {time.perf_counter() - t0:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("the port loaded JAX")
     if args.profile:
         profile(jobs, args.profile)
 
-    rows = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[k], "max_abs_err": err[k],
-             "ms": times[k][0], "plain_ms": times[k][1]}
-            for k, (src, rep) in KERNELS.items()]
+    rows = []
+    for name, (counter, src, rep) in KERNELS.items():
+        path = name.split("_")[0] + ("_table" if "[table]" in name else "")
+        rows.append({"name": name, "route": "cuda", "source": _CSRC + src,
+                     "replaces": rep, "launches": launches[path][counter],
+                     "max_abs_err": err[name], "ms": times[name][0],
+                     "plain_ms": times[name][1]})
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

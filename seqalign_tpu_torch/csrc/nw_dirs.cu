@@ -1,23 +1,24 @@
-// NW fill with direction codes, equality scoring, default flags.
+// NW fill with direction codes, default flags, equality or
+// substitution-table scoring.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
-// pallas_fill_dirs2) in NW mode.  Same fill as nw_scores.cu; each valid
-// cell also writes one byte, dm | dga << 2 | dgb << 4, chosen with the
-// reference traceback's guard/equality/priority order (GAP_A > GAP_B >
-// MATCH, alignment.c:311-327), into the skewed (B, LA+LB-1, LB+1) layout
-// of seqalign_tpu/ops/traceback.py (cell (y, x) at [x+y-2][y]).  Lanes of
-// one diagonal are neighbouring bytes, so a warp's stores coalesce.
+// pallas_fill_dirs2) in NW mode, and the NW default-flag duties of
+// pallas_dp.py:_dirs_kernel (4,097-8,192 lanes, other alphabets).  Same
+// fill as nw_scores.cu; each valid cell also writes one byte,
+// dm | dga << 2 | dgb << 4, chosen with the reference traceback's
+// guard/equality/priority order (GAP_A > GAP_B > MATCH,
+// alignment.c:311-327), into the skewed (B, LA+LB-1, LB+1) layout of
+// seqalign_tpu/ops/traceback.py (cell (y, x) at [x+y-2][y]).  Lanes of one
+// diagonal are neighbouring bytes, so a warp's stores coalesce.
 //
 // Bound on the card: the code stores, one byte per cell of the padded
 // layout's valid band, plus the barrier per diagonal.  Cells outside the
 // valid band are never written; the walk never reads them.
 
-#include "nw_common.cuh"
+#include "fill_common.cuh"
 
-extern "C" int nw_dirs_launch(const void* ac, const void* bc, const void* na,
-                              const void* nb, const void* scal, int B, int LA,
-                              int LB, void* scores, void* corner, void* dirs,
-                              void* scratch, void* stream) {
-  return nw::launch_fill<true>(ac, bc, na, nb, scal, B, LA, LB, scores,
-                               corner, dirs, scratch, stream);
+FILL_ENTRY(nw_dirs_launch) {
+  return fill::launch_mode<true, false, 0>(
+      ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
+      corner, dirs, nullptr, scratch, stream);
 }

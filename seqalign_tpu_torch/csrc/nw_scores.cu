@@ -1,27 +1,27 @@
-// NW scores, equality scoring, default flags.
+// NW scores, default flags, equality or substitution-table scoring.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
-// pallas_scores2) in NW equality mode.  The TPU kernel chains pairs along
-// 512-lane rows, removes drift to stay exact in f32 and sizes its blocks
-// to VMEM; on the H100 the fill is native int32 with one block per pair
-// (nw_common.cuh), so none of that is needed.  Only the corner cell is
-// kept: the rolling diagonals are the whole working set, and the kernel
-// writes 16 bytes per pair.
+// pallas_scores2) in NW mode, equality and packed-LUT scoring, and the
+// default-flag NW duty of pallas_dp.py:_kernel (alphabets past the
+// packed-LUT gate).  The TPU kernel chains pairs along 512-lane rows,
+// removes drift to stay exact in f32, sizes its blocks to VMEM and bakes
+// the table into select planes; on the H100 the fill is native int32 with
+// one block per pair (fill_common.cuh) and the table sits in shared
+// memory, so none of that is needed.  Only the corner cell is kept: the
+// rolling diagonals are the whole working set, and the kernel writes 16
+// bytes per pair.
 //
 // Bound on the card: the per-diagonal barrier and integer issue rate,
 // not memory (the working set of a 512-wide pair is 18 KB of shared
 // memory).  Pairs wider than 6455 lanes keep their diagonals in a global
 // scratch buffer (L1/L2 resident per block) instead.
 
-#include "nw_common.cuh"
+#include "fill_common.cuh"
 
-extern "C" int nw_scores_launch(const void* ac, const void* bc,
-                                const void* na, const void* nb,
-                                const void* scal, int B, int LA, int LB,
-                                void* scores, void* corner, void* scratch,
-                                void* stream) {
-  return nw::launch_fill<false>(ac, bc, na, nb, scal, B, LA, LB, scores,
-                                corner, nullptr, scratch, stream);
+FILL_ENTRY(nw_scores_launch) {
+  return fill::launch_mode<false, false, 0>(
+      ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
+      corner, nullptr, nullptr, scratch, stream);
 }
 
 extern "C" const char* nw_error_string(int code) {

@@ -1,0 +1,157 @@
+// SW hit streams on the card: the reference's best-first hit loop with its
+// overlap mask and partial-walk abort, one thread block per pair.
+//
+// Replaces the host loop of seqalign_tpu/ops/traceback.py:SwHitIterator.fetch
+// (:376-392, walking with _follow_hit :281-324), which the JAX package runs
+// on the host over device-walked paths (smith_waterman.c:131-277).  Pair j's
+// candidates cand_flat/cand_score[lo[j] .. hi[j]) come sorted in the
+// iterator's order (score desc, x asc, flat asc), flat = y * (na+1) + x.  A
+// candidate whose cell is marked is skipped; one whose MATCH predecessor
+// (y-1, x-1) is marked marks its cell and is skipped (its walk would abort at
+// the first step); any other walks back over the codes, marking each cell it
+// enters, and either meets a marked cell (an abort, whose marks stay) or
+// reaches score 0 (a hit).  The first k hits' (flat, score) are written and
+// their count goes to nhits[j]; fewer than k means the candidates ran out.
+// A DIR_FAIL code, or a walk that leaves the matrix, sets nhits[j] = -1.
+// The paths of the hits are traced by sw_walk.cu afterwards.
+//
+// The mask is one bit per cell (y, x), 0 <= y <= LB, 0 <= x <= LA, in MW
+// words: in dynamic shared memory when it fits (pairs up to ~1,360^2 cells),
+// zeroed by the block's threads, else in a zeroed global buffer.  Only
+// thread 0 then walks: every step depends on the marks the steps before it
+// set, so a pair's stream is serial.
+//
+// Bound on the card: the dependent chain of mask and code loads of one
+// thread; pairs run side by side, so a batch of a few hundred pairs hides
+// latency across blocks.  Only the hit records leave the card.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+enum { MATCH = 0, GAP_A = 1, GAP_B = 2, DIR_FAIL = 3 };
+
+__device__ __forceinline__ bool marked(const uint32_t* m, int f) {
+  return (m[f >> 5] >> (f & 31)) & 1u;
+}
+
+__device__ __forceinline__ void mark(uint32_t* m, int f) {
+  m[f >> 5] |= 1u << (f & 31);
+}
+
+__global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
+                               const uint8_t* __restrict__ ac,
+                               const uint8_t* __restrict__ bc,
+                               const int* __restrict__ scal,
+                               const int* __restrict__ sub, int Kb,
+                               const int* __restrict__ na,
+                               const int* __restrict__ cand_flat,
+                               const int* __restrict__ cand_score,
+                               const int64_t* __restrict__ lo,
+                               const int64_t* __restrict__ hi, int LA, int LB,
+                               int k, int MW, uint32_t* __restrict__ gmask,
+                               int use_smem, int* __restrict__ hit_flat,
+                               int* __restrict__ hit_score,
+                               int* __restrict__ nhits) {
+  extern __shared__ uint32_t smask[];
+  const int j = blockIdx.x;
+  uint32_t* mask;
+  if (use_smem) {
+    for (int i = threadIdx.x; i < MW; i += blockDim.x) smask[i] = 0;
+    __syncthreads();
+    mask = smask;
+  } else {
+    mask = gmask + static_cast<size_t>(j) * MW;
+  }
+  if (threadIdx.x != 0) return;
+  const int LBp = LB + 1;
+  const int match = scal[0], mismatch = scal[1], ge = scal[3];
+  const int gop = static_cast<int>(static_cast<unsigned>(scal[2]) +
+                                   static_cast<unsigned>(ge));
+  const uint8_t* dj = dirs + static_cast<size_t>(j) * (LA + LB - 1) * LBp;
+  const uint8_t* aj = ac + static_cast<size_t>(j) * LA;
+  const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
+  int* hf = hit_flat + static_cast<size_t>(j) * k;
+  int* hs = hit_score + static_cast<size_t>(j) * k;
+  const int w = na[j] + 1;
+  int n = 0;
+  bool fail = false;
+  for (int64_t c = lo[j], end = hi[j]; c < end && n < k && !fail; ++c) {
+    const int flat = cand_flat[c];
+    if (marked(mask, flat)) continue;
+    if (marked(mask, flat - w - 1)) {
+      mark(mask, flat);
+      continue;
+    }
+    const int score = cand_score[c];
+    int x = flat % w, y = flat / w, curr = MATCH, cs = score;
+    while (true) {
+      const int f = y * w + x;
+      if (marked(mask, f)) break;  // abort: the marks so far stay
+      mark(mask, f);
+      if (cs == 0) {
+        hf[n] = flat;
+        hs[n] = score;
+        ++n;
+        break;
+      }
+      if (x < 1 || y < 1) {
+        fail = true;
+        break;
+      }
+      const int code = dj[static_cast<size_t>(x + y - 2) * LBp + y];
+      const int nxt = (code >> (2 * curr)) & 3;
+      if (nxt == DIR_FAIL) {
+        fail = true;
+        break;
+      }
+      int pen;
+      if (curr == MATCH) {
+        const int ai = aj[x - 1], bi = bj[y - 1];
+        pen = sub ? __ldg(sub + ai * Kb + bi) : (ai == bi ? match : mismatch);
+        --x;
+        --y;
+      } else {
+        pen = nxt == curr ? ge : gop;
+        if (curr == GAP_A) --y; else --x;
+      }
+      cs = static_cast<int>(static_cast<unsigned>(cs) -
+                            static_cast<unsigned>(pen));
+      curr = nxt;
+    }
+  }
+  nhits[j] = fail ? -1 : n;
+}
+
+}  // namespace
+
+// dirs, ac, bc, scal, sub (or null), Kb, na, cand_flat, cand_score, lo, hi,
+// B, LA, LB, k, MW, gmask (null with use_smem), use_smem, hit_flat,
+// hit_score, nhits, stream
+extern "C" int sw_hits_launch(const void* dirs, const void* ac,
+                              const void* bc, const void* scal,
+                              const void* sub, int Kb, const void* na,
+                              const void* cand_flat, const void* cand_score,
+                              const void* lo, const void* hi, int B, int LA,
+                              int LB, int k, int MW, void* gmask,
+                              int use_smem, void* hit_flat, void* hit_score,
+                              void* nhits, void* stream) {
+  const size_t smem = use_smem ? static_cast<size_t>(MW) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sw_hits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  sw_hits_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(dirs), static_cast<const uint8_t*>(ac),
+      static_cast<const uint8_t*>(bc), static_cast<const int*>(scal),
+      static_cast<const int*>(sub), Kb, static_cast<const int*>(na),
+      static_cast<const int*>(cand_flat), static_cast<const int*>(cand_score),
+      static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), LA, LB,
+      k, MW, static_cast<uint32_t*>(gmask), use_smem,
+      static_cast<int*>(hit_flat), static_cast<int*>(hit_score),
+      static_cast<int*>(nhits));
+  return cudaGetLastError();
+}

@@ -1,0 +1,23 @@
+// SW best scores, default flags, equality or substitution-table scoring.
+//
+// Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
+// pallas_scores2 with is_sw) in SW mode, equality and packed-LUT scoring,
+// and the SW default-flag duty of pallas_dp.py:_kernel.  The fill is the
+// one of nw_scores.cu (fill_common.cuh) with the local recurrence: every
+// cell floors at 0, the boundary is all zero, and each thread keeps the
+// best M of the cells it computes; a warp reduces them with
+// __reduce_max_sync and its leader folds the result into the pair's score
+// with one atomicMax.  The TPU kernel carries that max through its drift
+// terms in f32; here it is an int32 register.
+//
+// Bound on the card: as nw_scores.cu, the per-diagonal barrier and the
+// integer ops per cell; the reduction is one shuffle tree per warp at the
+// end.
+
+#include "fill_common.cuh"
+
+FILL_ENTRY(sw_scores_launch) {
+  return fill::launch_mode<false, true, 0>(
+      ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
+      nullptr, nullptr, nullptr, scratch, stream);
+}

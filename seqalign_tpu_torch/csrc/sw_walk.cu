@@ -1,0 +1,94 @@
+// SW candidate walks over direction codes, one thread per walk.
+//
+// Replaces seqalign_tpu/ops/traceback.py:sw_walk_jit (the lax.scan behind
+// SwDeviceWalker).  Walk w starts in pair jw[w] at cell (y0, x0) with
+// score s0 and steps back until its score reaches 0 (traceback.py:
+// 624-650): each step reads one code byte in place from the skewed dirs
+// tensor, records the matrix walked, and subtracts the step's penalty,
+// the equality score or sub[a, b] for a MATCH step (the codes of the fill
+// are read in place too), gap_extend for a gap that goes on and
+// gap_open + gap_extend for one that opens.  No overlap mask: paths depend
+// only on the codes; the aligner walks the hits sw_hits.cu found, whose
+// masking and abort ran there.  A DIR_FAIL code is not checked here: it
+// shows as a 3 in the next step, and the host raises on it.
+//
+// Bound on the card: the dependent chain of byte loads (each step's
+// address needs the previous code), so one walk is latency bound; a batch
+// of walks hides latency only across walks.  Only the int8 trace, padded
+// with -1 to `cap` steps, leaves the card.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+enum { MATCH = 0, GAP_A = 1, GAP_B = 2 };
+
+__global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
+                               const uint8_t* __restrict__ ac,
+                               const uint8_t* __restrict__ bc,
+                               const int* __restrict__ scal,
+                               const int* __restrict__ sub, int Kb,
+                               const int* __restrict__ jw,
+                               const int* __restrict__ x0,
+                               const int* __restrict__ y0,
+                               const int* __restrict__ s0, int W, int B,
+                               int LA, int LB, int cap,
+                               int8_t* __restrict__ ops) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  int8_t* ow = ops + static_cast<size_t>(w) * cap;
+  const int j = jw[w];
+  int step = 0;
+  if (j >= 0 && j < B) {
+    const int LBp = LB + 1;
+    const int match = scal[0], mismatch = scal[1], ge = scal[3];
+    const int gop = static_cast<int>(static_cast<unsigned>(scal[2]) +
+                                     static_cast<unsigned>(ge));
+    const uint8_t* dj = dirs + static_cast<size_t>(j) * (LA + LB - 1) * LBp;
+    const uint8_t* aj = ac + static_cast<size_t>(j) * LA;
+    const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
+    int X = min(x0[w], LA), Y = min(y0[w], LB), cs = s0[w], curr = MATCH;
+    for (; step < cap && cs > 0; ++step) {
+      const int Xc = max(X, 1), Yc = max(Y, 1);
+      const int code = dj[static_cast<size_t>(Xc + Yc - 2) * LBp + Yc];
+      const int nxt = (code >> (2 * curr)) & 3;
+      int pen;
+      if (curr == MATCH) {
+        const int ai = aj[Xc - 1], bi = bj[Yc - 1];
+        pen = sub ? __ldg(sub + ai * Kb + bi) : (ai == bi ? match : mismatch);
+      } else {
+        pen = nxt == curr ? ge : gop;
+      }
+      ow[step] = static_cast<int8_t>(curr);
+      cs = static_cast<int>(static_cast<unsigned>(cs) -
+                            static_cast<unsigned>(pen));
+      if (curr != GAP_A) --X;
+      if (curr != GAP_B) --Y;
+      curr = nxt;
+    }
+  }
+  for (; step < cap; ++step) ow[step] = -1;
+}
+
+}  // namespace
+
+// dirs, ac, bc, scal, sub (or null), Kb, jw, x0, y0, s0, W, B, LA, LB, cap,
+// ops, stream
+extern "C" int sw_walk_launch(const void* dirs, const void* ac,
+                              const void* bc, const void* scal,
+                              const void* sub, int Kb, const void* jw,
+                              const void* x0, const void* y0, const void* s0,
+                              int W, int B, int LA, int LB, int cap,
+                              void* ops, void* stream) {
+  const int threads = 128;
+  sw_walk_kernel<<<(W + threads - 1) / threads, threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(dirs), static_cast<const uint8_t*>(ac),
+      static_cast<const uint8_t*>(bc), static_cast<const int*>(scal),
+      static_cast<const int*>(sub), Kb, static_cast<const int*>(jw),
+      static_cast<const int*>(x0), static_cast<const int*>(y0),
+      static_cast<const int*>(s0), W, B, LA, LB, cap,
+      static_cast<int8_t*>(ops));
+  return cudaGetLastError();
+}

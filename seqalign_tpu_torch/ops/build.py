@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes`` (seconds to build; no PyTorch headers).
+``nvcc`` compiles each ``csrc/*.cu`` to an object, all sources at once in
+parallel processes, and links them into one shared library with a plain C
+interface, loaded with ``ctypes`` (seconds to build; no PyTorch headers).
 The library lands in ``seqalign_tpu_torch/_build/`` under a name keyed by a
 hash of the sources and flags, is written to a temporary name first and
-then renamed, so a stale or half-written library is never loaded.  The
-build runs at first use; a failed build raises with nvcc's output.
+then renamed, so a stale or half-written library is never loaded; the
+objects live in a temporary directory that is removed.  The build runs at
+first use; a failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -15,23 +17,36 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
+# corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
+_FILL = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+         _P, _P)
 _SIGNATURES = {
-    # ac, bc, na, nb, scal, B, LA, LB, scores, corner, scratch, stream
-    "nw_scores_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # ac, bc, na, nb, scal, B, LA, LB, scores, corner, dirs, scratch, stream
-    "nw_dirs_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "nw_scores_launch": _FILL,
+    "nw_dirs_launch": _FILL,
+    "sw_scores_launch": _FILL,
+    "sw_dirs_launch": _FILL,
     # dirs, corner, na, nb, B, D, LB+1, cap, ops, score, stream
     "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # dirs, ac, bc, scal, sub, Kb, jw, x0, y0, s0, W, B, LA, LB, cap, ops,
+    # stream
+    "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _P, _P),
+    # dirs, ac, bc, scal, sub, Kb, na, cand_flat, cand_score, lo, hi, B, LA,
+    # LB, k, MW, gmask, use_smem, hit_flat, hit_score, nhits, stream
+    "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _P, _I, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -54,18 +69,36 @@ def build() -> Path:
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = BUILD_DIR / f"libseqalign_nw_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"libseqalign_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {r.returncode}:\n{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(prefix=".objs-", dir=BUILD_DIR))
+    try:
+        objs = [work / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        logs, failed = [], []
+        for src, p in zip(sources, procs):
+            so, se = p.communicate()
+            logs.append(f"{src.name}:\n{so}{se}")
+            if p.returncode != 0:
+                failed.append(f"{src.name}: code {p.returncode}")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + "".join(logs))
+        tmp = work / out.name
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {r.returncode}:"
+                               f"\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -1,5 +1,7 @@
-"""Wrappers of the port's CUDA kernels: ``nw_scores``, ``nw_fill_dirs`` and
-``nw_walk``.
+"""Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
+``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
+substitution-table scoring, the latter when ``params.sub`` is set), the
+walks ``nw_walk`` and ``sw_walk``, and the SW hit loop ``sw_hits``.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -8,7 +10,8 @@ failed build or launch raises — nothing falls back.  Kernels launch on the
 current stream and neither synchronise nor allocate: outputs and scratch
 come from ``torch.empty`` here.  Every launch adds one to its kernel's
 count in :func:`kernel_launch_counts` (the port's counterpart of
-``seqalign_tpu.aligners.pallas_dispatch_counts``).
+``seqalign_tpu.aligners.pallas_dispatch_counts``); the table mode counts
+under its kernel's name.
 """
 
 from __future__ import annotations
@@ -18,14 +21,16 @@ import ctypes
 import torch
 
 from .build import library
-from .dp import nw_fill_dirs_plain, nw_scores_plain
+from .dp import (nw_fill_dirs_plain, nw_scores_plain, sw_fill_dirs_plain,
+                 sw_scores_plain)
 from .pack import KernelParams
-from .traceback import nw_walk_plain, walk_cap
+from .traceback import nw_walk_plain, sw_hits_plain, sw_walk_plain, walk_cap
 
-# dynamic shared memory a block may use on sm_90 (csrc/nw_common.cuh)
+# dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
 
-_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_walk": 0}
+_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_walk": 0, "sw_scores": 0,
+           "sw_fill_dirs": 0, "sw_walk": 0, "sw_hits": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -50,38 +55,40 @@ def _expect(t, name, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_params(params: KernelParams, dev):
+    _expect(params.scal, "params.scal", torch.int32, 1, dev)
+    if params.scal.shape[0] != 6:
+        raise ValueError("params.scal must be of size 6")
+    if params.sub is not None:
+        _expect(params.sub, "params.sub", torch.int32, 2, dev)
+        if min(params.sub.shape) < 1:
+            raise ValueError("params.sub must be a non-empty table")
+
+
 def _check_fill(ac, bc, na, nb, params: KernelParams):
     dev = ac.device
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
     _expect(na, "na", torch.int32, 1, dev)
     _expect(nb, "nb", torch.int32, 1, dev)
-    _expect(params.scal, "params.scal", torch.int32, 1, dev)
+    _check_params(params, dev)
     B, LA = ac.shape
     LB = bc.shape[1]
     if bc.shape[0] != B or na.shape[0] != B or nb.shape[0] != B:
         raise ValueError("ac, bc, na and nb must hold the same pair count")
-    if LA < 1 or LB < 1 or params.scal.shape[0] != 5:
-        raise ValueError("widths must be >= 1 and params.scal of size 5")
+    if LA < 1 or LB < 1:
+        raise ValueError("widths must be >= 1")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return B, LA, LB
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _scratch(B, LB, dev):
-    """Global home of the rolling diagonals when shared memory is too
-    small for them (36 bytes per lane)."""
-    if 36 * (LB + 1) <= SMEM_MAX:
-        return None
-    return torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev)
 
 
 def _launched(name, lib, rc):
@@ -91,23 +98,44 @@ def _launched(name, lib, rc):
     _COUNTS[name] += 1
 
 
+def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
+          dirs=None, mout=None, m16=False):
+    """Launch one of the fill kernels (csrc/fill_common.cuh).  The rolling
+    diagonals (36 bytes per lane) take shared memory when they fit there,
+    else a global scratch buffer; the table (4 bytes per entry) takes the
+    shared memory left, else the read-only global path."""
+    B, LA = ac.shape
+    LB = bc.shape[1]
+    if B == 0:
+        return
+    dev = ac.device
+    diag = 36 * (LB + 1)
+    scratch = (None if diag <= SMEM_MAX else
+               torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev))
+    sub = params.sub
+    kb = sub_n = table_smem = 0
+    if sub is not None:
+        kb, sub_n = sub.shape[1], sub.numel()
+        used = 0 if scratch is not None else diag
+        table_smem = int(used + 4 * sub_n <= SMEM_MAX)
+    lib = library()
+    rc = getattr(lib, entry)(
+        _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
+        kb, sub_n, table_smem, B, LA, LB, _ptr(scores), _ptr(corner),
+        _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev))
+    _launched(name, lib, rc)
+
+
 def nw_scores(ac, bc, na, nb, params: KernelParams):
     """NW scores and corners of a padded batch (see ``nw_scores_plain``):
     returns ``(scores (B,) int32, corner (B, 3) int32)``."""
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
     if ac.device.type == "cpu":
         return nw_scores_plain(ac, bc, na, nb, params)
-    lib = library()
     scores = torch.empty(B, dtype=torch.int32, device=ac.device)
     corner = torch.empty((B, 3), dtype=torch.int32, device=ac.device)
-    if B == 0:
-        return scores, corner
-    scratch = _scratch(B, LB, ac.device)
-    rc = lib.nw_scores_launch(
-        _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), B, LA,
-        LB, _ptr(scores), _ptr(corner),
-        None if scratch is None else _ptr(scratch), _stream(ac.device))
-    _launched("nw_scores", lib, rc)
+    _fill("nw_scores", "nw_scores_launch", ac, bc, na, nb, params, scores,
+          corner)
     return scores, corner
 
 
@@ -118,21 +146,44 @@ def nw_fill_dirs(ac, bc, na, nb, params: KernelParams):
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
     if ac.device.type == "cpu":
         return nw_fill_dirs_plain(ac, bc, na, nb, params)
-    lib = library()
     dev = ac.device
     dirs = torch.empty((B, LA + LB - 1, LB + 1), dtype=torch.uint8,
                        device=dev)
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     corner = torch.empty((B, 3), dtype=torch.int32, device=dev)
-    if B == 0:
-        return dirs, corner
-    scratch = _scratch(B, LB, dev)
-    rc = lib.nw_dirs_launch(
-        _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), B, LA,
-        LB, _ptr(scores), _ptr(corner), _ptr(dirs),
-        None if scratch is None else _ptr(scratch), _stream(dev))
-    _launched("nw_fill_dirs", lib, rc)
+    _fill("nw_fill_dirs", "nw_dirs_launch", ac, bc, na, nb, params, scores,
+          corner, dirs)
     return dirs, corner
+
+
+def sw_scores(ac, bc, na, nb, params: KernelParams):
+    """SW best scores of a padded batch (see ``sw_scores_plain``): (B,)
+    int32."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    if ac.device.type == "cpu":
+        return sw_scores_plain(ac, bc, na, nb, params)
+    scores = torch.empty(B, dtype=torch.int32, device=ac.device)
+    _fill("sw_scores", "sw_scores_launch", ac, bc, na, nb, params, scores)
+    return scores
+
+
+def sw_fill_dirs(ac, bc, na, nb, params: KernelParams, m16: bool = False):
+    """The SW fill with direction codes and M (see ``sw_fill_dirs_plain``):
+    returns ``(dirs uint8, M int16 if m16 else int32)``, both
+    (B, LA+LB-1, LB+1); only cells 1 <= y <= nb, 1 <= x <= na are
+    defined."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    if ac.device.type == "cpu":
+        return sw_fill_dirs_plain(ac, bc, na, nb, params, m16)
+    dev = ac.device
+    shape = (B, LA + LB - 1, LB + 1)
+    dirs = torch.empty(shape, dtype=torch.uint8, device=dev)
+    mout = torch.empty(shape, dtype=torch.int16 if m16 else torch.int32,
+                       device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    _fill("sw_fill_dirs", "sw_dirs_launch", ac, bc, na, nb, params, scores,
+          dirs=dirs, mout=mout, m16=m16)
+    return dirs, mout
 
 
 def nw_walk(dirs, corner, na, nb, cap: int):
@@ -162,3 +213,93 @@ def nw_walk(dirs, corner, na, nb, cap: int):
                             _stream(dev))
     _launched("nw_walk", lib, rc)
     return ops, score
+
+
+def sw_walk(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams, cap: int):
+    """Device SW candidate walks (see ``sw_walk_plain``) over one fill's
+    ``dirs`` and codes: returns the op traces (W, walk_cap(cap)) int8."""
+    dev = dirs.device
+    _expect(dirs, "dirs", torch.uint8, 3, dev)
+    _expect(ac, "ac", torch.uint8, 2, dev)
+    _expect(bc, "bc", torch.uint8, 2, dev)
+    for t, n in ((jw, "jw"), (x0, "x0"), (y0, "y0"), (s0, "s0")):
+        _expect(t, n, torch.int32, 1, dev)
+    _check_params(params, dev)
+    B, D, LBp = dirs.shape
+    LA, LB = ac.shape[1], bc.shape[1]
+    W = jw.shape[0]
+    if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
+            LA + LB - 1 != D:
+        raise ValueError("dirs, ac and bc must come from one fill")
+    if not x0.shape[0] == y0.shape[0] == s0.shape[0] == W:
+        raise ValueError("jw, x0, y0 and s0 must hold the same walk count")
+    if dev.type == "cpu":
+        return sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    capr = walk_cap(cap)
+    ops = torch.empty((W, capr), dtype=torch.int8, device=dev)
+    if W == 0:
+        return ops
+    lib = library()
+    sub = params.sub
+    rc = lib.sw_walk_launch(
+        _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
+        0 if sub is None else sub.shape[1], _ptr(jw), _ptr(x0), _ptr(y0),
+        _ptr(s0), W, B, LA, LB, capr, _ptr(ops), _stream(dev))
+    _launched("sw_walk", lib, rc)
+    return ops
+
+
+def sw_hits(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
+            params: KernelParams, k: int):
+    """The first ``k`` hits of every pair of one SW fill, found on the
+    device with the reference's overlap mask (see ``sw_hits_plain``):
+    returns ``(hit_flat (B, k) int32, hit_score (B, k) int32, nhits (B,)
+    int32)``.  The mask takes ``(LB+1) * (LA+1)`` bits a pair: shared
+    memory when that fits, else a zeroed global buffer."""
+    dev = dirs.device
+    _expect(dirs, "dirs", torch.uint8, 3, dev)
+    _expect(ac, "ac", torch.uint8, 2, dev)
+    _expect(bc, "bc", torch.uint8, 2, dev)
+    _expect(na, "na", torch.int32, 1, dev)
+    _expect(cand_flat, "cand_flat", torch.int32, 1, dev)
+    _expect(cand_score, "cand_score", torch.int32, 1, dev)
+    _expect(lo, "lo", torch.int64, 1, dev)
+    _expect(hi, "hi", torch.int64, 1, dev)
+    _check_params(params, dev)
+    B, D, LBp = dirs.shape
+    LA, LB = ac.shape[1], bc.shape[1]
+    if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
+            LA + LB - 1 != D:
+        raise ValueError("dirs, ac and bc must come from one fill")
+    if not na.shape[0] == lo.shape[0] == hi.shape[0] == B:
+        raise ValueError("na, lo and hi must hold one entry per pair")
+    if cand_flat.shape != cand_score.shape:
+        raise ValueError("cand_flat and cand_score must be of one size")
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    if dev.type == "cpu":
+        return sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
+                             params, k)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    hit_flat = torch.zeros((B, k), dtype=torch.int32, device=dev)
+    hit_score = torch.zeros((B, k), dtype=torch.int32, device=dev)
+    nhits = torch.zeros(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return hit_flat, hit_score, nhits
+    MW = -(-LBp * (LA + 1) // 32)
+    smem = 4 * MW <= SMEM_MAX
+    gmask = (None if smem else
+             torch.zeros((B, MW), dtype=torch.int32, device=dev))
+    lib = library()
+    sub = params.sub
+    rc = lib.sw_hits_launch(
+        _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
+        0 if sub is None else sub.shape[1], _ptr(na), _ptr(cand_flat),
+        _ptr(cand_score), _ptr(lo), _ptr(hi), B, LA, LB, k, MW, _ptr(gmask),
+        int(smem), _ptr(hit_flat), _ptr(hit_score), _ptr(nhits),
+        _stream(dev))
+    _launched("sw_hits", lib, rc)
+    return hit_flat, hit_score, nhits

@@ -4,9 +4,10 @@ The JAX package keeps these helpers in ``seqalign_tpu/ops/dp.py``, whose
 module imports JAX; they are written again here on the shared jax-free
 layers (``seqalign_tpu.io.packer`` and ``seqalign_tpu.scoring``) so the
 port never loads JAX.  Counterparts: ``dp._next_pow2``, ``dp.pad_width``,
-``dp.pad_batch``, ``dp.pack_inputs_mm``, ``dp.mm_eligible``
-and ``dp.check_valid_pairs`` (dp.py:437-523, 562-610), and the direction
-codes of dp.py:47.
+``dp.pad_batch``, ``dp.pack_inputs_mm``, ``dp.compact_inputs``,
+``dp._present_bytes``, ``dp.mm_eligible`` and ``dp.check_valid_pairs``
+(dp.py:437-610), ``pallas_dp2.m16_safe`` (pallas_dp2.py:94-101), and the
+direction codes of dp.py:47.
 
 This system has no weights: its state is the :class:`ScoringConfig`.
 :func:`kernel_params` turns it into the tensors the kernels read.
@@ -32,20 +33,25 @@ class KernelParams(NamedTuple):
 
     fold: (256,) uint8 case-fold LUT, on the CPU — the host packer applies
       it during the pack copy, so kernels only ever see folded codes.
-    scal: (5,) int32 on the compute device — match, mismatch, gap_open,
-      gap_extend and the NW floor ``sc.dp_floor(False)``
-      (INT_MIN + |min_penalty|, scoring/config.py:135-141).
+    scal: (6,) int32 on the compute device — match, mismatch, gap_open,
+      gap_extend, the NW floor ``sc.dp_floor(False)`` (INT_MIN +
+      |min_penalty|) and the SW floor ``sc.dp_floor(True)`` (0)
+      (scoring/config.py:135-141).
+    sub: None for equality scoring; for substitution-table scoring the
+      batch's (Ka, Kb) int32 compact table on the compute device, set per
+      batch by :func:`pack_batch` (the codes index it as ``sub[a, b]``).
     """
 
     fold: torch.Tensor
     scal: torch.Tensor
+    sub: Optional[torch.Tensor] = None
 
 
 def kernel_params(sc: ScoringConfig, device="cpu") -> KernelParams:
     fold = torch.from_numpy(np.ascontiguousarray(sc.luts()[0], np.uint8))
     scal = torch.tensor([sc.match, sc.mismatch, sc.gap_open, sc.gap_extend,
-                         sc.dp_floor(False)], dtype=torch.int32,
-                        device=device)
+                         sc.dp_floor(False), sc.dp_floor(True)],
+                        dtype=torch.int32, device=device)
     return KernelParams(fold, scal)
 
 
@@ -89,6 +95,65 @@ def pack_inputs_mm(params: KernelParams, seqs_a, seqs_b,
     ac, na = pad_batch(seqs_a, pad_a, fold)
     bc, nb = pad_batch(seqs_b, pad_b, fold)
     return ac, bc, na, nb
+
+
+def compact_inputs(sc: ScoringConfig, a_bytes: np.ndarray,
+                   b_bytes: np.ndarray, kpad: int = 8):
+    """Alphabet compaction for table scoring: map raw bytes to dense codes
+    and slice the 256x256 substitution LUT (case folding and wildcards
+    baked in) down to the (Ka, Kb) table of the bytes present, each side
+    padded to a multiple of ``kpad``.  Returns numpy (ac, bc, subK, imK),
+    codes int32 (dp.compact_inputs)."""
+    _, sub, ismatch, _ = sc.luts()
+    ua = _present_bytes(a_bytes)
+    ub = _present_bytes(b_bytes)
+    Ka = -(-len(ua) // kpad) * kpad
+    Kb = -(-len(ub) // kpad) * kpad
+    mapa = np.zeros(256, np.int32)
+    mapa[ua] = np.arange(len(ua), dtype=np.int32)
+    mapb = np.zeros(256, np.int32)
+    mapb[ub] = np.arange(len(ub), dtype=np.int32)
+    subK = np.zeros((Ka, Kb), np.int32)
+    subK[: len(ua), : len(ub)] = sub[np.ix_(ua, ub)]
+    imK = np.zeros((Ka, Kb), np.int32)
+    imK[: len(ua), : len(ub)] = ismatch[np.ix_(ua, ub)]
+    if np.abs(subK).max(initial=0) >= (1 << 24):
+        raise ValueError("substitution scores must be < 2^24 in magnitude")
+    return mapa[a_bytes], mapb[b_bytes], subK, imK
+
+
+def _present_bytes(arr: np.ndarray) -> np.ndarray:
+    """Sorted unique byte values by a 256-slot presence scatter ([0] for
+    empty input)."""
+    present = np.zeros(256, bool)
+    present[arr.reshape(-1)] = True
+    u = np.flatnonzero(present)
+    return u if len(u) else np.array([0], np.int64)
+
+
+def pack_batch(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
+               pad_a: int, pad_b: int):
+    """Pack one batch for the fill kernels: uint8 codes padded to
+    (pad_a, pad_b) and the true lengths, numpy, plus the batch's
+    ``KernelParams``.  Equality scoring folds the bytes (no table);
+    table scoring compacts both sides and carries ``subK`` on the
+    params' device."""
+    if mm_eligible(sc):
+        return (*pack_inputs_mm(params, seqs_a, seqs_b, pad_a, pad_b),
+                params)
+    a, na = pad_batch(seqs_a, pad_a)
+    b, nb = pad_batch(seqs_b, pad_b)
+    ac, bc, subK, _ = compact_inputs(sc, a, b)
+    sub = torch.from_numpy(subK).to(params.scal.device)
+    return (ac.astype(np.uint8), bc.astype(np.uint8), na, nb,
+            params._replace(sub=sub))
+
+
+def m16_safe(sc: ScoringConfig, la: int, lb: int) -> bool:
+    """True when every SW M value of an (la, lb) fill fits int16: M lies
+    in [0, max(true max step, 0) * min(la, lb)] (pallas_dp2.m16_safe)."""
+    _, tmx = sc.true_penalty_bounds()
+    return max(int(tmx), 0) * min(la, lb) < 32000
 
 
 def mm_eligible(sc: ScoringConfig) -> bool:

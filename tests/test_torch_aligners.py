@@ -105,11 +105,12 @@ def test_score_batch_fillers_do_not_leak(device_path):
     sc = scoring_system_default()
     A, B = _pairs(7, 5, 1, 30), _pairs(8, 5, 1, 30)
     nw = NeedlemanWunsch(sc, device="cpu")
-    got = port_aligners._scores_auto(sc, nw.params, A, B)
+    got = port_aligners._scores_auto(sc, nw.params, A, B, is_sw=False)
     assert got.shape == (5,)
     want = [host_dp.nw_align(sc, a, b).score for a, b in zip(A, B)]
     np.testing.assert_array_equal(got, want)
-    dev = port_aligners._scores_auto(sc, nw.params, A, B, defer=True)
+    dev = port_aligners._scores_auto(sc, nw.params, A, B, is_sw=False,
+                                     defer=True)
     assert isinstance(dev, torch.Tensor) and dev.shape == (5,)
 
 
@@ -165,8 +166,16 @@ OUT_OF_SLICE = {
     "free_start_gaps": lambda: ScoringConfig(1, -2, -4, -1,
                                              no_start_gap_penalty=True),
     "positive_gap_open": lambda: ScoringConfig(2, -3, 1, -1),
-    "blosum62": scoring_system_BLOSUM62,
+    # substitution-matrix scoring is in the slice; a constrained flag is not
+    "blosum62": lambda: _with(scoring_system_BLOSUM62(), no_gaps_in_b=True),
 }
+
+
+def _with(sc, **flags):
+    for k, v in flags.items():
+        setattr(sc, k, v)
+    sc._luts = None
+    return sc
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))

@@ -26,8 +26,10 @@ def test_port_sources_exist():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     for want in ("seqalign_tpu_torch/aligners.py",
                  "seqalign_tpu_torch/ops/dp.py",
+                 "seqalign_tpu_torch/ops/pack.py",
                  "seqalign_tpu_torch/ops/traceback.py",
-                 "seqalign_tpu_torch/ops/kernels.py"):
+                 "seqalign_tpu_torch/ops/kernels.py",
+                 "seqalign_tpu_torch/ops/build.py"):
         assert want in names
 
 
@@ -60,6 +62,17 @@ def test_port_runs_without_loading_jax():
         "assert (a[0].result_a, a[0].result_b, a[0].score) == "
         "('C-AGACGT', 'CGATA---', -11), a\n"
         "assert list(nw.score_batch(['CAGACGT'], ['CGATA'])) == [-11]\n"
+        "from seqalign_tpu.scoring.presets import scoring_system_BLOSUM62\n"
+        "pn = st.NeedlemanWunsch(scoring_system_BLOSUM62(), device='cpu')\n"
+        "assert pn.score('HEAGAWGHEE', 'PAWHEAE') == 2\n"
+        "sw = st.SmithWaterman(device='cpu')\n"
+        "hits = [(h.score, h.result_a, h.pos_a, h.pos_b) for h in "
+        "sw.align('ACACACTA', 'AGCACACA')]\n"
+        "assert hits[:4] == [(10, 'ACACA', 0, 3), (10, 'CACAC', 1, 2), "
+        "(6, 'ACA', 0, 5), (6, 'CAC', 3, 2)], hits\n"
+        "assert sw.best_score('ACACACTA', 'AGCACACA') == 10\n"
+        "assert st.kernel_launch_counts() == dict.fromkeys("
+        "st.kernel_launch_counts(), 0)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
         "print('ok')\n")

@@ -191,8 +191,11 @@ def test_kernel_params_carries_the_config():
     sc = ScoringConfig(2, -3, -5, -2, case_sensitive=True)
     p = kernel_params(sc, "cpu")
     assert p.scal.dtype == torch.int32 and p.scal.device.type == "cpu"
-    assert p.scal.tolist() == [2, -3, -5, -2, sc.dp_floor(False)]
+    assert p.scal.tolist() == [2, -3, -5, -2, sc.dp_floor(False),
+                               sc.dp_floor(True)]
     assert p.scal[4].item() == np.iinfo(np.int32).min + 7
+    assert p.scal[5].item() == 0  # the SW floor
+    assert p.sub is None  # set per batch by pack_batch for table scoring
     np.testing.assert_array_equal(p.fold.numpy(), sc.luts()[0])
 
 
@@ -283,7 +286,7 @@ def test_build_is_keyed_by_sources_and_renamed_into_place(tmp_path,
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     out = build.build()
     assert out.parent == tmp_path / "_build"
-    assert out.name.startswith("libseqalign_nw_") and out.suffix == ".so"
+    assert out.name.startswith("libseqalign_") and out.suffix == ".so"
     assert [p.name for p in out.parent.iterdir()] == [out.name]
     assert build.build() == out  # the same sources reuse the library
 
