@@ -6,7 +6,7 @@ Usage, from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--profile DIR] [--walk-ab]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
-drives four main paths through the user entry points, with inputs made by
+drives the main paths through the user entry points, with inputs made by
 numpy from a fixed seed:
 
 1. each kernel and scoring mode against its plain PyTorch version on the
@@ -15,10 +15,15 @@ numpy from a fixed seed:
    the main path gives the kernels (2,048 and 6,144 lanes in opt-in shared
    memory, 10,240 in global scratch), and the SW hit loop and walks on the
    harvested candidates; then kernel and plain timed with CUDA events at
-   B = 256, L = 512;
+   B = 256, L = 512; the four fills under each recurrence mode (the flag
+   combinations of ``MODES`` and gap_open > 0; rows ``<kernel>[<mode>]``)
+   at that shape and on ragged batches with empty sides, equality and
+   BLOSUM62, and under flag combinations at 6,144 and 10,240 lanes; the SW
+   hit loop and walk under free end gaps and under the LCS recipe;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
-   ``score_pairs_stream`` on 65,536 pairs of 1-10 kb (BASELINE.json
-   configs[4]), ``align_batch`` on 512 x 256-512 and 1,024 x 1-10 kb;
+   ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
+   BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
+   1,024 x 1-10 kb;
 3. path ``nw_table``, NW with BLOSUM62 (the substitution-table mode):
    ``score_batch`` on 4,096 protein pairs of 100-1,000 aa and
    ``align_batch`` on 256 of them;
@@ -29,7 +34,15 @@ numpy from a fixed seed:
    per pair: 512 DNA pairs of 256-512 bp without a hint (16 hits), 256 DNA
    pairs of 1-10 kb with a planted segment and min_score = best - 10
    (8 hits), and 1,024 protein pairs with a planted homologous segment and
-   min_score 100, twice the random background (8 hits, --maxhits).
+   min_score 100, twice the random background (8 hits, --maxhits);
+5. path ``modes``, every recurrence mode through the entry points, each
+   mode under its own launch counts: on 256 DNA pairs of 512 bp NW
+   ``score_batch`` and ``align_batch`` and SW ``best_score_batch`` (the
+   mode rows of bench.py among them), and SW ``align_batch`` on 256 pairs
+   of 256-512 bp, first 8 hits; NW ``align_batch`` with free start and end
+   gaps on 1,024 reads of 256-512 bp against references of 1-10 kb; the
+   LCS recipe on 256 DNA sequences of 512-2,048 bp against themselves,
+   first 8 hits with pos_a < pos_b, and ``lcs_hits`` on 4 of 2,048 bp.
 
 Each path is held against the plain versions on the card (a sample) and
 against numpy Gotoh recurrences written here, global and local, with
@@ -46,10 +59,12 @@ device, host, and stops: the measurement behind the walk cutover
 each main-path job once more under ``torch.profiler``, prints its device
 time and busy share and writes the ``key_averages`` tables to DIR.
 
-The second-to-last line is a JSON summary of the kernels and modes, the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises (exit
-code != 0); without a CUDA device it exits with code 1 and prints no
-result.  It imports no JAX.
+The second-to-last line is a JSON summary of the kernels and modes (each
+row with its launches on its path, its times, and the least time the card
+could take for the same work, from the bytes moved and the int32
+operations done), the last line ``{"ok": true, "device": {...}}``.  Any
+failure raises (exit code != 0); without a CUDA device it exits with code 1
+and prints no result.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -90,17 +105,63 @@ KERNELS = {
     "sw_walk[table]": ("sw_walk", "sw_walk.cu", _SWW),
     "sw_hits[table]": ("sw_hits", "sw_hits.cu", _SWH),
 }
-PATHS = {"nw": ("nw_scores", "nw_fill_dirs", "nw_walk"),
-         "nw_table": ("nw_scores", "nw_fill_dirs", "nw_walk"),
-         "sw": ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits"),
-         "sw_table": ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")}
+_NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
+_SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
+PATHS = {"nw": _NW, "nw_table": _NW, "sw": _SW, "sw_table": _SW,
+         "modes": _NW + _SW}
+# the recurrence modes: name -> ScoringConfig flags ("gap_open>0" is a mode
+# of the penalties); every mode gets a row per fill kernel,
+# "<kernel>[<mode>]", and the walks rows under neg and the LCS recipe
+MODES = {
+    "nsg": dict(no_start_gap_penalty=True),
+    "neg": dict(no_end_gap_penalty=True),
+    "nsg+neg": dict(no_start_gap_penalty=True, no_end_gap_penalty=True),
+    "nga": dict(no_gaps_in_a=True),
+    "ngb": dict(no_gaps_in_b=True),
+    "nga+ngb": dict(no_gaps_in_a=True, no_gaps_in_b=True),
+    "nmm": dict(no_mismatches=True),
+    "neg+nga": dict(no_end_gap_penalty=True, no_gaps_in_a=True),
+    "nga+ngb+nmm": dict(no_gaps_in_a=True, no_gaps_in_b=True,
+                        no_mismatches=True),
+    "gap_open>0": dict(),
+}
+ALL_FLAGS = dict(no_start_gap_penalty=True, no_end_gap_penalty=True,
+                 no_gaps_in_a=True, no_gaps_in_b=True, no_mismatches=True)
+_B3 = "seqalign_tpu/ops/pallas_dp.py:101"
+_B4 = "seqalign_tpu/ops/pallas_dp.py:375"
+for _m in MODES:
+    _both = _m.startswith("nga+ngb")  # the TPU path serves these from v1
+    KERNELS.update({
+        f"nw_scores[{_m}]": ("nw_scores", "nw_scores.cu",
+                             _B3 if _both else _B1),
+        f"nw_fill_dirs[{_m}]": ("nw_fill_dirs", "nw_dirs.cu", _B2),
+        f"sw_scores[{_m}]": ("sw_scores", "sw_scores.cu",
+                             _B3 if _both else _B1),
+        f"sw_fill_dirs[{_m}]": ("sw_fill_dirs", "sw_dirs.cu",
+                                _B2 if _m == "gap_open>0" else _B4)})
+for _m in ("neg", "lcs"):
+    KERNELS.update({f"sw_walk[{_m}]": ("sw_walk", "sw_walk.cu", _SWW),
+                    f"sw_hits[{_m}]": ("sw_hits", "sw_hits.cu", _SWH)})
+MODE_WIDE = ((6144, 4097, 6144, 4, "nsg+neg"),
+             (10240, 7169, 10000, 4, "all five flags"))
+MODE_B, MODE_L = 256, 512  # the mode rows' shape (bench.py:268-286)
+READ_REF_PAIRS = 1024  # reads against references of 1-10 kb
+READ_LEN = (256, 512)
+LCS_SEQS = 256  # DNA sequences of 512-2,048 bp against themselves
+LCS_PLANT = 64  # length of the repeat planted in each of them
+# Published peaks of one H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s float32
+# outside the tensor cores, which is 128 lanes x 2 (a fused multiply-add)
+# per SM and clock.  An int32 add, max, compare or select has 64 lanes and
+# no fusing: a quarter of that.
+PEAK_BYTES = 3.35e12
+PEAK_INT32 = 67e12 / 4
 # phase 1 at main-path widths (width, shortest, longest, pairs): 36 bytes
 # per lane of rolling diagonals are 73,764 B at 2,048 lanes (above 48 KB:
 # opt-in shared memory), 221,220 B at 6,144 (the widest bucket that fits
 # the 227 KB) and 368,676 B at 10,240 (global scratch)
 WIDE = ((2048, 1000, 2048, 4), (6144, 4097, 6144, 4), (10240, 7169, 10000, 4))
 SHORT_BATCH = 4096
-STREAM_PAIRS = 65_536  # BASELINE.json configs[4]
+STREAM_PAIRS = 16_384  # a quarter of BASELINE.json configs[4]'s 65,536
 ALIGN_LONG_PAIRS = 1024
 PROTEIN_PAIRS = 4096  # BASELINE.json configs[2]: 100-1,000 aa
 NW_TABLE_ALIGN = 256
@@ -114,7 +175,7 @@ PROTEIN_MIN_SCORE = 100  # random 1,000 x 1,000 aa pairs score 42-57
 DNA = np.frombuffer(b"acgtACGT", np.uint8)
 AMINO = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
 GAP = ord("-")
-BLOSUM62_FILE = "seqalign_tpu/data/scoring/BLOSUM62.txt"
+BLOSUM62_FILE = "seqalign_tpu_torch/data/scoring/BLOSUM62.txt"
 
 
 _T0 = time.perf_counter()
@@ -183,13 +244,17 @@ def packed(sc, params, seqs_a, seqs_b, dev, width=None):
             bp, (na, nb))
 
 
-def valid_cells(dirs, na, nb):
-    """Mask of the cells 1 <= y <= nb, 1 <= x <= na of a skewed plane."""
-    _, D, LBp = dirs.shape
-    y = torch.arange(LBp, device=dirs.device)[None, None, :]
-    x = torch.arange(D, device=dirs.device)[None, :, None] + 2 - y
+def valid_mask(D, LBp, na, nb):
+    """Mask of the cells 1 <= y <= nb, 1 <= x <= na of skewed (B, D, LBp)
+    planes."""
+    y = torch.arange(LBp, device=na.device)[None, None, :]
+    x = torch.arange(D, device=na.device)[None, :, None] + 2 - y
     return ((y >= 1) & (y <= nb[:, None, None]) & (x >= 1)
             & (x <= na[:, None, None]))
+
+
+def valid_cells(dirs, na, nb):
+    return valid_mask(dirs.shape[1], dirs.shape[2], na, nb)
 
 
 def max_abs(*pairs) -> int:
@@ -229,18 +294,277 @@ def walk_starts(cands, na, per_pair, dev):
             for v in (jw, fl % w, fl // w, np.concatenate(sc0))]
 
 
-def hit_args(d, ac, bc, na, m, na_h, nb_h, thr, bp, k):
+def hit_args(d, ac, bc, na, nb, m, na_h, nb_h, thr, bp, k):
     """The arguments of ``sw_hits`` for the candidates of M at ``thr``."""
     from seqalign_tpu_torch.ops.dp import sw_sorted_candidates
 
     flat, score, off = sw_sorted_candidates(m, na_h, nb_h, thr)
-    return d, ac, bc, na, flat, score, off[:-1], off[1:], bp, k
+    return d, ac, bc, na, nb, flat, score, off[:-1], off[1:], bp, k
 
 
 def near_best(scores):
     """Harvest thresholds 20 below each pair's best score: the walk checks
     start at the best cells without harvesting the whole plane."""
     return np.maximum(scores.cpu().numpy().astype(np.int64) - 20, 1)
+
+
+def mode_scoring(mode, sw=False, table=False):
+    """The config of one recurrence mode: the NW default 1/-2/-4/-1 or the
+    SW default 2/-2/-2/-1 with the mode's flags, or BLOSUM62 with them;
+    2/-3/1/-1 for gap_open > 0.  A both-no-gaps NW config takes mismatch -5
+    so that it stays out of the sentinel-wrap regime, which the aligner
+    routes to the host."""
+    import seqalign_tpu_torch as port
+
+    flags = ALL_FLAGS if mode == "all five flags" else MODES[mode]
+    if table:
+        sc = port.presets.scoring_system_BLOSUM62()
+        for k, v in flags.items():
+            setattr(sc, k, v)
+        if mode == "gap_open>0":
+            sc.gap_open = 1
+        sc._luts = None
+        return sc
+    if mode == "gap_open>0":
+        return port.ScoringConfig(2, -3, 1, -1)
+    if sw:
+        return port.ScoringConfig(2, -2, -2, -1, **flags)
+    both = flags.get("no_gaps_in_a") and flags.get("no_gaps_in_b")
+    return port.ScoringConfig(1, -5 if both else -2, -4, -1, **flags)
+
+
+def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=()):
+    """The least milliseconds the card could take for one fill of these
+    pairs, and what bounds it.  Operations: int32 adds, maxes, compares and
+    selects of the recurrence per cell (the score 2; M 4, Ga 6, Gb 6; the
+    SW best 1; the codes 9 + 6 + 6 and 4 to pack them; a flag's own
+    compares and selects) over ``PEAK_INT32``.  Bytes: the letters, lengths,
+    scalars and table read once, the scores (and NW corners) and, with
+    codes, 1 + ``mbytes`` per valid cell written once, over
+    ``PEAK_BYTES``."""
+    n = len(na_h)
+    cells = int((na_h.astype(np.int64) * nb_h).sum())
+    per_cell = 18 + bool(sw) + (25 if dirs else 0)
+    per_cell += sum({"nsg": 0, "neg": 8, "nga": 2, "ngb": 2, "nmm": 2}[k]
+                    + (3 if dirs and k != "nsg" else 0) for k in flags)
+    moved = (int(na_h.sum() + nb_h.sum()) + 8 * n + 24 + 4 * table
+             + (4 if sw else 16) * n + cells * (bool(dirs) + mbytes))
+    t_ops, t_bytes = cells * per_cell / PEAK_INT32, moved / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def walk_bound(ops, per_step, fixed):
+    """The bound of a walk kernel from the trace it wrote: every step taken
+    reads ``per_step`` bytes (a code, and for SW two letters) and does about
+    8 int32 operations; the whole trace is written once, and ``fixed`` bytes
+    of starts and corners are read."""
+    steps = int((ops >= 0).sum())
+    t_ops = 8 * steps / PEAK_INT32
+    t_bytes = (per_step * steps + ops.numel() + fixed) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def hits_bound(args, out):
+    """The bound of one ``sw_hits`` launch: the candidates it has to visit
+    (all of a pair's when they ran out, else up to the last hit found), 8
+    bytes and about 6 int32 operations each, plus the hit records written.
+    The cells its walks mark are left out: a lower bound."""
+    flat, lo, hi, k = args[5], args[7], args[8], args[-1]
+    hit_flat, _, nhits = out
+    n = hi - lo
+    pair = torch.repeat_interleave(torch.arange(len(n), device=flat.device),
+                                   n)
+    full = nhits == k
+    is_last = (flat == hit_flat[:, k - 1][pair]) & full[pair]
+    pos = is_last.nonzero()[:, 0]
+    visited = int(n[~full].sum() + (pos - lo[pair[pos]] + 1).sum())
+    t_ops = 6 * visited / PEAK_INT32
+    t_bytes = (8 * visited + 8 * hit_flat.numel()) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def modes_vs_plain(mode, dev, rng, times, bounds):
+    """The four fills under one mode against the plain fill, max |diff| of
+    each: on 256 DNA pairs of 512 bp, where kernel and plain are timed too
+    (the plain runs are the reference), and on ragged batches of 256 pairs
+    (empty sides among them), equality and BLOSUM62."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (_fill, nw_fill_dirs_plain,
+                                           nw_scores_plain,
+                                           sw_fill_dirs_plain,
+                                           sw_scores_plain)
+    from seqalign_tpu_torch.ops.pack import m16_safe
+
+    err = {}
+
+    def note(kernel, *pairs):
+        k = f"{kernel}[{mode}]"
+        err[k] = max(err.get(k, 0), max_abs(*pairs))
+
+    flags = flags_of(mode_scoring(mode))
+    for sw in (False, True):
+        sc = mode_scoring(mode, sw)
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, kernel_params(sc, dev), dna(rng, MODE_B, MODE_L, MODE_L),
+            dna(rng, MODE_B, MODE_L, MODE_L), dev)
+        v = valid_mask(2 * MODE_L - 1, MODE_L + 1, na, nb)
+        m16 = m16_safe(sc, MODE_L, MODE_L)
+        if sw:
+            t0 = cuda_ms(lambda: kernels.sw_scores(ac, bc, na, nb, bp), 10)
+            want, t1 = timed_plain(lambda: sw_scores_plain(ac, bc, na, nb, bp))
+            note("sw_scores", (kernels.sw_scores(ac, bc, na, nb, bp), want))
+            times[f"sw_scores[{mode}]"] = (t0, t1)
+            t0 = cuda_ms(lambda: kernels.sw_fill_dirs(ac, bc, na, nb, bp,
+                                                      m16), 10)
+            (dp_, mp), t1 = timed_plain(
+                lambda: sw_fill_dirs_plain(ac, bc, na, nb, bp, m16))
+            d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
+            note("sw_fill_dirs", (d[v], dp_[v]), (m[v], mp[v]))
+            times[f"sw_fill_dirs[{mode}]"] = (t0, t1)
+            mb = 2 if m16 else 4
+        else:
+            t0 = cuda_ms(lambda: kernels.nw_scores(ac, bc, na, nb, bp), 10)
+            want, t1 = timed_plain(lambda: nw_scores_plain(ac, bc, na, nb, bp))
+            note("nw_scores", *zip(kernels.nw_scores(ac, bc, na, nb, bp),
+                                   want))
+            times[f"nw_scores[{mode}]"] = (t0, t1)
+            t0 = cuda_ms(lambda: kernels.nw_fill_dirs(ac, bc, na, nb, bp), 10)
+            (dp_, cp), t1 = timed_plain(
+                lambda: nw_fill_dirs_plain(ac, bc, na, nb, bp))
+            d, c = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
+            note("nw_fill_dirs", (d[v], dp_[v]), (c, cp))
+            times[f"nw_fill_dirs[{mode}]"] = (t0, t1)
+            mb = 0
+        fam = "sw" if sw else "nw"
+        bounds[f"{fam}_scores[{mode}]"] = fill_bound(na_h, nb_h, sw, False,
+                                                     flags=flags)
+        bounds[f"{fam}_fill_dirs[{mode}]"] = fill_bound(na_h, nb_h, sw, True,
+                                                        mb, flags=flags)
+        del d, dp_, v
+        for table, alpha in ((False, DNA), (True, AMINO)):
+            sc = mode_scoring(mode, sw, table)
+            A = seqs(rng, MODE_B, 0, MODE_L, alpha)
+            B = seqs(rng, MODE_B, 0, MODE_L, alpha)
+            A[0], B[1] = "", ""
+            (ac, bc, na, nb), bp, _ = packed(sc, kernel_params(sc, dev), A, B,
+                                             dev, MODE_L)
+            v = valid_mask(2 * MODE_L - 1, MODE_L + 1, na, nb)
+            m16 = m16_safe(sc, MODE_L, MODE_L)
+            # one plain fill holds both kernels of the family
+            dp_, cp, bestp, mp = _fill(
+                ac, bc, na, nb, bp, is_sw=sw, emit_dirs=True,
+                m_dtype=(torch.int16 if m16 else torch.int32) if sw else None)
+            if sw:
+                note("sw_scores", (kernels.sw_scores(ac, bc, na, nb, bp),
+                                   bestp))
+                d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
+                note("sw_fill_dirs", (d[v], dp_[v]), (m[v], mp[v]))
+            else:
+                s, c = kernels.nw_scores(ac, bc, na, nb, bp)
+                note("nw_scores", (s, cp.max(1).values), (c, cp))
+                d, c = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
+                note("nw_fill_dirs", (d[v], dp_[v]), (c, cp))
+            del d, dp_, v
+    torch.cuda.synchronize()
+    return err
+
+
+def timed_plain(fn):
+    """One run of a plain version: its result and its milliseconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def wide_modes_vs_plain(dev, rng):
+    """Flag combinations at the wide widths (free start and end gaps with
+    the diagonals in opt-in shared memory, all five flags with them in
+    global scratch): the four fills against one plain fill per family."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import _fill
+
+    worst = 0
+    for width, lo, hi, n, mode in MODE_WIDE:
+        t0 = time.perf_counter()
+        e = 0
+        for sw in (False, True):
+            sc = mode_scoring(mode, sw)
+            (ac, bc, na, nb), bp, _ = packed(
+                sc, kernel_params(sc, dev), dna(rng, n, lo, hi),
+                dna(rng, n, lo, hi), dev, width)
+            dp_, cp, bestp, mp = _fill(ac, bc, na, nb, bp, is_sw=sw,
+                                       emit_dirs=True,
+                                       m_dtype=torch.int32 if sw else None)
+            v = valid_cells(dp_, na, nb)
+            if sw:
+                d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, False)
+                e = max(e, max_abs(
+                    (kernels.sw_scores(ac, bc, na, nb, bp), bestp),
+                    (d[v], dp_[v]), (m[v], mp[v])))
+            else:
+                s, c = kernels.nw_scores(ac, bc, na, nb, bp)
+                d, c2 = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
+                e = max(e, max_abs((s, cp.max(1).values), (c, cp), (c2, cp),
+                                   (d[v], dp_[v])))
+            del d, dp_, v
+        torch.cuda.synchronize()
+        log(f"phase 1: fills under {mode} at width {width} (B={n}, {lo}-{hi} "
+            f"bp): max |diff| {e} ({time.perf_counter() - t0:.1f} s)")
+        worst = max(worst, e)
+    return worst
+
+
+def walks_under_modes(dev, rng, times, bounds):
+    """``sw_hits`` and ``sw_walk`` under free end gaps and under the LCS
+    recipe (a sequence against itself) against their plain versions, on
+    256 pairs of 512 bp, hint-less, k = 16; both timed."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.traceback import (sw_hits_plain,
+                                                  sw_walk_plain)
+
+    err = {}
+    for tag, sc in (("neg", mode_scoring("neg", True)),
+                    ("lcs", port.lcs_aligner().scoring)):
+        A = dna(rng, MODE_B, MODE_L, MODE_L)
+        B = A if tag == "lcs" else dna(rng, MODE_B, MODE_L, MODE_L)
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, kernel_params(sc, dev), A, B, dev)
+        d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
+        args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
+        del m
+        out = kernels.sw_hits(*args)
+        t0 = cuda_ms(lambda: kernels.sw_hits(*args), 10)
+        want, t1 = timed_plain(lambda: sw_hits_plain(*args))
+        err[f"sw_hits[{tag}]"] = max_abs(*zip(out, want))
+        times[f"sw_hits[{tag}]"] = (t0, t1)
+        bounds[f"sw_hits[{tag}]"] = hits_bound(args, out)
+        hit_flat, hit_score, nhits = out
+        keep = torch.arange(16, device=dev)[None, :] < nhits[:, None]
+        jw, slot = keep.nonzero(as_tuple=True)
+        w = na[jw] + 1
+        fl = hit_flat[jw, slot]
+        starts = [t.to(torch.int32).contiguous()
+                  for t in (jw, fl % w, fl // w, hit_score[jw, slot])]
+        o = kernels.sw_walk(d, ac, bc, na, nb, *starts, bp, 2 * MODE_L)
+        t0 = cuda_ms(lambda: kernels.sw_walk(d, ac, bc, na, nb, *starts, bp,
+                                             2 * MODE_L), 10)
+        op, t1 = timed_plain(lambda: sw_walk_plain(d, ac, bc, na, nb,
+                                                   *starts, bp, 2 * MODE_L))
+        err[f"sw_walk[{tag}]"] = max_abs((o, op))
+        times[f"sw_walk[{tag}]"] = (t0, t1)
+        bounds[f"sw_walk[{tag}]"] = walk_bound(o, 3, 16 * len(jw))
+        log(f"phase 1: sw_hits / sw_walk under {tag}: {int(nhits.sum())} "
+            f"hits of {len(args[5])} candidates traced")
+    return err
 
 
 def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
@@ -287,7 +611,7 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
         del v, dpl, mpl
         # the hit loop hint-less on the ragged batches (the mask in shared
         # memory), near the best cells at the wide widths (global memory)
-        args = hit_args(d, ac, bc, na, m, na_h, nb_h,
+        args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h,
                         1 if width is None else near_best(s), bp, 16)
         err["sw_hits" + mode] = max_abs(*zip(kernels.sw_hits(*args),
                                              sw_hits_plain(*args)))
@@ -296,9 +620,9 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
                                                    near_best(s)), na_h, 16,
                              dev)
         del m
-        o = kernels.sw_walk(d, ac, bc, *starts, bp, cap)
-        err["sw_walk" + mode] = max_abs((o, sw_walk_plain(d, ac, bc, *starts,
-                                                          bp, cap)))
+        o = kernels.sw_walk(d, ac, bc, na, nb, *starts, bp, cap)
+        err["sw_walk" + mode] = max_abs((o, sw_walk_plain(
+            d, ac, bc, na, nb, *starts, bp, cap)))
     torch.cuda.synchronize()
     return err
 
@@ -342,13 +666,20 @@ def phase1(scs, rng, dev):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{err}")
 
-    times = {}
+    times, bounds = {}, {}
     for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
         sc, p = scs[key], params[key]
         (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
             sc, p, seqs(rng, 256, 512, 512, alpha),
             seqs(rng, 256, 512, 512, alpha), dev)
         mode = "" if bp.sub is None else "[table]"
+        entries = 0 if bp.sub is None else bp.sub.numel()
+        for fam, is_sw in (("nw", False), ("sw", True)):
+            if key in (fam, "table"):
+                bounds[f"{fam}_scores{mode}"] = fill_bound(
+                    na_h, nb_h, is_sw, False, table=entries)
+                bounds[f"{fam}_fill_dirs{mode}"] = fill_bound(
+                    na_h, nb_h, is_sw, True, 2 * is_sw, table=entries)
         if key in ("nw", "table"):
             d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
             times["nw_scores" + mode] = (
@@ -361,12 +692,14 @@ def phase1(scs, rng, dev):
                 times["nw_walk"] = (
                     cuda_ms(lambda: kernels.nw_walk(d, dc, na, nb, 1024), 10),
                     cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 2))
+                bounds["nw_walk"] = walk_bound(
+                    kernels.nw_walk(d, dc, na, nb, 1024)[0], 1, 20 * len(na))
             del d
         if key in ("sw", "table"):
             m16 = True  # 11 * 512 and 2 * 512 are below the int16 gate
             d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
             # the hit loop on every candidate, as job 1 runs it
-            args = hit_args(d, ac, bc, na, m, na_h, nb_h, 1, bp, 16)
+            args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
             starts = walk_starts(sw_extract_candidates(
                 m, na_h, nb_h, near_best(kernels.sw_scores(ac, bc, na, nb,
                                                            bp))), na_h, 16,
@@ -381,18 +714,37 @@ def phase1(scs, rng, dev):
                 cuda_ms(lambda: sw_fill_dirs_plain(ac, bc, na, nb, bp, m16),
                         2))
             times["sw_walk" + mode] = (
-                cuda_ms(lambda: kernels.sw_walk(d, ac, bc, *starts, bp,
-                                                1024), 10),
-                cuda_ms(lambda: sw_walk_plain(d, ac, bc, *starts, bp, 1024),
-                        2))
+                cuda_ms(lambda: kernels.sw_walk(d, ac, bc, na, nb, *starts,
+                                                bp, 1024), 10),
+                cuda_ms(lambda: sw_walk_plain(d, ac, bc, na, nb, *starts, bp,
+                                              1024), 2))
             times["sw_hits" + mode] = (
                 cuda_ms(lambda: kernels.sw_hits(*args), 10),
                 cuda_ms(lambda: sw_hits_plain(*args), 1, warm=False))
+            bounds["sw_walk" + mode] = walk_bound(
+                kernels.sw_walk(d, ac, bc, na, nb, *starts, bp, 1024), 3,
+                16 * len(starts[0]))
+            bounds["sw_hits" + mode] = hits_bound(args,
+                                                  kernels.sw_hits(*args))
             del d, args
+
+    for mode in MODES:
+        t0 = time.perf_counter()
+        e = modes_vs_plain(mode, dev, rng, times, bounds)
+        log(f"phase 1: fills under {mode} vs plain, 256 x 512 and ragged, "
+            f"equality and BLOSUM62: max |diff| {e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        err.update(e)
+    err.update(walks_under_modes(dev, rng, times, bounds))
+    wide = wide_modes_vs_plain(dev, rng)
+    if wide or any(err.values()):
+        raise AssertionError(f"a mode disagrees with its plain version: wide "
+                             f"{wide}, {err}")
     for k, (t, tp) in times.items():
+        b, by = bounds[k]
         log(f"phase 1: {k} at B=256 L=512: kernel {t:.4f} ms, plain "
-            f"{tp:.4f} ms")
-    return err, times
+            f"{tp:.4f} ms, bound {b:.6f} ms ({by})")
+    return err, times, bounds
 
 
 class PlainGuard:
@@ -488,55 +840,107 @@ def blosum62_table(sc) -> np.ndarray:
     return t
 
 
-def gotoh(table, go, ge, a: str, b: str, local=False) -> int:
+def flags_of(sc) -> frozenset:
+    """The scoring flags of ``sc`` by their short names."""
+    names = (("nsg", "no_start_gap_penalty"), ("neg", "no_end_gap_penalty"),
+             ("nga", "no_gaps_in_a"), ("ngb", "no_gaps_in_b"),
+             ("nmm", "no_mismatches"))
+    return frozenset(k for k, attr in names if getattr(sc, attr))
+
+
+def gotoh(table, go, ge, a: str, b: str, local=False,
+          flags=frozenset()) -> int:
     """Optimal global (NW) or local (SW, every cell floored at 0) score by
     Gotoh's recurrence, one row of b at a time in int64 numpy; the
-    horizontal gap run is a running max."""
+    horizontal gap run is a running max.  ``flags``: nsg frees the gap
+    runs on row and column 0; neg frees gap steps on the last column (gap
+    in a) and the last row (gap in b); nga / ngb allow a gap in a / b only
+    there and on the boundary; nmm forbids columns of unequal letters
+    (case folded, as ``eq_table`` scores them)."""
     ca = np.frombuffer(a.encode("latin-1"), np.uint8)
     cb = np.frombuffer(b.encode("latin-1"), np.uint8)
+    na, nb = len(a), len(b)
+    nsg, neg, nga, ngb, nmm = (k in flags for k in
+                               ("nsg", "neg", "nga", "ngb", "nmm"))
     gop = go + ge
     lo = 0 if local else -(1 << 40)
-    x = np.arange(len(a) + 1, dtype=np.int64)
-    M = np.full(len(a) + 1, lo, np.int64)
+    x = np.arange(na + 1, dtype=np.int64)
+    M = np.full(na + 1, lo, np.int64)
     M[0] = 0
     Ga = M.copy()  # gap in a: from the row above
-    Gb = M.copy() if local else go + x * ge  # gap in b: from the left
+    Gb = M.copy() if local else (0 * x if nsg else go + x * ge)
     Gb[0] = 0
+    low = np.vectorize(lambda c: c + 32 if 65 <= c <= 90 else c)
+    fa = low(ca) if na else ca
     best = 0
-    for y in range(1, len(b) + 1):
+    for y in range(1, nb + 1):
         ss = table[ca, cb[y - 1]]
         M2 = np.empty_like(M)
         M2[0] = lo
         M2[1:] = np.maximum(M, np.maximum(Ga, Gb))[:-1] + ss
+        if nmm:
+            M2[1:] = np.where(fa == low(cb[y - 1]), M2[1:], lo)
         Ga2 = np.maximum(np.maximum(M, Gb) + gop, Ga + ge)
-        Ga2[0] = 0 if local else go + y * ge
+        if neg:
+            Ga2[na] = max(M[na], Ga[na], Gb[na])
+        if nga:
+            Ga2[1:na] = lo
+        Ga2[0] = 0 if (local or nsg) else go + y * ge
         if local:
             M2 = np.maximum(M2, 0)
             Ga2 = np.maximum(Ga2, 0)
-        run = np.maximum.accumulate(
-            np.maximum(np.maximum(M2, Ga2) + gop, lo) - x * ge)
         Gb2 = np.empty_like(M)
         Gb2[0] = lo
-        Gb2[1:] = run[:-1] + (x[1:] - 1) * ge
+        if neg and y == nb:
+            Gb2[1:] = np.maximum.accumulate(np.maximum(M2, Ga2))[:-1]
+        elif ngb and y != nb:
+            Gb2[1:] = lo
+        else:
+            run = np.maximum.accumulate(
+                np.maximum(np.maximum(M2, Ga2) + gop, lo) - x * ge)
+            Gb2[1:] = run[:-1] + (x[1:] - 1) * ge
         M, Ga, Gb = M2, Ga2, Gb2
         best = max(best, int(M.max()))
     return best if local else int(max(M[-1], Ga[-1], Gb[-1]))
 
 
-def rescore(table, go, ge, ra: str, rb: str) -> int:
+def rescore(table, go, ge, ra: str, rb: str, flags=frozenset()) -> int:
     """Affine score of an alignment's columns; a gap column opens a gap
-    unless the column before it is a gap in the same sequence."""
+    unless the column before it is a gap in the same sequence.  Under nsg
+    the leading gap run is free, under neg the trailing one; under nga /
+    ngb any other gap in a / b, and under nmm a column of unequal letters,
+    makes the alignment invalid (returns None)."""
     ca = np.frombuffer(ra.encode("latin-1"), np.uint8)
     cb = np.frombuffer(rb.encode("latin-1"), np.uint8)
     kind = np.where(ca == GAP, 1, np.where(cb == GAP, 2, 0))
     prev = np.concatenate([[0], kind[:-1]])
     gap = np.where(kind == prev, ge, go + ge)
-    return int(np.where(kind == 0, table[ca, cb], gap).sum())
+    cost = np.where(kind == 0, table[ca, cb], gap)
+    n = len(kind)
+    lead = trail = 0
+    if n and kind[0]:
+        lead = int(np.argmax(kind != kind[0])) or n
+    if n and kind[-1]:
+        trail = int(np.argmax(kind[::-1] != kind[-1])) or n
+    inner = kind[lead:n - trail] if lead + trail <= n else kind[:0]
+    if ("nga" in flags and (inner == 1).any()) or \
+            ("ngb" in flags and (inner == 2).any()):
+        return None
+    if "nmm" in flags and (ra.lower() != rb.lower()) and any(
+            p != "-" and q != "-" and p.lower() != q.lower()
+            for p, q in zip(ra, rb)):
+        return None
+    if "nsg" in flags:
+        cost[:lead] = 0
+    if "neg" in flags and lead < n:
+        cost[n - trail:] = 0
+    return int(cost.sum())
 
 
 def witness_scores(table, sc, A, B, scores, idx, what, local=False):
     for i in idx:
-        opt = gotoh(table, sc.gap_open, sc.gap_extend, A[i], B[i], local)
+        opt = gotoh(table, sc.gap_open, sc.gap_extend, A[i], B[i], local,
+                    flags_of(sc))
         if int(scores[i]) != opt:
             raise AssertionError(f"{what} pair {i}: score {scores[i]} is "
                                  f"not the numpy Gotoh optimum {opt}")
@@ -548,8 +952,9 @@ def witness_alignment(table, sc, a, b, aln, what):
             or rb.replace("-", "") != b
             or any(p == q == "-" for p, q in zip(ra, rb))):
         raise AssertionError(f"{what}: the strings do not spell the pair")
-    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b)
-    got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb)
+    flags = flags_of(sc)
+    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, flags=flags)
+    got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb, flags)
     if not aln.score == got == opt:
         raise AssertionError(f"{what}: score {aln.score}, columns rescore "
                              f"to {got}, optimum {opt}")
@@ -558,7 +963,9 @@ def witness_alignment(table, sc, a, b, aln, what):
 def witness_hits(table, sc, a, b, hits, min_score, what):
     """SW hits: the first is the local optimum (when that reaches the
     hint), each spells a substring of both inputs and rescores to its
-    score."""
+    score (a hit starts and ends in a MATCH column, so no gap step of it
+    is a free end gap)."""
+    flags = flags_of(sc) - {"nsg", "neg"}
     for h in hits:
         ra, rb = h.result_a, h.result_b
         if (len(ra) != len(rb)
@@ -566,11 +973,12 @@ def witness_hits(table, sc, a, b, hits, min_score, what):
                 or rb.replace("-", "") != b[h.pos_b:h.pos_b + h.len_b]
                 or any(p == q == "-" for p, q in zip(ra, rb))):
             raise AssertionError(f"{what}: a hit does not spell its inputs")
-        got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb)
+        got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb, flags)
         if got != h.score:
             raise AssertionError(f"{what}: hit score {h.score}, columns "
                                  f"rescore to {got}")
-    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True)
+    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True,
+                flags=flags_of(sc))
     first = hits[0].score if hits else None
     if (opt >= max(min_score, 1)) != bool(hits) or (hits and first != opt):
         raise AssertionError(f"{what}: first hit {first}, local optimum "
@@ -784,6 +1192,173 @@ def phase_sw_table(swp, rng, dev, gpu, jobs):
                  *job2_inputs(rng, SW_JOB2[1]), 4, 4)
 
 
+def check_lcs_hit(seq, h, what):
+    """An LCS hit by spelling: two substrings of ``seq`` at different
+    offsets, equal but for case, scored by their length."""
+    sub = seq[h.pos_a:h.pos_a + h.len_a]
+    if not (h.result_a == sub and h.result_b == seq[h.pos_b:h.pos_b + h.len_b]
+            and h.result_a.lower() == h.result_b.lower()
+            and h.pos_a < h.pos_b
+            and h.score == h.len_a == h.len_b > 0):
+        raise AssertionError(f"{what}: not a repeated substring: {h}")
+
+
+def phase_modes(rng, dev, gpu, jobs):
+    """Path modes: every recurrence mode through the entry points, each
+    under its own launch counts (set to 0 before the mode's jobs, read
+    after them).  Per mode, on 256 DNA pairs: ``score_batch``,
+    ``align_batch`` and ``best_score_batch`` at 512 bp (the mode rows of
+    bench.py among them) and SW ``align_batch`` on 256-512 bp, first 8
+    hits.  Then NW ``align_batch`` with free start and end gaps on reads
+    against references (counted under nsg+neg), and the LCS recipe over
+    sequences against themselves (counted under nga+ngb+nmm).  Returns
+    mode -> launch counts."""
+    import seqalign_tpu_torch as port
+
+    counts = {}
+    for mode in MODES:
+        port.reset_kernel_launch_counts()
+        nw = port.NeedlemanWunsch(mode_scoring(mode), device="cuda")
+        sw = port.SmithWaterman(mode_scoring(mode, True), device="cuda")
+        nt, st_ = eq_table(nw.scoring), eq_table(sw.scoring)
+        A = dna(rng, MODE_B, MODE_L, MODE_L)
+        B = dna(rng, MODE_B, MODE_L, MODE_L)
+        label = f"modes[{mode}] nw score_batch 256 x 512"
+        got, secs = timed(lambda: nw.score_batch(A, B))
+        rate(label, len(A), cells_of(A, B), secs, gpu)
+        jobs[label] = (lambda nw=nw, A=A, B=B: nw.score_batch(A, B), secs)
+        if not np.array_equal(got, plain_scores(nw.scoring, nw.params, A, B,
+                                                dev)):
+            raise AssertionError(f"{label}: disagrees with the plain version")
+        witness_scores(nt, nw.scoring, A, B, got, range(2), label)
+        label = f"modes[{mode}] nw align_batch 256 x 512"
+        alns, secs = timed(lambda: nw.align_batch(A, B))
+        rate(label, len(A), cells_of(A, B), secs, gpu)
+        jobs[label] = (lambda nw=nw, A=A, B=B: nw.align_batch(A, B), secs)
+        if [a.score for a in alns] != got.tolist():
+            raise AssertionError(f"{label}: scores disagree with score_batch")
+        for i in range(2):
+            witness_alignment(nt, nw.scoring, A[i], B[i], alns[i],
+                              f"{label} pair {i}")
+        label = f"modes[{mode}] sw best_score_batch 256 x 512"
+        best, secs = timed(lambda: sw.best_score_batch(A, B))
+        rate(label, len(A), cells_of(A, B), secs, gpu)
+        jobs[label] = (lambda sw=sw, A=A, B=B: sw.best_score_batch(A, B),
+                       secs)
+        if not np.array_equal(best, plain_scores(sw.scoring, sw.params, A, B,
+                                                 dev, local=True)):
+            raise AssertionError(f"{label}: disagrees with the plain version")
+        witness_scores(st_, sw.scoring, A, B, best, range(2), label,
+                       local=True)
+        A = dna(rng, MODE_B, MODE_L // 2, MODE_L)
+        B = dna(rng, MODE_B, MODE_L // 2, MODE_L)
+        label = f"modes[{mode}] sw align_batch 256 x 256-512, first 8 hits"
+        stats = {}
+        hits, secs = timed(lambda: consume(sw, A, B, None, 8, stats))
+        rate(label, len(A), cells_of(A, B), secs, gpu)
+        jobs[label] = (lambda sw=sw, A=A, B=B: consume(sw, A, B, None, 8),
+                       secs)
+        want = plain_hits(sw.scoring, sw.params, A[0], B[0], 1, 8, dev)
+        if hits[0] != want:
+            raise AssertionError(f"{label}: hits disagree with the plain "
+                                 f"versions")
+        for i in range(2):
+            witness_hits(st_, sw.scoring, A[i], B[i], hits[i], 1,
+                         f"{label} pair {i}")
+        if mode == "nsg+neg":
+            read_reference_job(nw, nt, rng, gpu, jobs)
+        if mode == "nga+ngb+nmm":
+            lcs_job(rng, gpu, jobs)
+        counts[mode] = port.kernel_launch_counts()
+        counted("modes", counts[mode], f"modes[{mode}]")
+    return counts
+
+
+def read_reference_job(nw, table, rng, gpu, jobs):
+    """NW ``align_batch`` with free start and end gaps on reads of 256-512
+    bp against references of 1-10 kb that hold them (3% substitutions): the
+    overlap alignment free end gaps are for."""
+    n = READ_REF_PAIRS
+    refs = dna(rng, n, 1000, 10000)
+    reads = []
+    for r in refs:
+        k = int(rng.integers(READ_LEN[0], READ_LEN[1] + 1))
+        p = int(rng.integers(0, len(r) - k + 1))
+        seg = np.frombuffer(r[p:p + k].encode(), np.uint8).copy()
+        hit = rng.random(k) < 0.03
+        seg[hit] = DNA[rng.integers(0, len(DNA), int(hit.sum()))]
+        reads.append(seg.tobytes().decode())
+    label = f"modes[nsg+neg] nw align_batch {n} reads x 1-10kb references"
+    alns, secs = timed(lambda: nw.align_batch(refs, reads))
+    rate(label, n, cells_of(refs, reads), secs, gpu)
+    jobs[label] = (lambda: nw.align_batch(refs, reads), secs)
+    for i in rng.choice(n, 4, replace=False):
+        witness_alignment(table, nw.scoring, refs[i], reads[i], alns[i],
+                          f"{label} pair {i}")
+        # the read lies inside the reference: both end gaps are in the read
+        if not (alns[i].result_b.startswith("-")
+                or alns[i].result_b.endswith("-")):
+            raise AssertionError(f"{label} pair {i}: no end gap")
+    if min(a.score for a in alns) < READ_LEN[0] // 2:
+        raise AssertionError(f"{label}: a read did not find its place")
+
+
+def lcs_job(rng, gpu, jobs):
+    """The LCS recipe, case folded: ``lcs_aligner().align_batch`` over DNA
+    sequences of 512-2,048 bp against themselves, each with one planted
+    repeat, first 8 hits with pos_a < pos_b (the filter of ``lcs_hits``);
+    then ``lcs_hits`` itself on sequences of 2,048 bp, which route to the
+    card one by one."""
+    import seqalign_tpu_torch as port
+
+    n = LCS_SEQS
+    S = dna(rng, n, 512, 2048)
+    for i, s in enumerate(S):
+        p = int(rng.integers(0, len(s) - 2 * LCS_PLANT + 1))
+        q = int(rng.integers(p + LCS_PLANT, len(s) - LCS_PLANT + 1))
+        S[i] = s[:q] + s[p:p + LCS_PLANT] + s[q + LCS_PLANT:]
+    sw = port.lcs_aligner(case_sensitive=False)
+    stats = {}
+
+    def run(stats=None):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        its = sw.align_batch(S, S)
+        if stats is not None:
+            stats["peak"] = torch.cuda.max_memory_allocated() - base
+            stats["cands"] = np.array([it.n_candidates for it in its])
+        return [list(itertools.islice((h for h in it if h.pos_a < h.pos_b),
+                                      8)) for it in its]
+
+    label = f"modes[nga+ngb+nmm] lcs align_batch {n} x 512-2048, first 8 hits"
+    hits, secs = timed(lambda: run(stats))
+    rate(label, n, cells_of(S, S), secs, gpu)
+    c = stats["cands"]
+    log(f"{label}: candidates per pair min {c.min()} median "
+        f"{int(np.median(c))} max {c.max()} (total {c.sum()}, "
+        f"{c.sum() / cells_of(S, S):.4f} of the cells); peak device bytes "
+        f"of align_batch {stats['peak']}; {sum(map(len, hits))} hits")
+    jobs[label] = (run, secs)
+    for s, hs in zip(S, hits):
+        for h in hs:
+            check_lcs_hit(s, h, label)
+        if not hs or hs[0].score < LCS_PLANT:
+            raise AssertionError(f"{label}: the planted repeat was not the "
+                                 f"first hit")
+    T = dna(rng, 4, 2048, 2048)
+    label = "modes[nga+ngb+nmm] lcs_hits 4 x 2048, first 8 hits"
+    got, secs = timed(lambda: [list(itertools.islice(
+        port.lcs_hits(s, sw=sw), 8)) for s in T])
+    rate(label, len(T), cells_of(T, T), secs, gpu)
+    jobs[label] = (lambda: [list(itertools.islice(port.lcs_hits(s, sw=sw),
+                                                  8)) for s in T], secs)
+    for s, hs in zip(T, got):
+        if len(hs) != 8:
+            raise AssertionError(f"{label}: {len(hs)} hits")
+        for h in hs:
+            check_lcs_hit(s, h, label)
+
+
 def consume_per_pair(sw, A, B, mins, k):
     """``align_batch`` wall seconds, then each pair's seconds for its first
     ``k`` hits, and the pairs' candidate counts."""
@@ -839,12 +1414,12 @@ def walk_ab(sw, swp, rng, gpu):
         aligners._SW_DEVWALK_CANDS = saved
 
 
-def counted(path, counts):
+def counted(path, counts, label=None):
     for k in PATHS[path]:
         if counts[k] <= 0:
-            raise AssertionError(f"path {path}: {k} was not launched: "
-                                 f"{counts}")
-    log(f"kernel launches in path {path}: {counts}")
+            raise AssertionError(f"path {label or path}: {k} was not "
+                                 f"launched: {counts}")
+    log(f"kernel launches in path {label or path}: {counts}")
 
 
 def _self_device_us(e) -> float:
@@ -919,8 +1494,8 @@ def main() -> int:
     if args.walk_ab:
         walk_ab(sw, swp, rng, gpu)
         return 0
-    err, times = phase1({"nw": nw.scoring, "sw": sw.scoring,
-                         "table": nwp.scoring}, rng, dev)
+    err, times, bounds = phase1({"nw": nw.scoring, "sw": sw.scoring,
+                                 "table": nwp.scoring}, rng, dev)
 
     jobs: dict = {}
     launches = {}
@@ -936,18 +1511,31 @@ def main() -> int:
         launches[path] = port.kernel_launch_counts()
         counted(path, launches[path])
         log(f"path {path} done in {time.perf_counter() - t0:.1f} s")
-    if "jax" in sys.modules:
-        raise AssertionError("the port loaded JAX")
+    t0 = time.perf_counter()
+    mode_launches = phase_modes(rng, dev, gpu, jobs)
+    launches["modes"] = {k: sum(c[k] for c in mode_launches.values())
+                         for k in PATHS["modes"]}
+    counted("modes", launches["modes"])
+    log(f"path modes done in {time.perf_counter() - t0:.1f} s")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded}")
     if args.profile:
         profile(jobs, args.profile)
 
     rows = []
     for name, (counter, src, rep) in KERNELS.items():
-        path = name.split("_")[0] + ("_table" if "[table]" in name else "")
+        mode = name.partition("[")[2].rstrip("]")
+        if mode in ("", "table"):
+            n = launches[name.split("_")[0] + ("_table" if mode else "")]
+        else:  # the LCS recipe runs in the modes path as nga+ngb+nmm
+            n = mode_launches["nga+ngb+nmm" if mode == "lcs" else mode]
         rows.append({"name": name, "route": "cuda", "source": _CSRC + src,
-                     "replaces": rep, "launches": launches[path][counter],
+                     "replaces": rep, "launches": n[counter],
                      "max_abs_err": err[name], "ms": times[name][0],
-                     "plain_ms": times[name][1]})
+                     "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "library_ms": None})
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,22 @@
 Batched global (Needleman-Wunsch) and local (Smith-Waterman) scoring and
 alignment, with equality or substitution-matrix scoring, on an NVIDIA
 Hopper GPU through hand-written CUDA kernels (``csrc/``), with plain
-PyTorch versions of the same kernels for CPU tensors.  The port shares the
-JAX package's jax-free host layers (scoring, packing, host DP) and imports
-no JAX; it re-exports the scoring layer (``ScoringConfig`` and the
-``presets`` module) so its callers need not import ``seqalign_tpu``.
+PyTorch versions of the same kernels for CPU tensors.  The package stands
+on its own: it keeps its own scoring layer (``scoring/``, with the matrix
+files under ``data/scoring``), batch packer (``io/packer.py``,
+``native/seqpack.cpp``) and int64 host path (``ops/host_dp.py``,
+``ops/oracle.py``), and imports neither JAX nor ``seqalign_tpu``.  A
+scoring config of another implementation crosses over through
+``scoring.config.from_reference``.
 """
 
-from seqalign_tpu.scoring import presets
-from seqalign_tpu.scoring.config import ScoringConfig
-
-from .aligners import NeedlemanWunsch, SmithWaterman
+from .aligners import NeedlemanWunsch, SmithWaterman, lcs_aligner, lcs_hits
 from .ops.kernels import kernel_launch_counts, reset_kernel_launch_counts
 from .ops.pack import kernel_params
+from .scoring import presets
+from .scoring.config import ScoringConfig, from_reference
 
 __all__ = ["NeedlemanWunsch", "ScoringConfig", "SmithWaterman",
-           "kernel_launch_counts", "kernel_params", "presets",
+           "from_reference", "kernel_launch_counts", "kernel_params",
+           "lcs_aligner", "lcs_hits", "presets",
            "reset_kernel_launch_counts"]

@@ -1,21 +1,24 @@
 """Aligner API of the port: the slice of ``seqalign_tpu/aligners.py`` that
-serves batched NW scores and alignments and SW best scores and hit
-streams.
+serves batched NW scores and alignments, SW best scores and hit streams,
+and the LCS recipe, under every combination of the scoring flags.
 
 Two execution paths, routed per call by workload size exactly as in the
 JAX package (``_route``):
 
-* **host**: the shared jax-free ``seqalign_tpu.ops.host_dp`` fill and
-  traceback (``HostSwHits`` for SW), for small batches and for the NW
-  sentinel-wrap regime;
+* **host**: the int64 numpy fill and traceback of ``ops/host_dp.py``
+  (``HostSwHits`` for SW), for small batches and for the NW sentinel-wrap
+  regime;
 * **device**: the CUDA kernels of ``ops/kernels.py`` on the aligner's
   ``device`` (their plain PyTorch versions when that device is the CPU).
   Batches are bucketed by padded side widths so ragged batches do not pay
   max-length padding.
 
-The device path covers default flags and gap_open <= 0, with equality or
-substitution-matrix/wildcard scoring; anything else routed there raises
-``NotImplementedError`` naming the ROADMAP.md item that will cover it.
+The device path covers equality and substitution-matrix/wildcard scoring,
+any gap_open, and the flags no_start_gap_penalty, no_end_gap_penalty,
+no_gaps_in_a, no_gaps_in_b and no_mismatches; :func:`_check_slice` is the
+one place that picks a kernel, and it raises ``NotImplementedError``
+naming the ROADMAP.md item for what is still unported (pairs over
+``LONG_PAIR_CELLS``, the matrix dump).
 """
 
 from __future__ import annotations
@@ -27,20 +30,17 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from seqalign_tpu.io import packer
-from seqalign_tpu.ops import host_dp
-from seqalign_tpu.ops.host_dp import Alignment
-from seqalign_tpu.scoring.config import ScoringConfig
-from seqalign_tpu.scoring.presets import (scoring_system_default,
-                                          scoring_system_sw_default)
-
-from .ops import kernels
+from .io import packer
+from .ops import host_dp, kernels
 from .ops.dp import sw_sorted_candidates
 from .ops.pack import (KernelParams, _next_pow2, check_valid_pairs,
                        kernel_params, m16_safe, mm_eligible, pack_batch,
                        pad_width)
+from .ops.host_dp import Alignment
 from .ops.traceback import (SwDeviceHits, SwHitIterator, SwRefMaskHistory,
                             nw_strings_from_ops)
+from .scoring.config import ScoringConfig, from_reference
+from .scoring.presets import scoring_system_default, scoring_system_sw_default
 
 # Same routing thresholds and environment knobs as the JAX package
 # (seqalign_tpu/aligners.py:37-50).
@@ -50,6 +50,13 @@ LONG_PAIR_CELLS = 112_000_000  # > 10240^2: 1-10 kb reads never go per-pair
 # device dirs (and SW M) bytes in flight per alignment sub-batch
 ALIGN_DIRS_BUDGET = int(os.environ.get("SEQALIGN_ALIGN_DIRS_BUDGET",
                                        str(1_500_000_000)))
+# The SW harvest (``sw_sorted_candidates``) holds about 40 bytes per
+# candidate while it sorts.  Without a min_score hint every cell with
+# M >= 1 is a candidate: about a quarter of the cells on 4-letter DNA,
+# under the SW default and under the LCS recipe (a sequence against
+# itself) alike.  A hint-less sub-batch is sized by these bytes too.
+_HARVEST_BYTES = 40
+_HARVEST_SHARE = 0.25
 
 _SW_PREWALK = 16  # hits found per pair in a sub-batch's first device round
 # device-walk cutover: a pair with more harvested candidates than this walks
@@ -77,24 +84,26 @@ def _route(total_cells: int, n_pairs: int,
     return "device"
 
 
-def _check_slice(sc: ScoringConfig) -> None:
-    """Raise for a device-routed config the port's kernels do not cover:
-    the constrained flags and gap_open > 0 (item 6).  Equality and
-    substitution-table scoring, NW and SW, are covered."""
-    flags = [f for f in ("no_start_gap_penalty", "no_end_gap_penalty",
-                         "no_gaps_in_a", "no_gaps_in_b", "no_mismatches")
-             if getattr(sc, f)]
-    if flags or sc.gap_open > 0:
-        what = ", ".join(flags) if flags else "gap_open > 0"
-        raise NotImplementedError(
-            f"device path of the port covers default flags and "
-            f"gap_open <= 0 only ({what}): ROADMAP.md Queue 1 item 6")
+# what is still unported -> the ROADMAP.md item that will cover it
+_UNPORTED = {
+    "long": "pairs over LONG_PAIR_CELLS need the chunked long-pair fill: "
+            "ROADMAP.md Queue 1 item 7",
+    "matrices": "align_with_matrices needs the deskewed matrix dump: "
+                "ROADMAP.md Queue 1 item 4",
+}
+_ENTRIES = {("scores", False): "nw_scores", ("scores", True): "sw_scores",
+            ("dirs", False): "nw_fill_dirs", ("dirs", True): "sw_fill_dirs"}
 
 
-def _no_long_pairs():
-    raise NotImplementedError(
-        "pairs over LONG_PAIR_CELLS need the chunked long-pair fill: "
-        "ROADMAP.md Queue 1 item 7")
+def _check_slice(what: str, is_sw: bool = False):
+    """The device path's single dispatch point: the wrapper in
+    ``ops/kernels.py`` that serves ``what`` ("scores" or "dirs") for NW or
+    SW.  Each wrapper takes equality or table scoring and the flag word
+    from the batch's ``KernelParams``, so every config has an entry;
+    ``what`` in ``_UNPORTED`` raises with its ROADMAP.md item."""
+    if what in _UNPORTED:
+        raise NotImplementedError(_UNPORTED[what])
+    return getattr(kernels, _ENTRIES[(what, is_sw)])
 
 
 def _to(dev, *arrays):
@@ -117,7 +126,7 @@ def _scores_auto(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
             else:
                 out[i] = max(M[-1, -1], Ga[-1, -1], Gb[-1, -1])
         return out
-    _check_slice(sc)
+    fill = _check_slice("scores", is_sw)
     for sa, sb in zip(seqs_a, seqs_b):
         check_valid_pairs(sc, sa, sb)
     # pow2 pair-count padding as in the JAX package (aligners.py:174-188):
@@ -132,11 +141,8 @@ def _scores_auto(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
     na[n:] = 1
     nb[n:] = 1
     ac, bc, na, nb = _to(params.scal.device, ac, bc, na, nb)
-    if is_sw:
-        scores = kernels.sw_scores(ac, bc, na, nb, bparams)
-    else:
-        scores, _ = kernels.nw_scores(ac, bc, na, nb, bparams)
-    scores = scores[:n]
+    scores = fill(ac, bc, na, nb, bparams)
+    scores = (scores if is_sw else scores[0])[:n]
     return scores if defer else scores.cpu().numpy()
 
 
@@ -231,7 +237,7 @@ class NeedlemanWunsch:
 
     def __init__(self, scoring: Optional[ScoringConfig] = None,
                  device="cuda"):
-        self.scoring = (scoring if scoring is not None
+        self.scoring = (from_reference(scoring) if scoring is not None
                         else scoring_system_default())
         self.device = torch.device(device)
         self.params = kernel_params(self.scoring, self.device)
@@ -253,11 +259,11 @@ class NeedlemanWunsch:
 
     def _align_batch_device(self, seqs_a, seqs_b) -> List[Alignment]:
         sc = self.scoring
-        _check_slice(sc)
+        fill = _check_slice("dirs")
         results: List[Optional[Alignment]] = [None] * len(seqs_a)
         for key, idx in _buckets(seqs_a, seqs_b):
             if key is None:
-                _no_long_pairs()
+                _check_slice("long")
             la, lb = key
             # sub-batch by the bytes the dirs tensor really holds:
             # (la+lb-1) * (lb+1) per pair
@@ -271,8 +277,7 @@ class NeedlemanWunsch:
                 ac, bc, na, nb, bparams = pack_batch(sc, self.params, ga, gb,
                                                      la, lb)
                 ac_t, bc_t, na_t, nb_t = _to(self.device, ac, bc, na, nb)
-                dirs, corner = kernels.nw_fill_dirs(ac_t, bc_t, na_t, nb_t,
-                                                    bparams)
+                dirs, corner = fill(ac_t, bc_t, na_t, nb_t, bparams)
                 ops, score = kernels.nw_walk(dirs, corner, na_t, nb_t,
                                              int(np.max(na + nb)))
                 del dirs  # free it before the next sub-batch allocates
@@ -311,11 +316,11 @@ class _SwFill:
             check_valid_pairs(sc, a, b)
         ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
                                                            la, lb)
-        self.ac, self.bc, self.na_t, nb_t = _to(device, ac, bc, self.na,
-                                                self.nb)
-        self.dirs, mmat = kernels.sw_fill_dirs(self.ac, self.bc, self.na_t,
-                                               nb_t, self.params,
-                                               m16_safe(sc, la, lb))
+        self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
+                                                     self.nb)
+        self.dirs, mmat = _check_slice("dirs", True)(
+            self.ac, self.bc, self.na_t, self.nb_t, self.params,
+            m16_safe(sc, la, lb))
         self.flat, self.score, off = sw_sorted_candidates(mmat, self.na,
                                                           self.nb, mins)
         del mmat
@@ -332,7 +337,7 @@ class _SwFill:
             lo = torch.where(torch.from_numpy(host).to(lo.device), self.hi,
                              lo)
         out = kernels.sw_hits(self.dirs, self.ac, self.bc, self.na_t,
-                              self.flat, self.score, lo, self.hi,
+                              self.nb_t, self.flat, self.score, lo, self.hi,
                               self.params, k)
         hit_flat, hit_score, nhits = (t.cpu().numpy() for t in out)
         if (nhits < 0).any():
@@ -347,7 +352,7 @@ class _SwFill:
             w = self.na[jw].astype(np.int64) + 1
             x0, y0 = flats % w, flats // w
             ops = kernels.sw_walk(
-                self.dirs, self.ac, self.bc,
+                self.dirs, self.ac, self.bc, self.na_t, self.nb_t,
                 *_to(self.dirs.device, *(v.astype(np.int32)
                                          for v in (jw, x0, y0, s0))),
                 self.params, int((x0 + y0).max())).cpu().numpy()
@@ -377,7 +382,7 @@ class SmithWaterman:
 
     def __init__(self, scoring: Optional[ScoringConfig] = None,
                  device="cuda", ref_mask_compat: Optional[bool] = None):
-        self.scoring = (scoring if scoring is not None
+        self.scoring = (from_reference(scoring) if scoring is not None
                         else scoring_system_sw_default())
         self.device = torch.device(device)
         self.params = kernel_params(self.scoring, self.device)
@@ -417,16 +422,18 @@ class SmithWaterman:
         pairs in consumption order), walks on the host over its own copy of
         its codes instead."""
         sc = self.scoring
-        _check_slice(sc)
         results: List = [None] * len(seqs_a)
         for key, idx in _buckets(seqs_a, seqs_b):
             if key is None:
-                _no_long_pairs()
+                _check_slice("long")
             la, lb = key
             # sub-batch by the bytes the fill really holds per pair: codes
-            # plus the int16 or int32 M plane
+            # plus the int16 or int32 M plane, and without a hint the
+            # harvest of about a quarter of the pair's cells
             per_pair = ((la + lb - 1) * (lb + 1)
                         * (1 + (2 if m16_safe(sc, la, lb) else 4)))
+            if any(min_scores[i] <= 1 for i in idx):
+                per_pair += int(_HARVEST_BYTES * _HARVEST_SHARE * la * lb)
             step = max(1, ALIGN_DIRS_BUDGET // per_pair)
             for s in range(0, len(idx), step):
                 self._align_sub_batch(idx[s:s + step], seqs_a, seqs_b,
@@ -479,13 +486,35 @@ class SmithWaterman:
                                 is_sw=True)
 
     def align_long(self, *args, **kw):
-        raise NotImplementedError(
-            "SmithWaterman.align_long needs the chunked long-pair fill: "
-            "ROADMAP.md Queue 1 item 7")
+        _check_slice("long")
 
     def align_with_matrices(self, *args, **kw):
-        raise NotImplementedError(
-            "SmithWaterman.align_with_matrices needs the deskewed matrix "
-            "dump: ROADMAP.md Queue 1 item 4")
+        _check_slice("matrices")
 
     matrices = align_with_matrices
+
+
+def lcs_hits(seq: str, case_sensitive: bool = True,
+             sw: Optional[SmithWaterman] = None):
+    """Longest-common-substring enumeration of a sequence against itself:
+    constrained SW per lcs_cmdline.c:39-64 (match 1 / mismatch -1 / open -4 /
+    extend -1, no gaps, no mismatches); yields only pos_a < pos_b hits.
+    Pass ``sw`` (an ``lcs_aligner()``) to reuse one aligner across calls,
+    as the reference lcs tool aligns every input line with one
+    sw_aligner_t."""
+    if sw is None:
+        sw = lcs_aligner(case_sensitive)
+    for hit in sw.align(seq, seq):
+        if hit.pos_a < hit.pos_b:
+            yield hit
+
+
+def lcs_aligner(case_sensitive: bool = True,
+                device="cuda") -> SmithWaterman:
+    """The lcs tool's constrained SW aligner (lcs_cmdline.c:39-64)."""
+    sc = ScoringConfig(
+        1, -1, -4, -1,
+        no_gaps_in_a=True, no_gaps_in_b=True, no_mismatches=True,
+        case_sensitive=case_sensitive,
+    )
+    return SmithWaterman(sc, device=device)

@@ -1,11 +1,11 @@
-// NW fill with direction codes, default flags, equality or
-// substitution-table scoring.
+// NW fill with direction codes, equality or substitution-table scoring,
+// every combination of the scoring flags (fill_common.cuh).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
-// pallas_fill_dirs2) in NW mode, and the NW default-flag duties of
-// pallas_dp.py:_dirs_kernel (4,097-8,192 lanes, other alphabets).  Same
-// fill as nw_scores.cu; each valid cell also writes one byte,
-// dm | dga << 2 | dgb << 4, chosen with the reference traceback's
+// pallas_fill_dirs2) in NW mode with its constrained modes, and the NW
+// duties of pallas_dp.py:_dirs_kernel (4,097-8,192 lanes, other
+// alphabets).  Same fill as nw_scores.cu; each valid cell also writes one
+// byte, dm | dga << 2 | dgb << 4, chosen with the reference traceback's
 // guard/equality/priority order (GAP_A > GAP_B > MATCH,
 // alignment.c:311-327), into the skewed (B, LA+LB-1, LB+1) layout of
 // seqalign_tpu/ops/traceback.py (cell (y, x) at [x+y-2][y]).  Lanes of one
@@ -19,6 +19,6 @@
 
 FILL_ENTRY(nw_dirs_launch) {
   return fill::launch_mode<true, false, 0>(
-      ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
-      corner, dirs, nullptr, scratch, stream);
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, corner, dirs, nullptr, scratch, stream);
 }

@@ -12,7 +12,9 @@
 // enters, and either meets a marked cell (an abort, whose marks stay) or
 // reaches score 0 (a hit).  The first k hits' (flat, score) are written and
 // their count goes to nhits[j]; fewer than k means the candidates ran out.
-// A DIR_FAIL code, or a walk that leaves the matrix, sets nhits[j] = -1.
+// A step's penalty is that of sw_walk.cu, the free-end-gap rule (neg)
+// included.  A DIR_FAIL code, or a walk that leaves the matrix, sets
+// nhits[j] = -1.
 // The paths of the hits are traced by sw_walk.cu afterwards.
 //
 // The mask is one bit per cell (y, x), 0 <= y <= LB, 0 <= x <= LA, in MW
@@ -46,6 +48,7 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
                                const int* __restrict__ scal,
                                const int* __restrict__ sub, int Kb,
                                const int* __restrict__ na,
+                               const int* __restrict__ nb, int neg,
                                const int* __restrict__ cand_flat,
                                const int* __restrict__ cand_score,
                                const int64_t* __restrict__ lo,
@@ -74,7 +77,7 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
   const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
   int* hf = hit_flat + static_cast<size_t>(j) * k;
   int* hs = hit_score + static_cast<size_t>(j) * k;
-  const int w = na[j] + 1;
+  const int naj = na[j], nbj = nb[j], w = naj + 1;
   int n = 0;
   bool fail = false;
   for (int64_t c = lo[j], end = hi[j]; c < end && n < k && !fail; ++c) {
@@ -113,7 +116,8 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
         --x;
         --y;
       } else {
-        pen = nxt == curr ? ge : gop;
+        const bool free = neg && (curr == GAP_A ? x == naj : y == nbj);
+        pen = free ? 0 : (nxt == curr ? ge : gop);
         if (curr == GAP_A) --y; else --x;
       }
       cs = static_cast<int>(static_cast<unsigned>(cs) -
@@ -126,12 +130,13 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
 
 }  // namespace
 
-// dirs, ac, bc, scal, sub (or null), Kb, na, cand_flat, cand_score, lo, hi,
-// B, LA, LB, k, MW, gmask (null with use_smem), use_smem, hit_flat,
+// dirs, ac, bc, scal, sub (or null), Kb, na, nb, neg, cand_flat, cand_score,
+// lo, hi, B, LA, LB, k, MW, gmask (null with use_smem), use_smem, hit_flat,
 // hit_score, nhits, stream
 extern "C" int sw_hits_launch(const void* dirs, const void* ac,
                               const void* bc, const void* scal,
                               const void* sub, int Kb, const void* na,
+                              const void* nb, int neg,
                               const void* cand_flat, const void* cand_score,
                               const void* lo, const void* hi, int B, int LA,
                               int LB, int k, int MW, void* gmask,
@@ -148,7 +153,8 @@ extern "C" int sw_hits_launch(const void* dirs, const void* ac,
       static_cast<const uint8_t*>(dirs), static_cast<const uint8_t*>(ac),
       static_cast<const uint8_t*>(bc), static_cast<const int*>(scal),
       static_cast<const int*>(sub), Kb, static_cast<const int*>(na),
-      static_cast<const int*>(cand_flat), static_cast<const int*>(cand_score),
+      static_cast<const int*>(nb), neg, static_cast<const int*>(cand_flat),
+      static_cast<const int*>(cand_score),
       static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi), LA, LB,
       k, MW, static_cast<uint32_t*>(gmask), use_smem,
       static_cast<int*>(hit_flat), static_cast<int*>(hit_score),

@@ -1,8 +1,10 @@
-// SW best scores, default flags, equality or substitution-table scoring.
+// SW best scores, equality or substitution-table scoring, every combination
+// of the scoring flags (fill_common.cuh).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
 // pallas_scores2 with is_sw) in SW mode, equality and packed-LUT scoring,
-// and the SW default-flag duty of pallas_dp.py:_kernel.  The fill is the
+// with its flag branches, and the SW duties of pallas_dp.py:_kernel (the
+// both-no-gaps int32 fill among them).  The fill is the
 // one of nw_scores.cu (fill_common.cuh) with the local recurrence: every
 // cell floors at 0, the boundary is all zero, and each thread keeps the
 // best M of the cells it computes; a warp reduces them with
@@ -18,6 +20,6 @@
 
 FILL_ENTRY(sw_scores_launch) {
   return fill::launch_mode<false, true, 0>(
-      ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
-      nullptr, nullptr, nullptr, scratch, stream);
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, nullptr, nullptr, nullptr, scratch, stream);
 }

@@ -7,7 +7,11 @@
 // tensor, records the matrix walked, and subtracts the step's penalty,
 // the equality score or sub[a, b] for a MATCH step (the codes of the fill
 // are read in place too), gap_extend for a gap that goes on and
-// gap_open + gap_extend for one that opens.  No overlap mask: paths depend
+// gap_open + gap_extend for one that opens, and nothing under free end
+// gaps (neg) for a GAP_A step on the pair's last column x == na or a GAP_B
+// step on its last row y == nb (alignment.c:264-307; the TPU walk lacks
+// this rule because the JAX package walks constrained SW on the host).  No
+// overlap mask: paths depend
 // only on the codes; the aligner walks the hits sw_hits.cu found, whose
 // masking and abort ran there.  A DIR_FAIL code is not checked here: it
 // shows as a 3 in the next step, and the host raises on it.
@@ -29,6 +33,8 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
                                const uint8_t* __restrict__ bc,
                                const int* __restrict__ scal,
                                const int* __restrict__ sub, int Kb,
+                               const int* __restrict__ na,
+                               const int* __restrict__ nb, int neg,
                                const int* __restrict__ jw,
                                const int* __restrict__ x0,
                                const int* __restrict__ y0,
@@ -48,6 +54,7 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
     const uint8_t* dj = dirs + static_cast<size_t>(j) * (LA + LB - 1) * LBp;
     const uint8_t* aj = ac + static_cast<size_t>(j) * LA;
     const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
+    const int naj = na[j], nbj = nb[j];
     int X = min(x0[w], LA), Y = min(y0[w], LB), cs = s0[w], curr = MATCH;
     for (; step < cap && cs > 0; ++step) {
       const int Xc = max(X, 1), Yc = max(Y, 1);
@@ -57,6 +64,8 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
       if (curr == MATCH) {
         const int ai = aj[Xc - 1], bi = bj[Yc - 1];
         pen = sub ? __ldg(sub + ai * Kb + bi) : (ai == bi ? match : mismatch);
+      } else if (neg && (curr == GAP_A ? X == naj : Y == nbj)) {
+        pen = 0;
       } else {
         pen = nxt == curr ? ge : gop;
       }
@@ -73,11 +82,12 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
 
 }  // namespace
 
-// dirs, ac, bc, scal, sub (or null), Kb, jw, x0, y0, s0, W, B, LA, LB, cap,
-// ops, stream
+// dirs, ac, bc, scal, sub (or null), Kb, na, nb, neg, jw, x0, y0, s0, W, B,
+// LA, LB, cap, ops, stream
 extern "C" int sw_walk_launch(const void* dirs, const void* ac,
                               const void* bc, const void* scal,
-                              const void* sub, int Kb, const void* jw,
+                              const void* sub, int Kb, const void* na,
+                              const void* nb, int neg, const void* jw,
                               const void* x0, const void* y0, const void* s0,
                               int W, int B, int LA, int LB, int cap,
                               void* ops, void* stream) {
@@ -86,7 +96,8 @@ extern "C" int sw_walk_launch(const void* dirs, const void* ac,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), static_cast<const uint8_t*>(ac),
       static_cast<const uint8_t*>(bc), static_cast<const int*>(scal),
-      static_cast<const int*>(sub), Kb, static_cast<const int*>(jw),
+      static_cast<const int*>(sub), Kb, static_cast<const int*>(na),
+      static_cast<const int*>(nb), neg, static_cast<const int*>(jw),
       static_cast<const int*>(x0), static_cast<const int*>(y0),
       static_cast<const int*>(s0), W, B, LA, LB, cap,
       static_cast<int8_t*>(ops));

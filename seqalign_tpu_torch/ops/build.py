@@ -28,10 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,
-# corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
-_FILL = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-         _P, _P)
+# ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,
+# scores, corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
+_FILL = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+         _P, _I, _P, _P)
 _SIGNATURES = {
     "nw_scores_launch": _FILL,
     "nw_dirs_launch": _FILL,
@@ -39,14 +39,15 @@ _SIGNATURES = {
     "sw_dirs_launch": _FILL,
     # dirs, corner, na, nb, B, D, LB+1, cap, ops, score, stream
     "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # dirs, ac, bc, scal, sub, Kb, jw, x0, y0, s0, W, B, LA, LB, cap, ops,
+    # dirs, ac, bc, scal, sub, Kb, na, nb, neg, jw, x0, y0, s0, W, B, LA,
+    # LB, cap, ops, stream
+    "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P, _P),
+    # dirs, ac, bc, scal, sub, Kb, na, nb, neg, cand_flat, cand_score, lo,
+    # hi, B, LA, LB, k, MW, gmask, use_smem, hit_flat, hit_score, nhits,
     # stream
-    "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _P, _P),
-    # dirs, ac, bc, scal, sub, Kb, na, cand_flat, cand_score, lo, hi, B, LA,
-    # LB, k, MW, gmask, use_smem, hit_flat, hit_score, nhits, stream
-    "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _I, _I, _P, _I, _P, _P, _P, _P),
+    "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -1,15 +1,20 @@
 """Plain PyTorch versions of the fill kernels, global (NW) and local (SW).
 
 A transcription of the JAX package's ``dp.dp_fill`` (seqalign_tpu/ops/
-dp.py:126-429) restricted to default flags (nsg = neg = nga = ngb = nmm =
-False): a Python loop over anti-diagonals ``d = x + y`` whose per-step work
-is a (B, LB+1) vector update, lane = y.  Arithmetic is native int32 and
-wraps exactly like the reference's fill.  Two scoring modes: equality on
-folded codes (``params.sub`` is None) and substitution-table lookup
-``sub[a, b]`` on compact codes.  NW floors at the sentinel
-``params.scal[4]`` and fills its boundary with gap runs; SW floors at
-``params.scal[5]`` (0), has an all-zero boundary and reduces the best M
-over the valid cells.  ``sw_sorted_candidates`` harvests SW hit
+dp.py:126-429) in its unchunked case, every recurrence mode: a Python loop
+over anti-diagonals ``d = x + y`` whose per-step work is a (B, LB+1)
+vector update, lane = y.  Arithmetic is native int32 and wraps exactly
+like the reference's fill.  Two scoring modes: equality on folded codes
+(``params.sub`` is None) and substitution-table lookup ``sub[a, b]`` on
+compact codes.  NW floors at the sentinel ``params.scal[4]`` and fills its
+boundary with gap runs; SW floors at ``params.scal[5]`` (0), has an
+all-zero boundary and reduces the best M over the valid cells.  The bit
+word ``params.modes`` carries the scoring flags (``pack.NSG`` .. ``NMM``):
+free start gaps zero the boundary runs, free end gaps take the last
+column's GAP_A and the last row's GAP_B without penalty or floor, the
+no-gaps flags pin GAP_A / GAP_B to the floor off the last column / row and
+guard their direction codes, and no-mismatches pins M to the floor where
+the pair is not an is-match.  ``sw_sorted_candidates`` harvests SW hit
 candidates from an M plane where it lies and puts them in the hit order.
 
 These are the reference the CUDA kernels are held against: the wrappers in
@@ -22,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .pack import DIR_FAIL, GAP_A, GAP_B, MATCH, KernelParams
+from .pack import (DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, NGA, NGB, NMM, NSG,
+                   KernelParams)
 
 
 def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
@@ -37,8 +43,12 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     match, mismatch, gap_open, gap_extend, nw_mn, sw_mn = params.scal.unbind()
     mn = sw_mn if is_sw else nw_mn
     gop = gap_open + gap_extend  # gap_open_penalty (alignment.c:38)
+    nsg, neg, nga, ngb, nmm = (bool(params.modes & f)
+                               for f in (NSG, NEG, NGA, NGB, NMM))
     na = na.to(i32)
     nb = nb.to(i32)
+    nax, nbx = na[:, None], nb[:, None]
+    zero = torch.zeros_like(mn)
     ylong = torch.arange(LBp, device=dev)[None, :]
     yv = ylong.to(i32)
     a = ac.long()
@@ -49,6 +59,7 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         sub_flat = sub.reshape(-1)
         b_row = b_lane.clamp(min=0)  # lane 0 is overwritten by inject
         kb = sub.shape[1]
+        im_flat = params.im.reshape(-1) if nmm else None
     mncol = mn.expand(B, 1)
     mnvec = mn.expand(B, LBp)
 
@@ -60,7 +71,8 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         if is_sw:
             edge = at0 | atd
             return tuple(torch.where(edge, mn, v) for v in (Mv, Gav, Gbv))
-        run = gap_open + d * gap_extend
+        # free start gaps: the runs cost nothing (alignment.c:60-63)
+        run = zero if nsg else gap_open + d * gap_extend
         Mv = torch.where(at0 | atd, mn, Mv)
         Gav = torch.where(at0, mn, torch.where(atd, run, Gav))
         Gbv = torch.where(at0, run, torch.where(atd, mn, Gbv))
@@ -73,7 +85,7 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         vals = torch.cat([v.gather(1, nb_idx) for v in (Mv, Gav, Gbv)], 1)
         return torch.where(hit, vals, corner)
 
-    m0 = torch.where(yv == 0, torch.zeros_like(mn), mn).expand(B, LBp)
+    m0 = torch.where(yv == 0, zero, mn).expand(B, LBp)
     pm2 = pga2 = pgb2 = m0
     pm1, pga1, pgb1 = inject(1, mnvec, mnvec, mnvec)
     corner = torch.zeros((B, 3), dtype=i32, device=dev)
@@ -108,28 +120,61 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
             ss = sub_flat[a_lane * kb + b_row]
         m2s, ga2s, gb2s = sh(pm2), sh(pga2), sh(pgb2)
         m1s, ga1s, gb1s = sh(pm1), sh(pga1), sh(pgb1)
+        xv = d - yv
+        lastcol = xv == nax  # x == na
+        lastrow = yv == nbx  # y == nb
         # MATCH (alignment.c:89-119)
         Mv = torch.maximum(max3(m2s, ga2s, gb2s) + ss, mn)
+        if nmm:  # alignment.c:101-104
+            if sub is None:
+                im = a_lane == b_lane
+            else:
+                im = im_flat[a_lane * kb + b_row] != 0
+            Mv = torch.where(im, Mv, mn)
         # GAP_A: reads (y-1, x) (alignment.c:121-137)
         ga_v = torch.maximum(max3(m1s + gop, ga1s + gap_extend, gb1s + gop),
                              mn)
+        if neg:
+            ga_v = torch.where(lastcol, max3(m1s, ga1s, gb1s), ga_v)
+        if nga:
+            ga_v = torch.where(lastcol, ga_v, mn)
         # GAP_B: reads (y, x-1) (alignment.c:139-155)
         gb_v = torch.maximum(max3(pm1 + gop, pga1 + gop, pgb1 + gap_extend),
                              mn)
+        if neg:
+            gb_v = torch.where(lastrow, max3(pm1, pga1, pgb1), gb_v)
+        if ngb:
+            gb_v = torch.where(lastrow, gb_v, mn)
         if emit_dirs:
-            dm = pick(ga2s + ss == Mv, gb2s + ss == Mv, m2s + ss == Mv)
-            dga = pick(ga1s + gap_extend == ga_v, gb1s + gop == ga_v,
-                       m1s + gop == ga_v)
-            dgb = pick(pga1 + gop == gb_v, pgb1 + gap_extend == gb_v,
-                       pm1 + gop == gb_v)
+            # a no-gaps matrix is a predecessor only at its boundary
+            # coordinates (alignment.c:312-314, 319-321); the guards take
+            # the predecessor's cell
+            diag_a = ((xv == 1) | (xv - 1 == nax)) if nga else True
+            diag_b = ((yv == 1) | (yv - 1 == nbx)) if ngb else True
+            dm = pick(diag_a & (ga2s + ss == Mv), diag_b & (gb2s + ss == Mv),
+                      m2s + ss == Mv)
+            # free end gaps: a GAP_A step on the last column, a GAP_B step
+            # on the last row, costs nothing (alignment.c:265-268, 287-290)
+            a_open = torch.where(lastcol, zero, gop) if neg else gop
+            a_ext = (torch.where(lastcol, zero, gap_extend) if neg
+                     else gap_extend)
+            up_a = ((xv == 0) | lastcol) if nga else True
+            dga = pick(up_a & (ga1s + a_ext == ga_v),
+                       diag_b & (gb1s + a_open == ga_v),
+                       m1s + a_open == ga_v)
+            b_open = torch.where(lastrow, zero, gop) if neg else gop
+            b_ext = (torch.where(lastrow, zero, gap_extend) if neg
+                     else gap_extend)
+            left_b = ((yv == 0) | lastrow) if ngb else True
+            dgb = pick(diag_a & (pga1 + b_open == gb_v),
+                       left_b & (pgb1 + b_ext == gb_v),
+                       pm1 + b_open == gb_v)
             dirs[:, d - 2] = (dm | (dga << 2) | (dgb << 4)).to(torch.uint8)
         if mout is not None:
             mout[:, d - 2] = Mv.to(m_dtype)
         Mv, ga_v, gb_v = inject(d, Mv, ga_v, gb_v)
         if is_sw:
-            x = d - yv
-            valid = ((yv >= 1) & (yv <= nb[:, None]) & (x >= 1)
-                     & (x <= na[:, None]))
+            valid = (yv >= 1) & (yv <= nbx) & (xv >= 1) & (xv <= nax)
             best = torch.maximum(best, torch.where(valid, Mv, mn).amax(1))
         else:
             corner = corner_at(d, Mv, ga_v, gb_v, corner)

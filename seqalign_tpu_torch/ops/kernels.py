@@ -1,6 +1,7 @@
 """Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
 ``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
-substitution-table scoring, the latter when ``params.sub`` is set), the
+substitution-table scoring, the latter when ``params.sub`` is set; the
+scoring flags of ``params.modes``), the
 walks ``nw_walk`` and ``sw_walk``, and the SW hit loop ``sw_hits``.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
@@ -23,7 +24,7 @@ import torch
 from .build import library
 from .dp import (nw_fill_dirs_plain, nw_scores_plain, sw_fill_dirs_plain,
                  sw_scores_plain)
-from .pack import KernelParams
+from .pack import NEG, NMM, KernelParams
 from .traceback import nw_walk_plain, sw_hits_plain, sw_walk_plain, walk_cap
 
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
@@ -63,6 +64,16 @@ def _check_params(params: KernelParams, dev):
         _expect(params.sub, "params.sub", torch.int32, 2, dev)
         if min(params.sub.shape) < 1:
             raise ValueError("params.sub must be a non-empty table")
+        if params.modes & NMM:
+            if params.im is None:
+                raise ValueError("no_mismatches with a table needs "
+                                 "params.im")
+            _expect(params.im, "params.im", torch.int32, 2, dev)
+            if params.im.shape != params.sub.shape:
+                raise ValueError("params.im must have the shape of "
+                                 "params.sub")
+    if not 0 <= params.modes < 32:
+        raise ValueError(f"params.modes {params.modes} is not a flag word")
 
 
 def _check_fill(ac, bc, na, nb, params: KernelParams):
@@ -102,8 +113,9 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
           dirs=None, mout=None, m16=False):
     """Launch one of the fill kernels (csrc/fill_common.cuh).  The rolling
     diagonals (36 bytes per lane) take shared memory when they fit there,
-    else a global scratch buffer; the table (4 bytes per entry) takes the
-    shared memory left, else the read-only global path."""
+    else a global scratch buffer; the table (4 bytes per entry, twice that
+    with the is-match table of no_mismatches) takes the shared memory left,
+    else the read-only global path."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
@@ -113,15 +125,18 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
     scratch = (None if diag <= SMEM_MAX else
                torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev))
     sub = params.sub
+    im = params.im if sub is not None and params.modes & NMM else None
     kb = sub_n = table_smem = 0
     if sub is not None:
         kb, sub_n = sub.shape[1], sub.numel()
         used = 0 if scratch is not None else diag
-        table_smem = int(used + 4 * sub_n <= SMEM_MAX)
+        tables = 4 * sub_n * (1 if im is None else 2)
+        table_smem = int(used + tables <= SMEM_MAX)
     lib = library()
     rc = getattr(lib, entry)(
         _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
-        kb, sub_n, table_smem, B, LA, LB, _ptr(scores), _ptr(corner),
+        _ptr(im), params.modes, kb, sub_n, table_smem, B, LA, LB,
+        _ptr(scores), _ptr(corner),
         _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev))
     _launched(name, lib, rc)
 
@@ -215,14 +230,17 @@ def nw_walk(dirs, corner, na, nb, cap: int):
     return ops, score
 
 
-def sw_walk(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams, cap: int):
+def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
+            cap: int):
     """Device SW candidate walks (see ``sw_walk_plain``) over one fill's
-    ``dirs`` and codes: returns the op traces (W, walk_cap(cap)) int8."""
+    ``dirs``, codes and lengths: returns the op traces (W, walk_cap(cap))
+    int8."""
     dev = dirs.device
     _expect(dirs, "dirs", torch.uint8, 3, dev)
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
-    for t, n in ((jw, "jw"), (x0, "x0"), (y0, "y0"), (s0, "s0")):
+    for t, n in ((na, "na"), (nb, "nb"), (jw, "jw"), (x0, "x0"), (y0, "y0"),
+                 (s0, "s0")):
         _expect(t, n, torch.int32, 1, dev)
     _check_params(params, dev)
     B, D, LBp = dirs.shape
@@ -231,10 +249,13 @@ def sw_walk(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams, cap: int):
     if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
             LA + LB - 1 != D:
         raise ValueError("dirs, ac and bc must come from one fill")
+    if not na.shape[0] == nb.shape[0] == B:
+        raise ValueError("na and nb must hold one entry per pair")
     if not x0.shape[0] == y0.shape[0] == s0.shape[0] == W:
         raise ValueError("jw, x0, y0 and s0 must hold the same walk count")
     if dev.type == "cpu":
-        return sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params, cap)
+        return sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0, params,
+                             cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     capr = walk_cap(cap)
@@ -245,13 +266,14 @@ def sw_walk(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams, cap: int):
     sub = params.sub
     rc = lib.sw_walk_launch(
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
-        0 if sub is None else sub.shape[1], _ptr(jw), _ptr(x0), _ptr(y0),
+        0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
+        int(bool(params.modes & NEG)), _ptr(jw), _ptr(x0), _ptr(y0),
         _ptr(s0), W, B, LA, LB, capr, _ptr(ops), _stream(dev))
     _launched("sw_walk", lib, rc)
     return ops
 
 
-def sw_hits(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
+def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
             params: KernelParams, k: int):
     """The first ``k`` hits of every pair of one SW fill, found on the
     device with the reference's overlap mask (see ``sw_hits_plain``):
@@ -263,6 +285,7 @@ def sw_hits(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
     _expect(na, "na", torch.int32, 1, dev)
+    _expect(nb, "nb", torch.int32, 1, dev)
     _expect(cand_flat, "cand_flat", torch.int32, 1, dev)
     _expect(cand_score, "cand_score", torch.int32, 1, dev)
     _expect(lo, "lo", torch.int64, 1, dev)
@@ -273,15 +296,15 @@ def sw_hits(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
     if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
             LA + LB - 1 != D:
         raise ValueError("dirs, ac and bc must come from one fill")
-    if not na.shape[0] == lo.shape[0] == hi.shape[0] == B:
-        raise ValueError("na, lo and hi must hold one entry per pair")
+    if not na.shape[0] == nb.shape[0] == lo.shape[0] == hi.shape[0] == B:
+        raise ValueError("na, nb, lo and hi must hold one entry per pair")
     if cand_flat.shape != cand_score.shape:
         raise ValueError("cand_flat and cand_score must be of one size")
     if k < 1:
         raise ValueError("k must be >= 1")
     if dev.type == "cpu":
-        return sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
-                             params, k)
+        return sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo,
+                             hi, params, k)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     hit_flat = torch.zeros((B, k), dtype=torch.int32, device=dev)
@@ -297,9 +320,9 @@ def sw_hits(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
     sub = params.sub
     rc = lib.sw_hits_launch(
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
-        0 if sub is None else sub.shape[1], _ptr(na), _ptr(cand_flat),
-        _ptr(cand_score), _ptr(lo), _ptr(hi), B, LA, LB, k, MW, _ptr(gmask),
-        int(smem), _ptr(hit_flat), _ptr(hit_score), _ptr(nhits),
-        _stream(dev))
+        0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
+        int(bool(params.modes & NEG)), _ptr(cand_flat), _ptr(cand_score),
+        _ptr(lo), _ptr(hi), B, LA, LB, k, MW, _ptr(gmask), int(smem),
+        _ptr(hit_flat), _ptr(hit_score), _ptr(nhits), _stream(dev))
     _launched("sw_hits", lib, rc)
     return hit_flat, hit_score, nhits

@@ -1,11 +1,11 @@
 """Host-side batch packing and the kernels' scoring state.
 
-The JAX package keeps these helpers in ``seqalign_tpu/ops/dp.py``, whose
-module imports JAX; they are written again here on the shared jax-free
-layers (``seqalign_tpu.io.packer`` and ``seqalign_tpu.scoring``) so the
-port never loads JAX.  Counterparts: ``dp._next_pow2``, ``dp.pad_width``,
-``dp.pad_batch``, ``dp.pack_inputs_mm``, ``dp.compact_inputs``,
-``dp._present_bytes``, ``dp.mm_eligible`` and ``dp.check_valid_pairs``
+The JAX package keeps these helpers in ``seqalign_tpu/ops/dp.py``; they
+are written again here on the port's own packer and scoring layers
+(``io/packer.py``, ``scoring/``).  Counterparts: ``dp._next_pow2``,
+``dp.pad_width``, ``dp.pad_batch``, ``dp.pack_inputs_mm``,
+``dp.compact_inputs``, ``dp._present_bytes``, ``dp.mm_eligible`` and
+``dp.check_valid_pairs``
 (dp.py:437-610), ``pallas_dp2.m16_safe`` (pallas_dp2.py:94-101), and the
 direction codes of dp.py:47.
 
@@ -20,12 +20,17 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from seqalign_tpu.io import packer
-from seqalign_tpu.scoring.config import ScoringConfig, UnknownCharPair, encode
+from ..io import packer
+from ..scoring.config import (ScoringConfig, UnknownCharPair, encode,
+                              from_reference)
 
 # Direction / matrix codes (enum Matrix, alignment.h:43) plus the
 # traceback-fail marker; a dirs byte packs dm | dga << 2 | dgb << 4.
 MATCH, GAP_A, GAP_B, DIR_FAIL = 0, 1, 2, 3
+# Bits of ``KernelParams.modes``: no_start_gap_penalty, no_end_gap_penalty,
+# no_gaps_in_a, no_gaps_in_b, no_mismatches (csrc/fill_common.cuh reads
+# the same word).
+NSG, NEG, NGA, NGB, NMM = 1, 2, 4, 8, 16
 
 
 class KernelParams(NamedTuple):
@@ -40,19 +45,42 @@ class KernelParams(NamedTuple):
     sub: None for equality scoring; for substitution-table scoring the
       batch's (Ka, Kb) int32 compact table on the compute device, set per
       batch by :func:`pack_batch` (the codes index it as ``sub[a, b]``).
+    im: with ``sub`` under no_mismatches, the batch's (Ka, Kb) int32 0/1
+      is-match table beside it; else None (equality scoring reads
+      ``a == b`` instead).
+    modes: the scoring flags as a bit word, ``NSG | NEG | NGA | NGB |
+      NMM``; 0 is the default recurrence.
     """
 
     fold: torch.Tensor
     scal: torch.Tensor
     sub: Optional[torch.Tensor] = None
+    im: Optional[torch.Tensor] = None
+    modes: int = 0
 
 
-def kernel_params(sc: ScoringConfig, device="cpu") -> KernelParams:
+def mode_bits(sc) -> int:
+    """The five scoring flags of ``sc`` as ``KernelParams.modes``."""
+    return (NSG * bool(sc.no_start_gap_penalty)
+            | NEG * bool(sc.no_end_gap_penalty)
+            | NGA * bool(sc.no_gaps_in_a) | NGB * bool(sc.no_gaps_in_b)
+            | NMM * bool(sc.no_mismatches))
+
+
+def kernel_params(sc, device="cpu") -> KernelParams:
+    """The kernels' scoring state for ``sc`` (a :class:`ScoringConfig` or
+    any object :func:`~seqalign_tpu_torch.scoring.config.from_reference`
+    takes).  Under no_mismatches a mismatching pair scores 0, not
+    ``mismatch``, as ``scoring_lookup``'s short-circuit does
+    (alignment_scoring.c:148-152): its M is pinned to the floor either
+    way, and its direction codes then agree with the table mode's."""
+    sc = from_reference(sc)
     fold = torch.from_numpy(np.ascontiguousarray(sc.luts()[0], np.uint8))
-    scal = torch.tensor([sc.match, sc.mismatch, sc.gap_open, sc.gap_extend,
+    mismatch = 0 if sc.no_mismatches else sc.mismatch
+    scal = torch.tensor([sc.match, mismatch, sc.gap_open, sc.gap_extend,
                          sc.dp_floor(False), sc.dp_floor(True)],
                         dtype=torch.int32, device=device)
-    return KernelParams(fold, scal)
+    return KernelParams(fold, scal, modes=mode_bits(sc))
 
 
 def _next_pow2(n: int) -> int:
@@ -136,24 +164,31 @@ def pack_batch(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
     """Pack one batch for the fill kernels: uint8 codes padded to
     (pad_a, pad_b) and the true lengths, numpy, plus the batch's
     ``KernelParams``.  Equality scoring folds the bytes (no table);
-    table scoring compacts both sides and carries ``subK`` on the
-    params' device."""
+    table scoring compacts both sides and carries ``subK`` (and, under
+    no_mismatches, ``imK``) on the params' device."""
     if mm_eligible(sc):
         return (*pack_inputs_mm(params, seqs_a, seqs_b, pad_a, pad_b),
                 params)
     a, na = pad_batch(seqs_a, pad_a)
     b, nb = pad_batch(seqs_b, pad_b)
-    ac, bc, subK, _ = compact_inputs(sc, a, b)
-    sub = torch.from_numpy(subK).to(params.scal.device)
+    ac, bc, subK, imK = compact_inputs(sc, a, b)
+    dev = params.scal.device
+    sub = torch.from_numpy(subK).to(dev)
+    im = torch.from_numpy(imK).to(dev) if params.modes & NMM else None
     return (ac.astype(np.uint8), bc.astype(np.uint8), na, nb,
-            params._replace(sub=sub))
+            params._replace(sub=sub, im=im))
 
 
 def m16_safe(sc: ScoringConfig, la: int, lb: int) -> bool:
     """True when every SW M value of an (la, lb) fill fits int16: M lies
-    in [0, max(true max step, 0) * min(la, lb)] (pallas_dp2.m16_safe)."""
+    in [0, max(true max step, 0) * steps] (pallas_dp2.m16_safe).  A path
+    gains on at most min(la, lb) MATCH steps while no gap step is positive
+    (free end gaps add 0), and on up to la + lb steps once one is, which
+    gap_open > 0 allows."""
     _, tmx = sc.true_penalty_bounds()
-    return max(int(tmx), 0) * min(la, lb) < 32000
+    gains = max(sc.gap_open + sc.gap_extend, sc.gap_extend) > 0
+    steps = la + lb if gains else min(la, lb)
+    return max(int(tmx), 0) * steps < 32000
 
 
 def mm_eligible(sc: ScoringConfig) -> bool:

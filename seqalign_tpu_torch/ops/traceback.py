@@ -5,8 +5,11 @@ SW hit streams.
 on-device walks ``traceback._walk_jit`` and ``sw_walk_jit``
 (seqalign_tpu/ops/traceback.py:515-558, 607-654); ``nw_strings_from_ops``,
 ``SwRefMaskHistory`` and ``SwHitIterator`` are its numpy host code
-(:127-399, :561-600).  That module imports JAX through ``from .dp import
-...`` (its line 27), so all of them are written again here.
+(:127-399, :561-600), written again here.  Unlike ``sw_walk_jit``, the SW
+walks here know the free-end-gap rule of the reverse move (a GAP_A step on
+the last column and a GAP_B step on the last row cost nothing,
+alignment.c:264-307, ``SwHitIterator._penalty`` there): the port walks
+every pair's hits on the device, constrained modes included.
 ``sw_hits_plain`` is the plain version of the ``sw_hits`` kernel, the
 iterator's hit loop run for a whole batch, and :class:`SwDeviceHits` the
 stream of the hits it finds.
@@ -22,10 +25,10 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from seqalign_tpu.ops.host_dp import Alignment
-from seqalign_tpu.scoring.config import ScoringConfig, encode
+from ..scoring.config import ScoringConfig, encode
+from .host_dp import Alignment
 
-from .pack import DIR_FAIL, GAP_A, GAP_B, MATCH, KernelParams
+from .pack import DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, KernelParams
 
 
 def walk_cap(cap: int) -> int:
@@ -112,17 +115,20 @@ def nw_strings_from_ops(seqs_a, seqs_b, na, nb, ops, score):
     return out
 
 
-def sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams,
-                  cap: int):
+def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
+                  params: KernelParams, cap: int):
     """Walk SW candidates back from their end cells, without the overlap
     mask (paths depend only on the codes and the per-step penalties).
 
     ``dirs`` (B, D, LB+1) uint8 codes and ``ac``/``bc`` (B, LA)/(B, LB)
-    uint8 codes of the fill; walk ``w`` starts in pair ``jw[w]`` at cell
+    uint8 codes of the fill, ``na``/``nb`` (B,) int32 its true lengths;
+    walk ``w`` starts in pair ``jw[w]`` at cell
     (``y0[w]``, ``x0[w]``) with score ``s0[w]`` and stops once its score
     reaches 0.  The penalty of a MATCH step is the equality score or
     ``params.sub[a, b]``; of a gap step ``gap_extend`` when the gap goes
-    on, else ``gap_open + gap_extend``.  Returns the op trace
+    on, else ``gap_open + gap_extend``, and 0 under free end gaps
+    (``params.modes & NEG``) for a GAP_A step at x == na or a GAP_B step at
+    y == nb.  Returns the op trace
     (W, walk_cap(cap)) int8: the matrix walked at each step, -1 once
     done; a DIR_FAIL shows as a 3 in the step after it."""
     cap = walk_cap(cap)
@@ -131,8 +137,10 @@ def sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams,
     dev = dirs.device
     match, mismatch, gap_open, gap_extend = params.scal[:4].unbind()
     gop = gap_open + gap_extend
+    neg = bool(params.modes & NEG)
     flat = dirs.reshape(dirs.shape[0], -1)
     j = jw.long()
+    na_w, nb_w = na.long()[j], nb.long()[j]
     X = x0.long()
     Y = y0.long()
     cs = s0.to(torch.int32)
@@ -154,6 +162,10 @@ def sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams,
             sub = params.sub.reshape(-1)[ai * params.sub.shape[1] + bi]
         pen = torch.where(curr == MATCH, sub,
                           torch.where(nxt == curr, gap_extend, gop))
+        if neg:
+            free = (((curr == GAP_A) & (X == na_w))
+                    | ((curr == GAP_B) & (Y == nb_w)))
+            pen = torch.where(free, torch.zeros_like(pen), pen)
         ops[:, s] = torch.where(active, curr, -1).to(torch.int8)
         cs = torch.where(active, cs - pen, cs)
         X = torch.where(active & (curr != GAP_A), X - 1, X)
@@ -162,15 +174,15 @@ def sw_walk_plain(dirs, ac, bc, jw, x0, y0, s0, params: KernelParams,
     return ops
 
 
-def sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
+def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
                   params: KernelParams, k: int):
     """The first ``k`` hits of every pair of one SW fill, found with the
     reference's overlap mask and abort (smith_waterman.c:165-258; the
     loop of :meth:`SwHitIterator.fetch`).
 
-    ``dirs``, ``ac``, ``bc`` as in :func:`sw_walk_plain`, ``na`` (B,)
-    int32; pair j's candidates are ``cand_flat``/``cand_score`` (int32)
-    ``[lo[j], hi[j])`` (int64), in the hit order of
+    ``dirs``, ``ac``, ``bc``, ``na``, ``nb`` and the step penalties as in
+    :func:`sw_walk_plain`; pair j's candidates are
+    ``cand_flat``/``cand_score`` (int32) ``[lo[j], hi[j])`` (int64), in the hit order of
     ``dp.sw_sorted_candidates``.  Returns ``(hit_flat, hit_score)`` (B, k)
     int32, the start cell and score of each hit in stream order, and
     ``nhits`` (B,) int32, fewer than ``k`` once a pair's candidates ran
@@ -184,6 +196,7 @@ def sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
     bv = bc.cpu().numpy()
     match, mismatch, gap_open, ge = params.scal[:4].tolist()
     gop = gap_open + ge
+    neg = bool(params.modes & NEG)
     if params.sub is None:
         subv, kb = None, 0
     else:
@@ -195,7 +208,8 @@ def sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
     hit_score = np.zeros((B, k), np.int32)
     nhits = np.zeros(B, np.int32)
 
-    def pair(j, lo_j, hi_j, w):
+    def pair(j, lo_j, hi_j, n_a, n_b):
+        w = n_a + 1
         mask = bytearray(LBp * (LA + 1))
         aj, bj = memoryview(av[j]), memoryview(bv[j])
         base = j * plane
@@ -234,7 +248,9 @@ def sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
                         cs -= subv[ai * kb + bi]
                     x, y = x - 1, y - 1
                 else:
-                    cs -= ge if nxt == curr else gop
+                    if not (neg and (x == n_a if curr == GAP_A
+                                     else y == n_b)):
+                        cs -= ge if nxt == curr else gop
                     if curr == GAP_A:
                         y -= 1
                     else:
@@ -242,9 +258,9 @@ def sw_hits_plain(dirs, ac, bc, na, cand_flat, cand_score, lo, hi,
                 curr = nxt
         return n
 
-    for j, (lo_j, hi_j, n_a) in enumerate(zip(lo.tolist(), hi.tolist(),
-                                              na.tolist())):
-        nhits[j] = pair(j, lo_j, hi_j, n_a + 1)
+    for j, args in enumerate(zip(lo.tolist(), hi.tolist(), na.tolist(),
+                                 nb.tolist())):
+        nhits[j] = pair(j, *args)
     dev = dirs.device
     return tuple(torch.from_numpy(v).to(dev)
                  for v in (hit_flat, hit_score, nhits))
@@ -421,17 +437,25 @@ class SwHitIterator:
             self._code_view = (memoryview(plane.reshape(-1)), plane.shape[1])
         return self._code_view
 
+    def _gap_penalty(self, curr: int, nxt: int, x: int, y: int) -> int:
+        """Score drop of one reverse gap move from (y, x): gap_extend when
+        the gap goes on, gap_open + gap_extend when it opens, and 0 under
+        free end gaps for a GAP_A move on the last column or a GAP_B move
+        on the last row (alignment.c:264-307)."""
+        sc = self.sc
+        if sc.no_end_gap_penalty and (x == self.na if curr == GAP_A
+                                      else y == self.nb):
+            return 0
+        return sc.gap_extend if nxt == curr else sc.gap_open + sc.gap_extend
+
     def _spell(self, flat: int, end_score: int) -> Alignment:
         """The alignment of a hit whose walk from ``flat`` reached score 0
         unmasked, walked again over the codes: the score drops by the
-        substitution score on a MATCH step and by gap_extend or gap_open +
-        gap_extend on a gap step that goes on or opens (alignment.c:264-307,
-        default flags)."""
+        substitution score on a MATCH step and by :meth:`_gap_penalty` on
+        a gap step (alignment.c:264-307)."""
         w = self.w
         codes, lbp = self._codes()
         sub, av, bv = self._views
-        ge = self.sc.gap_extend
-        gop = self.sc.gap_open + ge
         x, y = flat % w, flat // w
         end_x, end_y = x, y
         curr, cs = MATCH, end_score
@@ -444,7 +468,7 @@ class SwHitIterator:
                 cs -= sub[(av[x - 1] << 8) | bv[y - 1]]
                 x, y = x - 1, y - 1
             else:
-                cs -= ge if nxt == curr else gop
+                cs -= self._gap_penalty(curr, nxt, x, y)
                 if curr == GAP_A:
                     out_a.append("-")
                     out_b.append(chr(bv[y - 1]))
@@ -482,8 +506,6 @@ class SwHitIterator:
         n = len(cand)
         w = self.w
         sub, av, bv = self._views
-        ge = self.sc.gap_extend
-        gop = self.sc.gap_open + ge
         codes = None
         pos = self.next_hit
         while pos < n:
@@ -514,7 +536,7 @@ class SwHitIterator:
                     cs -= sub[(av[x - 1] << 8) | bv[y - 1]]
                     x, y = x - 1, y - 1
                 else:
-                    cs -= ge if nxt == curr else gop
+                    cs -= self._gap_penalty(curr, nxt, x, y)
                     if curr == GAP_A:
                         y -= 1
                     else:

@@ -150,7 +150,8 @@ def test_sentinel_wrap_config_goes_to_host(monkeypatch):
     got = nw.align_batch(["acgtt", "gat"], ["acgt", "gaat"])
     want = [host_dp.nw_align(sc, a, b)
             for a, b in (("acgtt", "acgt"), ("gat", "gaat"))]
-    assert got == want
+    assert [dataclasses.astuple(g) for g in got] == \
+        [dataclasses.astuple(w) for w in want]
 
 
 def test_small_batches_route_to_host(monkeypatch):
@@ -166,7 +167,7 @@ OUT_OF_SLICE = {
     "free_start_gaps": lambda: ScoringConfig(1, -2, -4, -1,
                                              no_start_gap_penalty=True),
     "positive_gap_open": lambda: ScoringConfig(2, -3, 1, -1),
-    # substitution-matrix scoring is in the slice; a constrained flag is not
+    # substitution-matrix scoring under a constrained flag
     "blosum62": lambda: _with(scoring_system_BLOSUM62(), no_gaps_in_b=True),
 }
 
@@ -180,16 +181,20 @@ def _with(sc, **flags):
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_out_of_slice_device_batch_raises(monkeypatch, name):
+    """The configs that the device path used to refuse (ROADMAP.md Queue 1
+    item 6) now run on it and equal the host DP's answers."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
-    nw = NeedlemanWunsch(OUT_OF_SLICE[name](), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        nw.score_batch(["ARND", "AR"], ["ARN", "ND"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        nw.align_batch(["ARND"], ["ARN"])
-    # the host path still answers them
+    sc = OUT_OF_SLICE[name]()
+    nw = NeedlemanWunsch(sc, device="cpu")
+    A, B = ["ARND", "AR", "NDRRA"], ["ARN", "ND", "RA"]
+    want = [host_dp.nw_align(sc, a, b) for a, b in zip(A, B)]
+    np.testing.assert_array_equal(nw.score_batch(A, B),
+                                  [w.score for w in want])
+    assert [dataclasses.astuple(g) for g in nw.align_batch(A, B)] == \
+        [dataclasses.astuple(w) for w in want]
+    # and so does the host path
     monkeypatch.setenv("SEQALIGN_FORCE", "host")
-    assert nw.score("ARND", "ARN") == host_dp.nw_align(
-        nw.scoring, "ARND", "ARN").score
+    assert nw.score("ARND", "ARN") == want[0].score
 
 
 def test_long_pair_bucket_raises(monkeypatch):

@@ -1,30 +1,31 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here is marked ``cuda`` and skips without a GPU; this
-file imports no JAX so it runs where only PyTorch is installed:
+file imports only the port, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from seqalign_tpu.ops import host_dp
-from seqalign_tpu.scoring.config import ScoringConfig
-from seqalign_tpu.scoring.presets import (scoring_system_BLOSUM62,
-                                          scoring_system_default,
-                                          scoring_system_sw_default)
-from seqalign_tpu_torch import (NeedlemanWunsch, SmithWaterman,
-                                kernel_launch_counts, kernel_params)
+from seqalign_tpu_torch import (NeedlemanWunsch, ScoringConfig, SmithWaterman,
+                                kernel_launch_counts, kernel_params,
+                                lcs_aligner)
 from seqalign_tpu_torch import aligners
-from seqalign_tpu_torch.ops import kernels
+from seqalign_tpu_torch.ops import host_dp, kernels
 from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain, nw_scores_plain,
                                        sw_extract_candidates,
                                        sw_fill_dirs_plain, sw_scores_plain,
                                        sw_sorted_candidates)
-from seqalign_tpu_torch.ops.pack import pack_batch, pack_inputs_mm
+from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch, pack_inputs_mm
 from seqalign_tpu_torch.ops.traceback import (SwDeviceHits, nw_walk_plain,
                                               sw_hits_plain, sw_walk_plain)
+from seqalign_tpu_torch.scoring.presets import (scoring_system_BLOSUM62,
+                                                scoring_system_default,
+                                                scoring_system_sw_default)
 
 pytestmark = pytest.mark.cuda
 NW_KERNELS = ("nw_scores", "nw_fill_dirs", "nw_walk")
@@ -177,11 +178,12 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
     args = [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
             for a in (jw, flats % w, flats // w, sc0)]
     cap = int(na.max() + nb.max())
-    ops = kernels.sw_walk(d, ac, bc, *args, bp, cap)
-    assert torch.equal(ops, sw_walk_plain(d, ac, bc, *args, bp, cap))
+    ops = kernels.sw_walk(d, ac, bc, na_t, nb_t, *args, bp, cap)
+    assert torch.equal(ops, sw_walk_plain(d, ac, bc, na_t, nb_t, *args, bp,
+                                          cap))
     assert (ops[:, 0] == 0).all()  # every walk starts in MATCH
     flat, score, off = sw_sorted_candidates(m, na, nb, 1)
-    hargs = (d, ac, bc, na_t, flat, score, off[:-1], off[1:], bp, 16)
+    hargs = (d, ac, bc, na_t, nb_t, flat, score, off[:-1], off[1:], bp, 16)
     hits = kernels.sw_hits(*hargs)
     want = sw_hits_plain(*hargs)
     assert all(torch.equal(g, w) for g, w in zip(hits, want))
@@ -233,5 +235,130 @@ def test_smith_waterman_on_cuda_matches_host(dev, monkeypatch):
         for k in ("sw_walk", "sw_hits"):
             assert (after[k] > before[k]) == walks, k
         assert all(isinstance(it, SwDeviceHits) == walks for it in its)
-        assert got == want
+        assert [[dataclasses.astuple(h) for h in g] for g in got] == \
+            [[dataclasses.astuple(h) for h in w] for w in want]
         assert list(best) == [w[0].score if w else 0 for w in want]
+
+
+MODES = {
+    "nsg": dict(no_start_gap_penalty=True),
+    "neg": dict(no_end_gap_penalty=True),
+    "nsg_neg": dict(no_start_gap_penalty=True, no_end_gap_penalty=True),
+    "nga": dict(no_gaps_in_a=True),
+    "ngb": dict(no_gaps_in_b=True),
+    "nga_ngb": dict(no_gaps_in_a=True, no_gaps_in_b=True),
+    "nmm": dict(no_mismatches=True),
+    "neg_nga": dict(no_end_gap_penalty=True, no_gaps_in_a=True),
+    "nga_ngb_nmm": dict(no_gaps_in_a=True, no_gaps_in_b=True,
+                        no_mismatches=True),
+    "gap_open_pos": dict(),
+}
+
+
+def _mode_config(mode, table):
+    if table:
+        sc = scoring_system_BLOSUM62()
+        for k, v in MODES[mode].items():
+            setattr(sc, k, v)
+        if mode == "gap_open_pos":
+            sc.gap_open = 1
+        sc._luts = None
+        return sc, PROTEIN
+    if mode == "gap_open_pos":
+        return ScoringConfig(2, -3, 1, -1), "acgtACGT"
+    return ScoringConfig(1, -2, -4, -1, **MODES[mode]), "acgtACGT"
+
+
+@pytest.mark.parametrize("table", [False, True], ids=["equality", "table"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mode_kernels_equal_plain_versions(dev, mode, table):
+    """Every recurrence mode of the four fills, and the SW hit loop and
+    walks on the harvested candidates, against the plain versions on the
+    same CUDA tensors; the batch holds empty sides."""
+    sc, alpha = _mode_config(mode, table)
+    B, LA, LB = 16, 256, 128
+    rng = np.random.default_rng(len(mode) + table)
+    A, Bs = _text(rng, alpha, B, 0, LA), _text(rng, alpha, B, 0, LB)
+    A[0], Bs[1] = "", ""
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, LA, LB)
+    assert bp.modes == kernel_params(sc, "cpu").modes
+    assert (bp.sub is not None) == table
+    ac, bc, na_t, nb_t = (torch.from_numpy(v).to(dev)
+                          for v in (ac, bc, na, nb))
+    v = _valid(dev, na_t, nb_t, LA, LB)
+    s, c = kernels.nw_scores(ac, bc, na_t, nb_t, bp)
+    sp, cp = nw_scores_plain(ac, bc, na_t, nb_t, bp)
+    assert torch.equal(s, sp) and torch.equal(c, cp)
+    d, dc = kernels.nw_fill_dirs(ac, bc, na_t, nb_t, bp)
+    dpl, dcp = nw_fill_dirs_plain(ac, bc, na_t, nb_t, bp)
+    assert torch.equal(d[v], dpl[v]) and torch.equal(dc, dcp)
+    cap = int((na_t + nb_t).max())
+    assert all(torch.equal(g, w) for g, w in zip(
+        kernels.nw_walk(d, dc, na_t, nb_t, cap),
+        nw_walk_plain(dpl, dcp, na_t, nb_t, cap)))
+    assert torch.equal(kernels.sw_scores(ac, bc, na_t, nb_t, bp),
+                       sw_scores_plain(ac, bc, na_t, nb_t, bp))
+    m16 = m16_safe(sc, LA, LB)
+    d, m = kernels.sw_fill_dirs(ac, bc, na_t, nb_t, bp, m16)
+    dpl, mpl = sw_fill_dirs_plain(ac, bc, na_t, nb_t, bp, m16)
+    assert torch.equal(d[v], dpl[v]) and torch.equal(m[v], mpl[v])
+    flat, score, off = sw_sorted_candidates(m, na, nb, 1)
+    hargs = (d, ac, bc, na_t, nb_t, flat, score, off[:-1], off[1:], bp, 16)
+    hits = kernels.sw_hits(*hargs)
+    assert all(torch.equal(g, w) for g, w in zip(hits, sw_hits_plain(*hargs)))
+    keep = torch.arange(16, device=dev)[None, :] < hits[2][:, None]
+    jw, slot = keep.nonzero(as_tuple=True)
+    w = na_t[jw] + 1
+    starts = [t.to(torch.int32).contiguous()
+              for t in (jw, hits[0][jw, slot] % w, hits[0][jw, slot] // w,
+                        hits[1][jw, slot])]
+    assert torch.equal(
+        kernels.sw_walk(d, ac, bc, na_t, nb_t, *starts, bp, cap),
+        sw_walk_plain(d, ac, bc, na_t, nb_t, *starts, bp, cap))
+
+
+def test_table_nmm_tables_past_shared_memory(dev):
+    """no_mismatches over 255 distinct bytes: the substitution and
+    is-match tables (2 x 256 KB) do not fit beside the diagonals and are
+    read through the global path."""
+    sc, alpha = _wide_alphabet_config()
+    sc.no_mismatches = True
+    sc._luts = None
+    rng = np.random.default_rng(5)
+    A, B = _text(rng, alpha, 4, 100, 500), _text(rng, alpha, 4, 100, 500)
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, B, 512,
+                                    512)
+    assert 8 * bp.sub.numel() > kernels.SMEM_MAX
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    assert torch.equal(kernels.sw_scores(*t, bp), sw_scores_plain(*t, bp))
+    assert torch.equal(kernels.nw_scores(*t, bp)[1],
+                       nw_scores_plain(*t, bp)[1])
+
+
+def test_modes_on_cuda_match_host(dev, monkeypatch):
+    """Free end gaps (NW) and the LCS recipe (SW) through the aligners on
+    the card equal the int64 host path."""
+    monkeypatch.setenv("SEQALIGN_FORCE", "device")
+    rng = np.random.default_rng(13)
+    sc = ScoringConfig(1, -2, -4, -1, no_start_gap_penalty=True,
+                       no_end_gap_penalty=True)
+    A, B = _seqs(rng, 16, 200, 600), _seqs(rng, 16, 20, 100)
+    nw = NeedlemanWunsch(sc, device="cuda")
+    before = kernel_launch_counts()
+    got = nw.align_batch(A, B)
+    scores = nw.score_batch(A, B)
+    after = kernel_launch_counts()
+    assert all(after[k] > before[k] for k in NW_KERNELS)
+    want = [host_dp.nw_align(sc, a, b) for a, b in zip(A, B)]
+    assert [dataclasses.astuple(g) for g in got] == \
+        [dataclasses.astuple(w) for w in want]
+    assert list(scores) == [w.score for w in want]
+    sw = lcs_aligner()
+    assert sw.device.type == "cuda"
+    S = _seqs(rng, 8, 100, 300)
+    its = sw.align_batch(S, S)
+    for s, it in zip(S, its):
+        got = [dataclasses.astuple(h) for _, h in zip(range(20), it)]
+        want = [dataclasses.astuple(h) for _, h in zip(
+            range(20), host_dp.HostSwHits(sw.scoring, s, s))]
+        assert got == want

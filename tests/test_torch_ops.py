@@ -5,6 +5,7 @@ interpret mode and the XLA ``dp_fill``, the plain walk against
 kernel build's failure path.  Everything is integer DP, so every compare
 is exact (tolerance 0)."""
 
+import dataclasses
 import os
 import stat
 
@@ -168,7 +169,8 @@ def test_walk_plain_vs_nw_walk_device(name):
     np.testing.assert_array_equal(corner.numpy(), jcorner[:B])
     got = nw_strings_from_ops(sa, sb, jna, jnb, ops.numpy(), score.numpy())
     want = jax_tb.nw_strings_from_ops(sa, sb, jna, jnb, jops, jscore)
-    assert got == want
+    assert [dataclasses.astuple(g) for g in got] == \
+        [dataclasses.astuple(w) for w in want]
 
 
 def test_walk_cap_rounds_to_256():

@@ -30,6 +30,7 @@ from seqalign_tpu.scoring.presets import (  # noqa: E402
 )
 from seqalign_tpu_torch import SmithWaterman, kernel_params  # noqa: E402
 from seqalign_tpu_torch import aligners as port_aligners  # noqa: E402
+from seqalign_tpu_torch.ops import host_dp as port_host_dp  # noqa: E402
 from seqalign_tpu_torch.ops import kernels  # noqa: E402
 from seqalign_tpu_torch.ops import pack as tpack  # noqa: E402
 from seqalign_tpu_torch.ops.dp import (  # noqa: E402
@@ -256,15 +257,16 @@ def test_sw_walk_plain_vs_sw_walk_jit(name):
         p = p._replace(sub=torch.from_numpy(subK))
     t = torch.from_numpy
     dirs = t(np.array(out.dirs))
+    lens = (t(np.asarray(na, np.int32)), t(np.asarray(nb, np.int32)))
     got = sw_walk_plain(dirs, t(acd.astype(np.uint8)),
-                        t(bcd.astype(np.uint8)), t(jw), t(x0), t(y0), t(s0),
-                        p, cap)
+                        t(bcd.astype(np.uint8)), *lens, t(jw), t(x0), t(y0),
+                        t(s0), p, cap)
     assert got.shape == (len(jw), 256)
     np.testing.assert_array_equal(got.numpy(), want)
     # the wrapper takes CPU tensors to the plain walk
     again = kernels.sw_walk(dirs, t(acd.astype(np.uint8)),
-                            t(bcd.astype(np.uint8)), t(jw), t(x0), t(y0),
-                            t(s0), p, 7)
+                            t(bcd.astype(np.uint8)), *lens, t(jw), t(x0),
+                            t(y0), t(s0), p, 7)
     assert torch.equal(again, got)
 
 
@@ -280,8 +282,9 @@ def test_hit_iterator_mmat_and_candidates_agree():
         want = list(jax_tb.SwHitIterator(sc, sa[j], sb[j], na[j], nb[j],
                                          dirs[j], mmat[j]))
         assert want
-        assert list(SwHitIterator(sc, sa[j], sb[j], na[j], nb[j], dirs[j],
-                                  cands[j])) == want
+        assert _streams([SwHitIterator(sc, sa[j], sb[j], na[j], nb[j],
+                                       dirs[j], cands[j])]) == \
+            _streams([want])
 
 
 @pytest.mark.parametrize("name", ["sw_default", "blosum62"])
@@ -323,7 +326,7 @@ def test_sw_hits_plain_vs_jax_hit_iterator(name):
     dirs, m = sw_fill_dirs_plain(ac, bc, na_t, nb_t, bp)
     flat, score, off = sw_sorted_candidates(m, na, nb, 1)
     for k in (1, 5, 10_000):
-        hf, hs, nh = kernels.sw_hits(dirs, ac, bc, na_t, flat, score,
+        hf, hs, nh = kernels.sw_hits(dirs, ac, bc, na_t, nb_t, flat, score,
                                      off[:-1], off[1:], bp, k)
         assert hf.shape == (4, k) and nh.dtype == torch.int32
         got = [[int(hf[j, i]), int(hs[j, i])] for j in range(4)
@@ -422,9 +425,9 @@ def test_small_sw_batches_take_host_sw_hits(monkeypatch):
     sc = scoring_system_sw_default()
     sw = SmithWaterman(sc, device="cpu")
     its = sw.align_batch(["acgtacgt", "ggatc"], ["acgaacgt", "gatc"])
-    assert all(isinstance(it, host_dp.HostSwHits) for it in its)
-    assert list(its[0]) == list(host_dp.HostSwHits(sc, "acgtacgt",
-                                                   "acgaacgt"))
+    assert all(isinstance(it, port_host_dp.HostSwHits) for it in its)
+    assert _streams(its[:1]) == _streams([host_dp.HostSwHits(
+        sc, "acgtacgt", "acgaacgt")])
     # SW routes without the config: a sentinel-wrap SW config still goes
     # by size (aligners.py:1231)
     assert port_aligners._route(10 ** 9, 10 ** 6) == "device"
@@ -442,13 +445,19 @@ def test_default_sw_scoring_and_device():
 @pytest.mark.parametrize("flag", ["no_start_gap_penalty", "no_end_gap_penalty",
                                   "no_gaps_in_a", "no_mismatches"])
 def test_constrained_sw_raises_item_6(monkeypatch, flag):
+    """The constrained SW configs that the device path used to refuse
+    (ROADMAP.md Queue 1 item 6) now run on it: streams and best scores
+    equal the host DP's."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
-    sw = SmithWaterman(ScoringConfig(1, -2, -4, -1, **{flag: True}),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sw.align_batch(["acgt", "ac"], ["acg", "cg"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sw.best_score_batch(["acgt", "ac"], ["acg", "cg"])
+    sc = ScoringConfig(1, -2, -4, -1, **{flag: True})
+    sw = SmithWaterman(sc, device="cpu")
+    A, B = ["acgt", "ac", "ttacgtacc"], ["acg", "cg", "acgtta"]
+    want = [host_dp.HostSwHits(sc, a, b) for a, b in zip(A, B)]
+    assert _streams(sw.align_batch(A, B)) == _streams(want)
+    np.testing.assert_array_equal(
+        sw.best_score_batch(A, B),
+        [host_dp.fill_matrices(sc, a, b, True)[0].max() for a, b in
+         zip(A, B)])
 
 
 def test_sw_long_pairs_and_other_entry_points_raise(monkeypatch):
@@ -495,7 +504,8 @@ def test_sw_sub_batches_follow_codes_and_m_bytes(monkeypatch):
                 if isinstance(v, torch.Tensor)]
     for a, b, it in zip(A, B, its):
         want = [h for h in host_dp.HostSwHits(sc, a, b) if h.score >= 4]
-        assert [h for h in it if h.score >= 4] == want
+        assert _streams([[h for h in it if h.score >= 4]]) == \
+            _streams([want])
     assert len(sizes) > 3  # deeper rounds filled single pairs again
 
 
@@ -530,8 +540,8 @@ def test_nw_table_scoring_on_device_path(device_path):
     np.testing.assert_array_equal(
         got.score_batch(A, B), seqalign_tpu.NeedlemanWunsch(sc).score_batch(
             A, B))
-    assert got.align_batch(A, B) == [host_dp.nw_align(sc, a, b)
-                                     for a, b in zip(A, B)]
+    assert _streams([got.align_batch(A, B)]) == _streams(
+        [[host_dp.nw_align(sc, a, b) for a, b in zip(A, B)]])
 
 
 @pytest.mark.parametrize("name", ["sw_default", "blosum62"])
