@@ -3,7 +3,7 @@
 
 Usage, from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--profile DIR] [--walk-ab]
+    python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab] [--fills]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
 drives the main paths through the user entry points, with inputs made by
@@ -15,11 +15,15 @@ numpy from a fixed seed:
    the main path gives the kernels (2,048 and 6,144 lanes in opt-in shared
    memory, 10,240 in global scratch), and the SW hit loop and walks on the
    harvested candidates; then kernel and plain timed with CUDA events at
-   B = 256, L = 512; the four fills under each recurrence mode (the flag
-   combinations of ``MODES`` and gap_open > 0; rows ``<kernel>[<mode>]``)
-   at that shape and on ragged batches with empty sides, equality and
-   BLOSUM62, and under flag combinations at 6,144 and 10,240 lanes; the SW
-   hit loop and walk under free end gaps and under the LCS recipe;
+   B = 256, L = 512; the carry fills of long pairs (rows ``*[carry]``) chunk
+   by chunk on 4 pairs of 5,000-6,144 x 1,500-2,048 (equality, BLOSUM62
+   with an empty side, nsg+neg) and at 10,240 lanes, and the walks over
+   their slabs (rows ``*[chunked]``); the four fills under each recurrence
+   mode (the flag combinations of ``MODES`` and gap_open > 0; rows
+   ``<kernel>[<mode>]``) at that shape and on ragged batches with empty
+   sides, equality and BLOSUM62, and under flag combinations at 6,144 and
+   10,240 lanes; the SW hit loop and walk under free end gaps and under the
+   LCS recipe;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -42,20 +46,36 @@ numpy from a fixed seed:
    of 256-512 bp, first 8 hits; NW ``align_batch`` with free start and end
    gaps on 1,024 reads of 256-512 bp against references of 1-10 kb; the
    LCS recipe on 256 DNA sequences of 512-2,048 bp against themselves,
-   first 8 hits with pos_a < pos_b, and ``lcs_hits`` on 4 of 2,048 bp.
+   first 8 hits with pos_a < pos_b, and ``lcs_hits`` on 4 of 2,048 bp;
+6. path ``long``, pairs over ``LONG_PAIR_CELLS`` (long reads against
+   reference windows): NW ``align_batch`` on 64 DNA pairs of 20-40 kb x
+   6-10 kb, and 16 of them under free start and end gaps; SW
+   ``align_batch`` on 32 such pairs with a planted 2 kb segment (5%
+   substitutions), min_score = best - 10, and on 4 of them without a hint,
+   first 8 hits; ``align_long`` for NW and SW on one pair each; one SW
+   pair of 48 kb x 48 kb whose flats pass 2^31; SW under
+   ``ref_mask_compat`` on 2 pairs (the host branch).  Each job prints its
+   GCUPS, wall, busy share, carry launches per chunk, chunks, slab bytes,
+   harvested candidates, peak device memory and top device items.
 
 Each path is held against the plain versions on the card (a sample) and
 against numpy Gotoh recurrences written here, global and local, with
 equality scoring or the BLOSUM62 table read from the repository's matrix
 file: the optimum must equal the score, and every sampled NW alignment and
-SW hit must spell its inputs and rescore to its score.  Launch counts are
-zeroed just before each path and read just after it; a kernel of the path
-that was not launched fails the run, and the plain versions must see no
-CUDA tensor in the paths.  ``--walk-ab`` instead times the first
-``AB_PAIRS`` pairs of each SW align job under each walk branch (every pair
-on the host walk, then every pair's hits found on the card), host, device,
-device, host, and stops: the measurement behind the walk cutover
-``_SW_DEVWALK_CANDS``.  ``--profile DIR`` runs
+SW hit must spell its inputs and rescore to its score (on the long path
+every alignment and hit, its optimum taken from the scores kernel).
+Launch counts are zeroed just before each path and read just after it; a
+kernel of the path that was not launched fails the run, and the plain
+versions must see no CUDA tensor in the paths.  ``--walk-ab`` instead
+times the first ``AB_PAIRS`` pairs of each SW align job under each walk
+branch (every pair on the host walk, then every pair's hits found on the
+card), host, device, device, host, and stops: the measurement behind the
+walk cutover ``_SW_DEVWALK_CANDS``.  ``--chunk-ab`` instead times the
+long path's NW and SW ``align_batch`` at several chunk widths (the
+measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
+the four default fill instantiations and ``sw_hits`` at phase 1's B = 256,
+L = 512 and stops; it uses only the kernel wrappers' API, so a copy of this script
+times an older tree of the package in the same call.  ``--profile DIR`` runs
 each main-path job once more under ``torch.profiler``, prints its device
 time and busy share and writes the ``key_averages`` tables to DIR.
 
@@ -90,6 +110,7 @@ _SWH = "seqalign_tpu/ops/traceback.py:376"
 # row -> (launch counter, source, TPU kernel replaced); a "[table]" row is
 # the substitution-table mode of its kernel, launched by the path
 # "<kernel family>_table"
+_B4C = "seqalign_tpu/ops/pallas_dp.py:1224"  # fill_dirs_long, B4 chunked
 KERNELS = {
     "nw_scores": ("nw_scores", "nw_scores.cu", _B1),
     "nw_fill_dirs": ("nw_fill_dirs", "nw_dirs.cu", _B2),
@@ -104,11 +125,19 @@ KERNELS = {
     "sw_fill_dirs[table]": ("sw_fill_dirs", "sw_dirs.cu", _B2),
     "sw_walk[table]": ("sw_walk", "sw_walk.cu", _SWW),
     "sw_hits[table]": ("sw_hits", "sw_hits.cu", _SWH),
+    "nw_fill_dirs[carry]": ("nw_fill_dirs_carry", "nw_dirs.cu", _B4C),
+    "sw_fill_dirs[carry]": ("sw_fill_dirs_carry", "sw_dirs.cu", _B4C),
+    "nw_walk[chunked]": ("nw_walk", "nw_walk.cu",
+                         "seqalign_tpu/ops/traceback.py:515"),
+    "sw_walk[chunked]": ("sw_walk", "sw_walk.cu", _SWW),
+    "sw_hits[chunked]": ("sw_hits", "sw_hits.cu", _SWH),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
 PATHS = {"nw": _NW, "nw_table": _NW, "sw": _SW, "sw_table": _SW,
-         "modes": _NW + _SW}
+         "modes": _NW + _SW,
+         "long": ("nw_fill_dirs_carry", "sw_fill_dirs_carry", "nw_walk",
+                  "sw_walk", "sw_hits")}
 # the recurrence modes: name -> ScoringConfig flags ("gap_open>0" is a mode
 # of the penalties); every mode gets a row per fill kernel,
 # "<kernel>[<mode>]", and the walks rows under neg and the LCS recipe
@@ -172,6 +201,19 @@ SW_JOB2 = ("job 2", 1024, 8)
 SW_JOB3 = ("job 3", 256, 8)
 AB_PAIRS = 64  # pairs of each SW align job in the walk-branch A/B
 PROTEIN_MIN_SCORE = 100  # random 1,000 x 1,000 aa pairs score 42-57
+# phase 1's carry rows: 4 pairs, chunks of the JAX package's 2,048 columns;
+# (label, |a| range, |b| range, lanes): the long path's lane widths, from
+# opt-in shared memory to global scratch
+CARRY_CA = 2048
+CARRY_CASES = (("equality", (5000, 6144), (1500, 2048), None),
+               ("BLOSUM62", (5000, 6144), (1500, 2048), None),
+               ("nsg+neg", (5000, 6144), (1500, 2048), None),
+               ("equality", (2049, 4096), (7169, 10000), 10240))
+# path long: long reads against reference windows
+LONG_A, LONG_B = (20_000, 40_000), (6_000, 10_000)
+LONG_NW, LONG_NSG, LONG_SW, LONG_HINTLESS = 64, 16, 32, 4
+LONG_SEG, LONG_SUB = 2000, 0.05  # the planted homologous segment
+GIANT = 48_000  # one SW pair past 2^31 cells
 DNA = np.frombuffer(b"acgtACGT", np.uint8)
 AMINO = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
 GAP = ord("-")
@@ -333,14 +375,16 @@ def mode_scoring(mode, sw=False, table=False):
     return port.ScoringConfig(1, -5 if both else -2, -4, -1, **flags)
 
 
-def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=()):
+def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=(),
+               extra_bytes=0):
     """The least milliseconds the card could take for one fill of these
     pairs, and what bounds it.  Operations: int32 adds, maxes, compares and
     selects of the recurrence per cell (the score 2; M 4, Ga 6, Gb 6; the
     SW best 1; the codes 9 + 6 + 6 and 4 to pack them; a flag's own
     compares and selects) over ``PEAK_INT32``.  Bytes: the letters, lengths,
     scalars and table read once, the scores (and NW corners) and, with
-    codes, 1 + ``mbytes`` per valid cell written once, over
+    codes, 1 + ``mbytes`` per valid cell written once, and ``extra_bytes``
+    (a carry launch's boundary columns in and out), over
     ``PEAK_BYTES``."""
     n = len(na_h)
     cells = int((na_h.astype(np.int64) * nb_h).sum())
@@ -348,7 +392,8 @@ def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=()):
     per_cell += sum({"nsg": 0, "neg": 8, "nga": 2, "ngb": 2, "nmm": 2}[k]
                     + (3 if dirs and k != "nsg" else 0) for k in flags)
     moved = (int(na_h.sum() + nb_h.sum()) + 8 * n + 24 + 4 * table
-             + (4 if sw else 16) * n + cells * (bool(dirs) + mbytes))
+             + (4 if sw else 16) * n + cells * (bool(dirs) + mbytes)
+             + extra_bytes)
     t_ops, t_bytes = cells * per_cell / PEAK_INT32, moved / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -455,7 +500,7 @@ def modes_vs_plain(mode, dev, rng, times, bounds):
             v = valid_mask(2 * MODE_L - 1, MODE_L + 1, na, nb)
             m16 = m16_safe(sc, MODE_L, MODE_L)
             # one plain fill holds both kernels of the family
-            dp_, cp, bestp, mp = _fill(
+            dp_, cp, bestp, mp, _ = _fill(
                 ac, bc, na, nb, bp, is_sw=sw, emit_dirs=True,
                 m_dtype=(torch.int16 if m16 else torch.int32) if sw else None)
             if sw:
@@ -499,9 +544,10 @@ def wide_modes_vs_plain(dev, rng):
             (ac, bc, na, nb), bp, _ = packed(
                 sc, kernel_params(sc, dev), dna(rng, n, lo, hi),
                 dna(rng, n, lo, hi), dev, width)
-            dp_, cp, bestp, mp = _fill(ac, bc, na, nb, bp, is_sw=sw,
-                                       emit_dirs=True,
-                                       m_dtype=torch.int32 if sw else None)
+            dp_, cp, bestp, mp, _ = _fill(ac, bc, na, nb, bp, is_sw=sw,
+                                          emit_dirs=True,
+                                          m_dtype=torch.int32 if sw
+                                          else None)
             v = valid_cells(dp_, na, nb)
             if sw:
                 d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, False)
@@ -567,15 +613,203 @@ def walks_under_modes(dev, rng, times, bounds):
     return err
 
 
+def slab_valid(D, LB, c, ca, na, nb):
+    """Cells of chunk slab ``c`` (columns c*ca+1 .. c*ca+ca) that lie in the
+    pairs: 1 <= y <= nb, 1 <= x <= na."""
+    y = torch.arange(LB + 1, device=na.device)[None, None, :]
+    xl = torch.arange(D, device=na.device)[None, :, None] + 2 - y
+    x = xl + c * ca
+    return ((y >= 1) & (y <= nb[:, None, None]) & (xl >= 1) & (xl <= ca)
+            & (x <= na[:, None, None]))
+
+
+def carry_chunks(fill, args, ca, sw, m16):
+    """Every chunk of a packed batch through one carry fill (the kernel's
+    wrapper or its plain version): the slabs (B, nch, ca+LB-1, LB+1), each
+    chunk's bout and M, the corners (NW) or best scores (SW), and each
+    chunk's milliseconds (``timed_plain``)."""
+    from seqalign_tpu_torch.ops.dp import boundary_column
+
+    ac, bc = args[0], args[1]
+    B, LA = ac.shape
+    LB = bc.shape[1]
+    nch = -(-LA // ca)
+    bin = boundary_column(args[4], B, LB, is_sw=sw)
+    bout = torch.zeros_like(bin)
+    slabs = torch.zeros((B, nch, ca + LB - 1, LB + 1), dtype=torch.uint8,
+                        device=ac.device)
+    acc = torch.zeros(B if sw else (B, 3), dtype=torch.int32,
+                      device=ac.device)
+    bouts, ms, secs = [], [], []
+    for c in range(nch):
+        m, t = timed_plain(lambda: fill(*args, c * ca, bin, bout,
+                                        slabs[:, c], acc,
+                                        *((m16,) if sw else ())))
+        bouts.append(bout.clone())
+        ms.append(m)
+        secs.append(t)
+        bin, bout = bout, bin
+    return slabs, bouts, ms, acc, secs
+
+
+def carry_vs_plain(dev, rng, times, bounds):
+    """The carry kernels against their plain versions chunk by chunk, NW
+    and SW, on 4 pairs of 5,000-6,144 x 1,500-2,048 in chunks of CARRY_CA
+    (equality, BLOSUM62 with an empty seq_a and an empty seq_b, nsg+neg)
+    and at 10,240 lanes (the diagonals in global scratch, the width of the
+    long path's reads): the codes of every slab on the valid cells, each
+    chunk's bout on the lanes 1 .. nb of the pairs that reach it, the
+    corners or best scores, SW M.  The middle chunk of the equality pairs
+    is timed: the kernel with CUDA events, the plain version in the check's
+    run.  Then the walks over the equality pairs' slabs against their
+    plain versions (rows ``*[chunked]``).  Returns the errors and, for the
+    long path's sample check, the equality pairs with their plain NW
+    alignments and SW hits."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (merge_candidates,
+                                           nw_fill_dirs_carry_plain,
+                                           sw_fill_dirs_carry_plain,
+                                           sw_sorted_candidates)
+    from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch
+    from seqalign_tpu_torch.ops.traceback import (ChunkedDirs, SwHitIterator,
+                                                  nw_strings_from_ops,
+                                                  nw_walk_plain,
+                                                  sw_hits_plain,
+                                                  sw_walk_plain)
+
+    err = {}
+    ref = {}
+    ca = CARRY_CA
+    for label, ra, rb, lanes in CARRY_CASES:
+        t0 = time.perf_counter()
+        worst = 0
+        alpha = AMINO if label == "BLOSUM62" else DNA
+        A, B = seqs(rng, 4, *ra, alpha), seqs(rng, 4, *rb, alpha)
+        A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
+        if label == "BLOSUM62":  # the corners of empty sides
+            A[2], B[3] = "", ""
+        for sw in (False, True):
+            if label == "BLOSUM62":
+                sc = port.presets.scoring_system_BLOSUM62()
+            elif label == "nsg+neg":
+                sc = mode_scoring(label, sw)
+            else:
+                sc = (port.presets.scoring_system_sw_default() if sw
+                      else port.presets.scoring_system_default())
+            la, lb = max(map(len, A)), lanes or max(map(len, B))
+            ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                            la, lb)
+            args = (*(torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)),
+                    bp)
+            m16 = sw and m16_safe(sc, la, lb)
+            name = f"{'sw' if sw else 'nw'}_fill_dirs[carry]"
+            kfill = (kernels.sw_fill_dirs_carry if sw
+                     else kernels.nw_fill_dirs_carry)
+            pfill = sw_fill_dirs_carry_plain if sw else \
+                nw_fill_dirs_carry_plain
+            got = carry_chunks(kfill, args, ca, sw, m16)
+            want = carry_chunks(pfill, args, ca, sw, m16)
+            na_t, nb_t = args[2], args[3]
+            e = max_abs((got[3], want[3]))
+            lane = torch.arange(lb + 1, device=dev)[None, None, :]
+            for c in range(got[0].shape[1]):
+                v = slab_valid(ca + lb - 1, lb, c, ca, na_t, nb_t)
+                keep = ((na_t >= (c + 1) * ca)[:, None, None] & (lane >= 1)
+                        & (lane <= nb_t[:, None, None])).expand(-1, 3, -1)
+                e = max(e, max_abs((got[0][:, c][v], want[0][:, c][v]),
+                                   (got[1][c][keep], want[1][c][keep])))
+                if sw:
+                    e = max(e, max_abs((got[2][c][v], want[2][c][v])))
+            err[name] = max(err.get(name, 0), e)
+            worst = max(worst, e)
+            if label == "equality" and not lanes:
+                # the middle chunk: the kernel launched again, the plain
+                # version's run above
+                bin = want[1][0]
+                bout, slab = torch.empty_like(bin), torch.empty_like(
+                    got[0][:, 1])
+                acc = torch.zeros_like(got[3])
+                extra = (m16,) if sw else ()
+                t_k = cuda_ms(lambda: kfill(*args, ca, bin, bout, slab, acc,
+                                            *extra), 5)
+                times[name] = (t_k, want[4][1])
+                wa = np.clip(na - ca, 0, ca)
+                bounds[name] = fill_bound(
+                    wa, nb, sw, True, (2 if m16 else 4) * sw,
+                    extra_bytes=2 * 12 * (lb + 1) * len(na))
+                ref[sw] = (sc, A, B, args, got)
+            del got, want
+        torch.cuda.synchronize()
+        log(f"phase 1: carry fills vs plain, {label}, 4 pairs of "
+            f"{ra[0]}-{ra[1]} x {rb[0]}-{rb[1]} at {lanes or 'their'} lanes "
+            f"in chunks of {ca}: max |diff| {worst} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # the walks over the equality pairs' slabs
+    sc, A, B, args, (slabs, _, _, corner, _) = ref[False]
+    ac, bc, na, nb, _ = args
+    cap = int((na + nb).max())
+    o = kernels.nw_walk(slabs, corner, na, nb, cap)
+    op, t_p = timed_plain(lambda: nw_walk_plain(slabs, corner, na, nb, cap))
+    err["nw_walk[chunked]"] = max_abs(*zip(o, op))
+    times["nw_walk[chunked]"] = (
+        cuda_ms(lambda: kernels.nw_walk(slabs, corner, na, nb, cap), 5), t_p)
+    bounds["nw_walk[chunked]"] = walk_bound(o[0], 1, 20 * len(na))
+    na_h, nb_h = na.cpu().numpy(), nb.cpu().numpy()
+    nw_plain = nw_strings_from_ops(A, B, na_h, nb_h, op[0].cpu().numpy(),
+                                   op[1].cpu().numpy())
+    sc, A, B, args, (slabs, _, ms, best, _) = ref[True]
+    ac, bc, na, nb, bp = args
+    thr = near_best(best)
+    flat, score, off = merge_candidates(
+        [sw_sorted_candidates(m, na_h, nb_h, thr, x_off=c * CARRY_CA)
+         for c, m in enumerate(ms)], len(A))
+    hargs = (slabs, ac, bc, na, nb, flat, score, off[:-1], off[1:], bp, 16)
+    out = kernels.sw_hits(*hargs)
+    err["sw_hits[chunked]"] = max_abs(*zip(out, sw_hits_plain(*hargs)))
+    times["sw_hits[chunked]"] = (
+        cuda_ms(lambda: kernels.sw_hits(*hargs), 5),
+        timed_plain(lambda: sw_hits_plain(*hargs))[1])
+    bounds["sw_hits[chunked]"] = hits_bound(hargs, out)
+    hit_flat, hit_score, nhits = out
+    keep = torch.arange(16, device=dev)[None, :] < nhits[:, None]
+    jw, slot = keep.nonzero(as_tuple=True)
+    w = na[jw].long() + 1
+    fl = hit_flat[jw, slot]
+    starts = [t.to(torch.int32).contiguous()
+              for t in (jw, fl % w, fl // w, hit_score[jw, slot])]
+    o = kernels.sw_walk(slabs, ac, bc, na, nb, *starts, bp, cap)
+    op, t_p = timed_plain(lambda: sw_walk_plain(slabs, ac, bc, na, nb,
+                                                *starts, bp, cap))
+    err["sw_walk[chunked]"] = max_abs((o, op))
+    times["sw_walk[chunked]"] = (
+        cuda_ms(lambda: kernels.sw_walk(slabs, ac, bc, na, nb, *starts, bp,
+                                        cap), 5), t_p)
+    bounds["sw_walk[chunked]"] = walk_bound(o, 3, 16 * len(jw))
+    cands = [(flat[s:e].cpu().numpy(), score[s:e].cpu().numpy())
+             for s, e in zip(off[:-1].tolist(), off[1:].tolist())]
+    sw_plain = [list(itertools.islice(SwHitIterator(
+        sc, A[j], B[j], int(na_h[j]), int(nb_h[j]),
+        ChunkedDirs(slabs[j].cpu().numpy(), CARRY_CA), cands[j]), 8))
+        for j in range(len(A))]
+    log(f"phase 1: walks over chunk slabs vs plain: {int(nhits.sum())} hits "
+        f"of {len(flat)} candidates; max |diff| "
+        + ", ".join(f"{k} {err[k]}" for k in ("nw_walk[chunked]",
+                                               "sw_hits[chunked]",
+                                               "sw_walk[chunked]")))
+    torch.cuda.synchronize()
+    return err, (A, B, nw_plain, thr.tolist(), sw_plain)
+
+
 def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
                      sw=True):
-    """Max |kernel - plain| of each kernel and mode on one batch."""
+    """Max |kernel - plain| of each kernel and mode on one batch; one
+    plain fill with codes (and SW M) holds both fills of a family, its
+    corner or best being the scores fill's."""
     from seqalign_tpu_torch.ops import kernels
-    from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
-                                           nw_scores_plain,
-                                           sw_extract_candidates,
-                                           sw_fill_dirs_plain,
-                                           sw_scores_plain)
+    from seqalign_tpu_torch.ops.dp import _fill, sw_extract_candidates
     from seqalign_tpu_torch.ops.pack import m16_safe
     from seqalign_tpu_torch.ops.traceback import (nw_walk_plain,
                                                   sw_hits_plain,
@@ -587,11 +821,10 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     cap = int((na + nb).max())
     err = {}
     if nw:
+        dpl, dcp = _fill(ac, bc, na, nb, bp, emit_dirs=True)[:2]
         s, c = kernels.nw_scores(ac, bc, na, nb, bp)
-        sp, cp = nw_scores_plain(ac, bc, na, nb, bp)
-        err["nw_scores" + mode] = max_abs((s, sp), (c, cp))
+        err["nw_scores" + mode] = max_abs((s, dcp.max(1).values), (c, dcp))
         d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
-        dpl, dcp = nw_fill_dirs_plain(ac, bc, na, nb, bp)
         v = valid_cells(d, na, nb)
         err["nw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (dc, dcp))
         del v, dpl
@@ -600,12 +833,13 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
         err["nw_walk"] = max_abs((o, op), (os_, osp))
         del d
     if sw:
-        s = kernels.sw_scores(ac, bc, na, nb, bp)
-        err["sw_scores" + mode] = max_abs((s, sw_scores_plain(ac, bc, na, nb,
-                                                              bp)))
         m16 = m16_safe(sc, ac.shape[1], bc.shape[1])
+        dpl, _, bestp, mpl, _ = _fill(
+            ac, bc, na, nb, bp, is_sw=True, emit_dirs=True,
+            m_dtype=torch.int16 if m16 else torch.int32)
+        s = kernels.sw_scores(ac, bc, na, nb, bp)
+        err["sw_scores" + mode] = max_abs((s, bestp))
         d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
-        dpl, mpl = sw_fill_dirs_plain(ac, bc, na, nb, bp, m16)
         v = valid_cells(d, na, nb)
         err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (m[v], mpl[v]))
         del v, dpl, mpl
@@ -684,14 +918,17 @@ def phase1(scs, rng, dev):
             d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
             times["nw_scores" + mode] = (
                 cuda_ms(lambda: kernels.nw_scores(ac, bc, na, nb, bp), 10),
-                cuda_ms(lambda: nw_scores_plain(ac, bc, na, nb, bp), 2))
+                cuda_ms(lambda: nw_scores_plain(ac, bc, na, nb, bp), 1,
+                        warm=False))
             times["nw_fill_dirs" + mode] = (
                 cuda_ms(lambda: kernels.nw_fill_dirs(ac, bc, na, nb, bp), 10),
-                cuda_ms(lambda: nw_fill_dirs_plain(ac, bc, na, nb, bp), 2))
+                cuda_ms(lambda: nw_fill_dirs_plain(ac, bc, na, nb, bp), 1,
+                        warm=False))
             if key == "nw":
                 times["nw_walk"] = (
                     cuda_ms(lambda: kernels.nw_walk(d, dc, na, nb, 1024), 10),
-                    cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 2))
+                    cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 1,
+                            warm=False))
                 bounds["nw_walk"] = walk_bound(
                     kernels.nw_walk(d, dc, na, nb, 1024)[0], 1, 20 * len(na))
             del d
@@ -707,17 +944,18 @@ def phase1(scs, rng, dev):
             del m
             times["sw_scores" + mode] = (
                 cuda_ms(lambda: kernels.sw_scores(ac, bc, na, nb, bp), 10),
-                cuda_ms(lambda: sw_scores_plain(ac, bc, na, nb, bp), 2))
+                cuda_ms(lambda: sw_scores_plain(ac, bc, na, nb, bp), 1,
+                        warm=False))
             times["sw_fill_dirs" + mode] = (
                 cuda_ms(lambda: kernels.sw_fill_dirs(ac, bc, na, nb, bp,
                                                      m16), 10),
                 cuda_ms(lambda: sw_fill_dirs_plain(ac, bc, na, nb, bp, m16),
-                        2))
+                        1, warm=False))
             times["sw_walk" + mode] = (
                 cuda_ms(lambda: kernels.sw_walk(d, ac, bc, na, nb, *starts,
                                                 bp, 1024), 10),
                 cuda_ms(lambda: sw_walk_plain(d, ac, bc, na, nb, *starts, bp,
-                                              1024), 2))
+                                              1024), 1, warm=False))
             times["sw_hits" + mode] = (
                 cuda_ms(lambda: kernels.sw_hits(*args), 10),
                 cuda_ms(lambda: sw_hits_plain(*args), 1, warm=False))
@@ -737,14 +975,18 @@ def phase1(scs, rng, dev):
         err.update(e)
     err.update(walks_under_modes(dev, rng, times, bounds))
     wide = wide_modes_vs_plain(dev, rng)
+    e, sample = carry_vs_plain(dev, rng, times, bounds)
+    err.update(e)
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
     for k, (t, tp) in times.items():
         b, by = bounds[k]
-        log(f"phase 1: {k} at B=256 L=512: kernel {t:.4f} ms, plain "
+        shape = ("4 pairs, one chunk of 2048" if "[carry]" in k else
+                 "4 pairs' slabs" if "[chunked]" in k else "B=256 L=512")
+        log(f"phase 1: {k} at {shape}: kernel {t:.4f} ms, plain "
             f"{tp:.4f} ms, bound {b:.6f} ms ({by})")
-    return err, times, bounds
+    return err, times, bounds, sample
 
 
 class PlainGuard:
@@ -753,7 +995,8 @@ class PlainGuard:
 
     NAMES = ("nw_scores_plain", "nw_fill_dirs_plain", "nw_walk_plain",
              "sw_scores_plain", "sw_fill_dirs_plain", "sw_walk_plain",
-             "sw_hits_plain")
+             "sw_hits_plain", "nw_fill_dirs_carry_plain",
+             "sw_fill_dirs_carry_plain")
 
     def __enter__(self):
         from seqalign_tpu_torch.ops import kernels
@@ -946,25 +1189,30 @@ def witness_scores(table, sc, A, B, scores, idx, what, local=False):
                                  f"not the numpy Gotoh optimum {opt}")
 
 
-def witness_alignment(table, sc, a, b, aln, what):
+def witness_alignment(table, sc, a, b, aln, what, opt=None):
+    """An NW alignment spells its pair and rescores to its score, which is
+    the optimum: ``opt``, or the numpy Gotoh's."""
     ra, rb = aln.result_a, aln.result_b
     if (len(ra) != len(rb) or ra.replace("-", "") != a
             or rb.replace("-", "") != b
             or any(p == q == "-" for p, q in zip(ra, rb))):
         raise AssertionError(f"{what}: the strings do not spell the pair")
     flags = flags_of(sc)
-    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, flags=flags)
+    if opt is None:
+        opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, flags=flags)
     got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb, flags)
     if not aln.score == got == opt:
         raise AssertionError(f"{what}: score {aln.score}, columns rescore "
                              f"to {got}, optimum {opt}")
 
 
-def witness_hits(table, sc, a, b, hits, min_score, what):
-    """SW hits: the first is the local optimum (when that reaches the
-    hint), each spells a substring of both inputs and rescores to its
-    score (a hit starts and ends in a MATCH column, so no gap step of it
-    is a free end gap)."""
+def witness_hits(table, sc, a, b, hits, min_score, what, opt=None,
+                 spell_only=False):
+    """SW hits: the first is the local optimum (``opt``, or the numpy
+    Gotoh's) when that reaches the hint, each spells a substring of both
+    inputs and rescores to its score (a hit starts and ends in a MATCH
+    column, so no gap step of it is a free end gap).  ``spell_only`` skips
+    the optimum."""
     flags = flags_of(sc) - {"nsg", "neg"}
     for h in hits:
         ra, rb = h.result_a, h.result_b
@@ -977,8 +1225,11 @@ def witness_hits(table, sc, a, b, hits, min_score, what):
         if got != h.score:
             raise AssertionError(f"{what}: hit score {h.score}, columns "
                                  f"rescore to {got}")
-    opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True,
-                flags=flags_of(sc))
+    if spell_only:
+        return
+    if opt is None:
+        opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True,
+                    flags=flags_of(sc))
     first = hits[0].score if hits else None
     if (opt >= max(min_score, 1)) != bool(hits) or (hits and first != opt):
         raise AssertionError(f"{what}: first hit {first}, local optimum "
@@ -1359,6 +1610,228 @@ def lcs_job(rng, gpu, jobs):
             check_lcs_hit(s, h, label)
 
 
+def plant(rng, a: str, b: str, k: int, sub: float, pb=None) -> str:
+    """``b`` with a ``k``-letter segment of ``a`` copied in at ``pb``
+    (random if None), with substitutions at rate ``sub``."""
+    pa = int(rng.integers(0, len(a) - k + 1))
+    seg = np.frombuffer(a[pa:pa + k].encode(), np.uint8).copy()
+    hit = rng.random(k) < sub
+    seg[hit] = DNA[rng.integers(0, len(DNA), int(hit.sum()))]
+    pb = int(rng.integers(0, len(b) - k + 1)) if pb is None else pb
+    return b[:pb] + seg.tobytes().decode() + b[pb + k:]
+
+
+class LongFills:
+    """Records the chunked fills of the long path (the slabs' shape: pairs,
+    chunks, rows, lanes; the SW candidates harvested) by wrapping the
+    aligners' ``_LongFill``."""
+
+    def __enter__(self):
+        from seqalign_tpu_torch import aligners
+
+        self.saved = aligners._LongFill
+        self.fills = []
+        rec = self.fills
+
+        class Recorded(self.saved):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.append((tuple(self.dirs.shape),
+                            int(getattr(self, "counts", np.zeros(1)).sum())))
+
+        aligners._LongFill = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from seqalign_tpu_torch import aligners
+
+        aligners._LongFill = self.saved
+
+
+def long_job(label, fn, cells, n, gpu, jobs=None):
+    """One job of path long, run once under ``torch.profiler``: its wall
+    (profiler on), GCUPS, busy share (device self time over that wall),
+    carry launches per chunk, the chunks and slab bytes of its fills, its
+    harvested candidates, its peak device memory and its top device items.
+    Returns its result."""
+    import seqalign_tpu_torch as port
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    carry = ("nw_fill_dirs_carry", "sw_fill_dirs_carry")
+    c0 = port.kernel_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with LongFills() as rec, torch_profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, secs = timed(fn)
+    peak = torch.cuda.max_memory_allocated() - base
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(map(_self_device_us, dev_ev))
+    top = sorted(dev_ev, key=_self_device_us, reverse=True)[:3]
+    c1 = port.kernel_launch_counts()
+    launches = sum(c1[k] - c0[k] for k in carry)
+    chunks = sum(f[1] for f, _ in rec.fills)
+    slab_bytes = sum(int(np.prod(f)) for f, _ in rec.fills)
+    cands = sum(c for _, c in rec.fills)
+    log(f"{label}: {n} pairs, {cells} cells in {secs:.4f} s = "
+        f"{cells / secs / 1e9:.3f} GCUPS, busy share "
+        f"{dev_us / 1e6 / secs:.4f}; {len(rec.fills)} fills, {chunks} "
+        f"chunks (chunks per fill {[f[1] for f, _ in rec.fills]}, "
+        f"{launches / max(chunks, 1):.2f} carry launches per chunk), slab "
+        f"bytes {slab_bytes}, {cands} harvested candidates, peak device "
+        f"memory {peak} B; top: " + "; ".join(
+            f"{e.key[:48]} x{e.count} {_self_device_us(e) / 1e3:.3f} ms"
+            for e in top) + f" [{gpu}]")
+    if jobs is not None:
+        jobs[label] = (fn, secs)
+    return out
+
+
+def phase_long(rng, dev, gpu, jobs, sample):
+    """Path long: pairs over LONG_PAIR_CELLS through the entry points, each
+    job once (``long_job``).  Launch counts are read by the caller right
+    after this returns the check to run; the checks (every pair against
+    the scores kernels and the numpy witnesses, a sample against the plain
+    versions) run after the counts are read.  Returns that check."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import aligners
+
+    nw = port.NeedlemanWunsch(device="cuda")
+    nwf = port.NeedlemanWunsch(mode_scoring("nsg+neg"), device="cuda")
+    sw = port.SmithWaterman(device="cuda")
+    assert all(a * b > aligners.LONG_PAIR_CELLS for a, b in
+               ((LONG_A[0], LONG_B[0]), (GIANT, GIANT)))
+    A, B = dna(rng, LONG_NW, *LONG_A), dna(rng, LONG_NW, *LONG_B)
+    SA = dna(rng, LONG_SW, *LONG_A)
+    SB = [plant(rng, a, b, LONG_SEG, LONG_SUB)
+          for a, b in zip(SA, dna(rng, LONG_SW, *LONG_B))]
+    ga = dna(rng, 1, GIANT, GIANT)[0]
+    # the segment ends past y = 2^31 / (GIANT + 1), so its flats pass 2^31
+    gb = plant(rng, ga, dna(rng, 1, GIANT, GIANT)[0], LONG_SEG, LONG_SUB,
+               pb=GIANT - LONG_SEG - 1000)
+    sbest = sw.best_score_batch(SA, SB)
+    gbest = int(sw.best_score(ga, gb))
+    mins = [max(1, int(v) - 10) for v in sbest]
+    k = 8
+    out = {}
+    n16 = LONG_NSG
+
+    def hits(s, A_, B_, m):
+        return [list(itertools.islice(it, k))
+                for it in s.align_batch(A_, B_, m)]
+
+    out["nw"] = long_job(f"long job 1: nw align_batch {LONG_NW} x 20-40kb "
+                         f"x 6-10kb", lambda: nw.align_batch(A, B),
+                         cells_of(A, B), LONG_NW, gpu, jobs)
+    out["nsg"] = long_job(
+        f"long job 2: nw[nsg+neg] align_batch {n16} x 20-40kb x 6-10kb",
+        lambda: nwf.align_batch(A[:n16], B[:n16]), cells_of(A[:n16],
+                                                            B[:n16]),
+        n16, gpu)
+    out["sw"] = long_job(
+        f"long job 3: sw align_batch {LONG_SW} x 20-40kb x 6-10kb, 2 kb "
+        f"planted, min_score best - 10, first {k} hits",
+        lambda: hits(sw, SA, SB, mins), cells_of(SA, SB), LONG_SW, gpu, jobs)
+    h = LONG_HINTLESS
+    out["hintless"] = long_job(
+        f"long job 4: sw align_batch {h} x 20-40kb x 6-10kb, no hint, first "
+        f"{k} hits", lambda: hits(sw, SA[:h], SB[:h], None),
+        cells_of(SA[:h], SB[:h]), h, gpu)
+    out["nw_long"] = long_job(
+        "long job 5a: NeedlemanWunsch.align_long, 1 pair",
+        lambda: nw.align_long(A[0], B[0]), len(A[0]) * len(B[0]), 1, gpu)
+    out["sw_long"] = long_job(
+        "long job 5b: SmithWaterman.align_long, 1 pair, first 8 hits",
+        lambda: list(itertools.islice(sw.align_long(SA[0], SB[0],
+                                                    min_score=mins[0]), k)),
+        len(SA[0]) * len(SB[0]), 1, gpu)
+    dev0 = aligners.long_branch_counts()
+    out["giant"] = long_job(
+        f"long job 6: sw align_batch 1 x {GIANT} x {GIANT}, min_score best "
+        f"- 10, first {k} hits", lambda: hits(sw, [ga], [gb], [gbest - 10]),
+        GIANT * GIANT, 1, gpu)
+    dev1 = aligners.long_branch_counts()
+    swr = port.SmithWaterman(device="cuda", ref_mask_compat=True)
+    out["ref_mask"] = long_job(
+        "long job 7: sw[ref_mask_compat] align_batch 2 x 20-40kb x 6-10kb "
+        f"(host branch), first {k} hits",
+        lambda: hits(swr, SA[:2], SB[:2], mins[:2]), cells_of(SA[:2],
+                                                             SB[:2]), 2, gpu)
+    dev2 = aligners.long_branch_counts()
+
+    def check():
+        t0 = time.perf_counter()
+        eq, loc = eq_table(nw.scoring), eq_table(sw.scoring)
+        for key, s, A_, B_ in (("nw", nw, A, B),
+                               ("nsg", nwf, A[:n16], B[:n16])):
+            want = s.score_batch(A_, B_)
+            for i, aln in enumerate(out[key]):
+                witness_alignment(eq, s.scoring, A_[i], B_[i], aln,
+                                  f"long {key} pair {i}", opt=int(want[i]))
+        if out["nw_long"] != out["nw"][0]:
+            raise AssertionError("NeedlemanWunsch.align_long disagrees with "
+                                 "align_batch")
+        for key, A_, B_, best, m in (
+                ("sw", SA, SB, sbest, mins),
+                ("hintless", SA[:h], SB[:h], sbest[:h], [1] * h),
+                ("giant", [ga], [gb], [gbest], [gbest - 10]),
+                ("ref_mask", SA[:2], SB[:2], sbest[:2], mins[:2])):
+            for i, hs in enumerate(out[key]):
+                # under ref_mask_compat the mask is shared by the batch: a
+                # later pair's optimum may be masked, or all its candidates
+                shared = key == "ref_mask" and i > 0
+                if not hs and not shared:
+                    raise AssertionError(f"long {key} pair {i}: no hit")
+                witness_hits(loc, sw.scoring, A_[i], B_[i], hs, m[i],
+                             f"long {key} pair {i}", opt=int(best[i]),
+                             spell_only=shared)
+        if out["sw_long"] != out["sw"][0] or out["ref_mask"][0] != \
+                out["sw"][0]:
+            raise AssertionError("align_long or the host branch's first "
+                                 "stream disagrees with align_batch")
+        if out["hintless"][0][0] != out["sw"][0][0]:
+            raise AssertionError("the hint-less stream's first hit differs")
+        top = out["giant"][0][0]
+        flat = (top.pos_b + top.len_b) * (GIANT + 1) + top.pos_a + top.len_a
+        if flat < 2 ** 31 or dev1["device"] != dev0["device"] + 1:
+            raise AssertionError(f"giant pair: flat {flat}, branches "
+                                 f"{dev0} -> {dev1}")
+        if dev2["host"] != dev1["host"] + 2:
+            raise AssertionError(f"ref_mask_compat: branches {dev1} -> "
+                                 f"{dev2}")
+        # a sample against the plain versions: phase 1's equality pairs
+        # through the long path, in chunks of about CARRY_CA columns, so
+        # that every pair crosses chunk borders
+        PA, PB, nw_plain, thr, sw_plain = sample
+        saved = aligners.LONG_PAIR_CELLS, aligners.LONG_CHUNK
+        aligners.LONG_PAIR_CELLS, aligners.LONG_CHUNK = 1, CARRY_CA
+        c0 = port.kernel_launch_counts()
+        try:
+            got_nw = nw.align_batch(PA, PB)
+            got_sw = hits(sw, PA, PB, thr)
+        finally:
+            aligners.LONG_PAIR_CELLS, aligners.LONG_CHUNK = saved
+        c1 = port.kernel_launch_counts()
+        if any(c1[k] - c0[k] < 3 for k in ("nw_fill_dirs_carry",
+                                           "sw_fill_dirs_carry")):
+            raise AssertionError(f"the sample ran fewer than 3 chunks: "
+                                 f"{c0} -> {c1}")
+        if got_nw != nw_plain or got_sw != sw_plain:
+            raise AssertionError("the long path disagrees with the plain "
+                                 "versions on phase 1's pairs")
+        log(f"path long: every alignment and hit passed its witnesses, the "
+            f"giant pair's first hit ends at flat {flat} on the device "
+            f"branch, ref_mask_compat took the host branch, the sample "
+            f"equals the plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    return check
+
+
 def consume_per_pair(sw, A, B, mins, k):
     """``align_batch`` wall seconds, then each pair's seconds for its first
     ``k`` hits, and the pairs' candidate counts."""
@@ -1414,6 +1887,69 @@ def walk_ab(sw, swp, rng, gpu):
         aligners._SW_DEVWALK_CANDS = saved
 
 
+def fills_only(scs, rng, dev, gpu):
+    """The four default fills on 256 DNA pairs of 512 bp (phase 1's timing
+    shape), and ``sw_hits`` on their hint-less SW candidates (k = 16, as
+    phase 1's row): five means of 10 launches each, after a warm-up."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+
+    for key in ("nw", "sw"):
+        sc = scs[key]
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512),
+            seqs(rng, 256, 512, 512), dev)
+        fns = ({"nw_scores": lambda: kernels.nw_scores(ac, bc, na, nb, bp),
+                "nw_fill_dirs": lambda: kernels.nw_fill_dirs(ac, bc, na, nb,
+                                                             bp)}
+               if key == "nw" else
+               {"sw_scores": lambda: kernels.sw_scores(ac, bc, na, nb, bp),
+                "sw_fill_dirs": lambda: kernels.sw_fill_dirs(ac, bc, na, nb,
+                                                             bp, True)})
+        if key == "sw":
+            d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
+            args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
+            del m
+            fns["sw_hits"] = lambda: kernels.sw_hits(*args)
+        for name, fn in fns.items():
+            ms = [cuda_ms(fn, 10) for _ in range(5)]
+            log(f"fills: {name} at B=256 L=512: " +
+                ", ".join(f"{t:.4f}" for t in ms) + f" ms [{gpu}]")
+
+
+CHUNK_AB = (2048, 4096, 8192, 16384, 32768)  # LONG_CHUNK candidates
+
+
+def chunk_ab(rng, gpu):
+    """Path long's NW ``align_batch`` (16 of job 1's pairs) and SW
+    ``align_batch`` (8 of job 3's, min_score = best - 10, first 8 hits) at
+    each width of CHUNK_AB, in that order and then reversed; each run
+    prints its wall, GCUPS, chunks, slab bytes and peak device memory."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import aligners
+
+    nw = port.NeedlemanWunsch(device="cuda")
+    sw = port.SmithWaterman(device="cuda")
+    A, B = dna(rng, 16, *LONG_A), dna(rng, 16, *LONG_B)
+    SA = dna(rng, 8, *LONG_A)
+    SB = [plant(rng, a, b, LONG_SEG, LONG_SUB)
+          for a, b in zip(SA, dna(rng, 8, *LONG_B))]
+    mins = [max(1, int(v) - 10) for v in sw.best_score_batch(SA, SB)]
+    saved = aligners.LONG_CHUNK
+    try:
+        for ca in CHUNK_AB + CHUNK_AB[::-1]:
+            aligners.LONG_CHUNK = ca
+            long_job(f"chunk A/B {ca}: nw align_batch 16 x 20-40kb x 6-10kb",
+                     lambda: nw.align_batch(A, B), cells_of(A, B), 16, gpu)
+            long_job(f"chunk A/B {ca}: sw align_batch 8 x 20-40kb x 6-10kb, "
+                     f"best - 10, first 8 hits",
+                     lambda: [list(itertools.islice(it, 8)) for it in
+                              sw.align_batch(SA, SB, mins)],
+                     cells_of(SA, SB), 8, gpu)
+    finally:
+        aligners.LONG_CHUNK = saved
+
+
 def counted(path, counts, label=None):
     for k in PATHS[path]:
         if counts[k] <= 0:
@@ -1462,6 +1998,11 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="profile each main-path job and write the tables "
                          "to DIR")
+    ap.add_argument("--fills", action="store_true",
+                    help="only time the default fills and sw_hits at "
+                         "B=256, L=512")
+    ap.add_argument("--chunk-ab", action="store_true",
+                    help="only time the long path at several chunk widths")
     ap.add_argument("--walk-ab", action="store_true",
                     help="only time the SW align jobs' first pairs under "
                          "both walk branches")
@@ -1494,8 +2035,19 @@ def main() -> int:
     if args.walk_ab:
         walk_ab(sw, swp, rng, gpu)
         return 0
-    err, times, bounds = phase1({"nw": nw.scoring, "sw": sw.scoring,
-                                 "table": nwp.scoring}, rng, dev)
+    if args.chunk_ab:
+        chunk_ab(rng, gpu)
+        return 0
+    if args.fills:
+        fills_only({"nw": nw.scoring, "sw": sw.scoring}, rng, dev, gpu)
+        return 0
+    # the plain versions are bound by per-operation overhead on the host;
+    # inference mode trims it (phase 1 only: the main paths run as a user
+    # calls them)
+    with torch.inference_mode():
+        err, times, bounds, sample = phase1({"nw": nw.scoring,
+                                             "sw": sw.scoring,
+                                             "table": nwp.scoring}, rng, dev)
 
     jobs: dict = {}
     launches = {}
@@ -1517,6 +2069,14 @@ def main() -> int:
                          for k in PATHS["modes"]}
     counted("modes", launches["modes"])
     log(f"path modes done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    port.reset_kernel_launch_counts()
+    with PlainGuard():
+        check = phase_long(rng, dev, gpu, jobs, sample)
+    launches["long"] = port.kernel_launch_counts()
+    counted("long", launches["long"])
+    check()
+    log(f"path long done in {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu"))
     if loaded:
@@ -1527,7 +2087,9 @@ def main() -> int:
     rows = []
     for name, (counter, src, rep) in KERNELS.items():
         mode = name.partition("[")[2].rstrip("]")
-        if mode in ("", "table"):
+        if mode in ("carry", "chunked"):
+            n = launches["long"]
+        elif mode in ("", "table"):
             n = launches[name.split("_")[0] + ("_table" if mode else "")]
         else:  # the LCS recipe runs in the modes path as nga+ngb+nmm
             n = mode_launches["nga+ngb+nmm" if mode == "lcs" else mode]

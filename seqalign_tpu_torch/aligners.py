@@ -17,8 +17,18 @@ The device path covers equality and substitution-matrix/wildcard scoring,
 any gap_open, and the flags no_start_gap_penalty, no_end_gap_penalty,
 no_gaps_in_a, no_gaps_in_b and no_mismatches; :func:`_check_slice` is the
 one place that picks a kernel, and it raises ``NotImplementedError``
-naming the ROADMAP.md item for what is still unported (pairs over
-``LONG_PAIR_CELLS``, the matrix dump).
+naming the ROADMAP.md item for what is still unported (the matrix dump).
+
+Pairs over ``LONG_PAIR_CELLS``, and ``align_long``, take the long-pair
+path (:class:`_LongFill`): seq_a in chunks of at most ``LONG_CHUNK``
+columns, one carry launch per chunk with the boundary column carried on
+the device, the codes of every chunk kept as slabs, then the same walks
+as the short path over the slabs.  A pair whose slabs pass the device
+budget (slabs, one chunk's M, a hint-less harvest of every chunk), and
+every SW pair under ``ref_mask_compat``, walks on the host instead (the
+slabs and each chunk's candidates copied to host memory chunk by chunk);
+that choice is made by size or mode only, and counted in
+:func:`long_branch_counts`.
 """
 
 from __future__ import annotations
@@ -32,13 +42,14 @@ import torch
 
 from .io import packer
 from .ops import host_dp, kernels
-from .ops.dp import sw_sorted_candidates
+from .ops.dp import boundary_column, merge_candidates, sw_sorted_candidates
 from .ops.pack import (KernelParams, _next_pow2, check_valid_pairs,
                        kernel_params, m16_safe, mm_eligible, pack_batch,
                        pad_width)
 from .ops.host_dp import Alignment
-from .ops.traceback import (SwDeviceHits, SwHitIterator, SwRefMaskHistory,
-                            nw_strings_from_ops)
+from .ops.traceback import (ChunkedDirs, SwDeviceHits, SwHitIterator,
+                            SwRefMaskHistory, nw_strings_from_ops,
+                            nw_traceback)
 from .scoring.config import ScoringConfig, from_reference
 from .scoring.presets import scoring_system_default, scoring_system_sw_default
 
@@ -57,6 +68,28 @@ ALIGN_DIRS_BUDGET = int(os.environ.get("SEQALIGN_ALIGN_DIRS_BUDGET",
 # itself) alike.  A hint-less sub-batch is sized by these bytes too.
 _HARVEST_BYTES = 40
 _HARVEST_SHARE = 0.25
+# A long pair's hint-less harvest on the device branch holds every chunk's
+# candidates at once and merges them (ops/dp.merge_candidates): 12 bytes a
+# candidate kept, about 40 more at the merge's sort, and the harvest of the
+# largest chunk beside them; counted as this many bytes a candidate.  The
+# host branch moves each chunk's candidates to host memory and merges them
+# there, so it holds one chunk's harvest (_HARVEST_BYTES a candidate).
+_LONG_HARVEST_BYTES = 96
+# The long-pair path: chunks of at most LONG_CHUNK columns of seq_a, of
+# equal width over a group's longest seq_a (_long_chunk).  Each chunk of a
+# pair costs LB - 1 rows of skew beside its CA rows of codes, and a chunk
+# narrower than the lanes (CA < LB) pays its ramp diagonals' barriers
+# again; a wider one holds more SW M at once: (CA + LB - 1) * (LB + 1) *
+# 2 or 4 bytes a pair.  PERF.md gives the measured reason for 16,384.
+LONG_CHUNK = 16_384
+# device bytes a long-pair sub-batch holds (slabs, the chunk's M and
+# harvest, the hit mask): when None, _LONG_BUDGET_SHARE of the card's
+# memory (ALIGN_DIRS_BUDGET on the CPU); the rest is left to the harvest's
+# sort buffers, which the count leaves out for a hinted harvest
+LONG_DIRS_BUDGET = None
+_LONG_BUDGET_SHARE = 0.4
+# pairs of the long path by branch: walked on the device, or on the host
+_LONG_BRANCHES = {"device": 0, "host": 0}
 
 _SW_PREWALK = 16  # hits found per pair in a sub-batch's first device round
 # device-walk cutover: a pair with more harvested candidates than this walks
@@ -86,21 +119,22 @@ def _route(total_cells: int, n_pairs: int,
 
 # what is still unported -> the ROADMAP.md item that will cover it
 _UNPORTED = {
-    "long": "pairs over LONG_PAIR_CELLS need the chunked long-pair fill: "
-            "ROADMAP.md Queue 1 item 7",
     "matrices": "align_with_matrices needs the deskewed matrix dump: "
                 "ROADMAP.md Queue 1 item 4",
 }
 _ENTRIES = {("scores", False): "nw_scores", ("scores", True): "sw_scores",
-            ("dirs", False): "nw_fill_dirs", ("dirs", True): "sw_fill_dirs"}
+            ("dirs", False): "nw_fill_dirs", ("dirs", True): "sw_fill_dirs",
+            ("long", False): "nw_fill_dirs_carry",
+            ("long", True): "sw_fill_dirs_carry"}
 
 
 def _check_slice(what: str, is_sw: bool = False):
     """The device path's single dispatch point: the wrapper in
-    ``ops/kernels.py`` that serves ``what`` ("scores" or "dirs") for NW or
-    SW.  Each wrapper takes equality or table scoring and the flag word
-    from the batch's ``KernelParams``, so every config has an entry;
-    ``what`` in ``_UNPORTED`` raises with its ROADMAP.md item."""
+    ``ops/kernels.py`` that serves ``what`` ("scores", "dirs", or "long",
+    one chunk of a long pair) for NW or SW.  Each wrapper takes equality
+    or table scoring and the flag word from the batch's ``KernelParams``,
+    so every config has an entry; ``what`` in ``_UNPORTED`` raises with
+    its ROADMAP.md item."""
     if what in _UNPORTED:
         raise NotImplementedError(_UNPORTED[what])
     return getattr(kernels, _ENTRIES[(what, is_sw)])
@@ -169,6 +203,91 @@ def _buckets(seqs_a, seqs_b, long_key: bool = True):
             key = (max(64, pad_width(len(sa))), max(64, pad_width(len(sb))))
         groups.setdefault(key, []).append(i)
     return groups.items()
+
+
+def _long_subbuckets(idx, seqs_a, seqs_b):
+    """A long-pair bucket grouped by (pow2 |a|, pow2 |b|), so that one
+    chunked fill serves each group without a short seq_a paying a long
+    one's chunks (seqalign_tpu/aligners.py:978-989)."""
+    groups = {}
+    for i in idx:
+        k = (_next_pow2(max(1, len(seqs_a[i]))),
+             _next_pow2(max(1, len(seqs_b[i]))))
+        groups.setdefault(k, []).append(i)
+    return [groups[k] for k in sorted(groups)]
+
+
+def _long_chunk(la: int, chunk: Optional[int] = None) -> int:
+    """The chunk width for seq_a widths up to ``la``: ``chunk`` when
+    given, else the fewest chunks of at most LONG_CHUNK columns, of equal
+    width."""
+    if chunk is not None:
+        if chunk < 1:
+            raise ValueError(f"chunk {chunk} must be >= 1")
+        return int(chunk)
+    return -(-la // -(-la // LONG_CHUNK))
+
+
+def _long_budget(device: torch.device) -> int:
+    """Device bytes a long-pair sub-batch may hold."""
+    if LONG_DIRS_BUDGET is not None:
+        return LONG_DIRS_BUDGET
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        return int(_LONG_BUDGET_SHARE * total)
+    return ALIGN_DIRS_BUDGET
+
+
+def _long_bytes(sc: ScoringConfig, la: int, lb: int, ca: int, *,
+                is_sw: bool, hintless: bool):
+    """Bytes of one long pair of widths (la, lb) in chunks of ``ca``: its
+    code slabs, and the device bytes it holds on the device branch and on
+    the host branch.  Both count the boundary columns in and out and, for
+    SW, one chunk's M; the device branch also holds the slabs, the hit
+    loop's one-bit-per-cell mask and, without a hint, the harvest of every
+    chunk (a quarter of the cells at ``_LONG_HARVEST_BYTES`` each), the
+    host branch one chunk's slab and one chunk's harvest."""
+    nch, dc = -(-la // ca), ca + lb - 1
+    slabs = nch * dc * (lb + 1)
+    extra = 24 * (lb + 1)
+    device, host = slabs, dc * (lb + 1)
+    if is_sw:
+        extra += dc * (lb + 1) * (2 if m16_safe(sc, la, lb) else 4)
+        device += (lb + 1) * (la + 1) // 8
+        if hintless:
+            device += int(_LONG_HARVEST_BYTES * _HARVEST_SHARE * la * lb)
+            host += int(_HARVEST_BYTES * _HARVEST_SHARE * min(ca, la) * lb)
+    return slabs, device + extra, host + extra
+
+
+def long_branch_counts() -> dict:
+    """Pairs of the long-pair path so far, by where they were walked:
+    ``device`` (the walks over slabs on the card) and ``host`` (slabs
+    copied to host memory: past the device budget, or ref_mask_compat)."""
+    return dict(_LONG_BRANCHES)
+
+
+def _long_groups(sc, device, idx, seqs_a, seqs_b, *, is_sw, chunk=None,
+                 hintless=False, host_mode=False):
+    """Sub-batches of a long-pair bucket: per (pow2 |a|, pow2 |b|) group,
+    as many pairs as the device budget holds.  Yields ``(sub, chunk,
+    host)``, ``host`` when the group walks on the host: by mode
+    (``host_mode``) or because one pair's device-branch bytes pass the
+    budget.  The host branch holds one chunk of a pair at a time, whatever
+    the budget."""
+    budget = _long_budget(device)
+    for group in _long_subbuckets(idx, seqs_a, seqs_b):
+        la = max(1, max(len(seqs_a[i]) for i in group))
+        lb = max(1, max(len(seqs_b[i]) for i in group))
+        ca = _long_chunk(la, chunk)
+        _, dev_bytes, host_bytes = _long_bytes(
+            sc, la, lb, ca, is_sw=is_sw, hintless=hintless)
+        host = host_mode or dev_bytes > budget
+        step = max(1, budget // (host_bytes if host else dev_bytes))
+        for s in range(0, len(group), step):
+            sub = group[s:s + step]
+            _LONG_BRANCHES["host" if host else "device"] += len(sub)
+            yield sub, ca, host
 
 
 def _scores_bucketed(sc: ScoringConfig, params: KernelParams, seqs_a,
@@ -263,7 +382,8 @@ class NeedlemanWunsch:
         results: List[Optional[Alignment]] = [None] * len(seqs_a)
         for key, idx in _buckets(seqs_a, seqs_b):
             if key is None:
-                _check_slice("long")
+                self._align_long(idx, seqs_a, seqs_b, results)
+                continue
             la, lb = key
             # sub-batch by the bytes the dirs tensor really holds:
             # (la+lb-1) * (lb+1) per pair
@@ -288,6 +408,46 @@ class NeedlemanWunsch:
                     results[i] = alns[j]
         return results  # type: ignore[return-value]
 
+    def _align_long(self, idx, seqs_a, seqs_b, results, chunk=None):
+        """The long-pair path: per sub-batch one chunked fill
+        (:class:`_LongFill`), then one ``nw_walk`` over its slabs and the
+        strings, as the short path; on the host branch the host walk
+        ``nw_traceback`` over each pair's slabs."""
+        for sub, ca, host in _long_groups(self.scoring, self.device, idx,
+                                          seqs_a, seqs_b, is_sw=False,
+                                          chunk=chunk):
+            ga = [seqs_a[i] for i in sub]
+            gb = [seqs_b[i] for i in sub]
+            fill = _LongFill(self.scoring, self.params, self.device, ga, gb,
+                             ca, is_sw=False, host=host)
+            if host:
+                corner = fill.corner.cpu().numpy()
+                alns = [nw_traceback(ga[j], gb[j], int(fill.na[j]),
+                                     int(fill.nb[j]), fill.host_codes(j),
+                                     corner[j]) for j in range(len(sub))]
+            else:
+                ops, score = kernels.nw_walk(
+                    fill.dirs, fill.corner, fill.na_t, fill.nb_t,
+                    int(np.max(fill.na.astype(np.int64) + fill.nb)))
+                alns = nw_strings_from_ops(ga, gb, fill.na, fill.nb,
+                                           ops.cpu().numpy(),
+                                           score.cpu().numpy())
+            del fill  # free the slabs before the next sub-batch fills
+            for j, i in enumerate(sub):
+                results[i] = alns[j]
+
+    def align_long(self, seq_a: str, seq_b: str,
+                   chunk: Optional[int] = None) -> Alignment:
+        """One pair on the long-pair path, seq_a in chunks of ``chunk``
+        columns (by default the fewest chunks of at most ``LONG_CHUNK``).
+        Sentinel-wrap configs take the int64 host path, as in the JAX
+        package (seqalign_tpu/aligners.py:1146-1149)."""
+        if self.scoring.sentinel_wrap_risk():
+            return host_dp.nw_align(self.scoring, seq_a, seq_b)
+        results: List[Optional[Alignment]] = [None]
+        self._align_long([0], [seq_a], [seq_b], results, chunk)
+        return results[0]  # type: ignore[return-value]
+
     def score(self, seq_a: str, seq_b: str) -> int:
         return int(self.score_batch([seq_a], [seq_b])[0])
 
@@ -304,26 +464,13 @@ class NeedlemanWunsch:
                                   is_sw=False, **kw)
 
 
-class _SwFill:
-    """One SW fill on the device and its harvest: ``sw_fill_dirs`` with M,
-    the candidates of every pair in hit order (``sw_sorted_candidates``),
-    then M is freed and only the codes stay, for as long as this object
-    lives."""
+class _Hits:
+    """The hit rounds of one SW fill whose codes (``dirs``, a plane or
+    chunk slabs) and harvested candidates stay on the device for as long
+    as the object lives."""
 
-    def __init__(self, sc: ScoringConfig, params: KernelParams, device, ga,
-                 gb, mins, la: int, lb: int):
-        for a, b in zip(ga, gb):
-            check_valid_pairs(sc, a, b)
-        ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
-                                                           la, lb)
-        self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
-                                                     self.nb)
-        self.dirs, mmat = _check_slice("dirs", True)(
-            self.ac, self.bc, self.na_t, self.nb_t, self.params,
-            m16_safe(sc, la, lb))
-        self.flat, self.score, off = sw_sorted_candidates(mmat, self.na,
-                                                          self.nb, mins)
-        del mmat
+    def _harvested(self, flat, score, off):
+        self.flat, self.score = flat, score
         self.lo, self.hi = off[:-1], off[1:]
         self.counts = (self.hi - self.lo).cpu().numpy()
 
@@ -367,6 +514,93 @@ class _SwFill:
         score = self.score.cpu().numpy()
         off = np.concatenate([[0], np.cumsum(self.counts)])
         return [(flat[s:e], score[s:e]) for s, e in zip(off[:-1], off[1:])]
+
+
+class _SwFill(_Hits):
+    """One SW fill on the device and its harvest: ``sw_fill_dirs`` with M,
+    the candidates of every pair in hit order (``sw_sorted_candidates``),
+    then M is freed and only the codes stay."""
+
+    def __init__(self, sc: ScoringConfig, params: KernelParams, device, ga,
+                 gb, mins, la: int, lb: int):
+        for a, b in zip(ga, gb):
+            check_valid_pairs(sc, a, b)
+        ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
+                                                           la, lb)
+        self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
+                                                     self.nb)
+        self.dirs, mmat = _check_slice("dirs", True)(
+            self.ac, self.bc, self.na_t, self.nb_t, self.params,
+            m16_safe(sc, la, lb))
+        self._harvested(*sw_sorted_candidates(mmat, self.na, self.nb, mins))
+
+    def host_codes(self, j: int) -> np.ndarray:
+        """A host copy of pair j's code plane."""
+        return self.dirs[j].cpu().numpy()
+
+
+class _LongFill(_Hits):
+    """One chunked fill of a long-pair sub-batch (NW, or SW with its
+    harvest): one carry launch per chunk of ``ca`` columns of seq_a, the
+    boundary column carried from chunk to chunk in two device buffers, the
+    codes of chunk c in ``dirs[:, c]`` (B, nch, ca+LB-1, LB+1).  NW keeps
+    the corners; SW harvests each chunk's M right after its launch, frees
+    it, and merges the chunks' candidates into the hit order.  With
+    ``host`` the slabs go to (pinned) host memory after each launch and
+    only one chunk's slab stays on the device; SW's candidates go to host
+    memory chunk by chunk and are merged there."""
+
+    def __init__(self, sc: ScoringConfig, params: KernelParams, device, ga,
+                 gb, ca: int, *, is_sw: bool, mins=None, host: bool = False):
+        for a, b in zip(ga, gb):
+            check_valid_pairs(sc, a, b)
+        la = max(1, max(map(len, ga)))
+        lb = max(1, max(map(len, gb)))
+        ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
+                                                           la, lb)
+        self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
+                                                     self.nb)
+        B = len(ga)
+        self.ca = ca
+        nch, dc = -(-la // ca), ca + lb - 1
+        shape = (B, nch, dc, lb + 1)
+        if host:
+            self.dirs = torch.empty(shape, dtype=torch.uint8,
+                                    pin_memory=device.type == "cuda")
+            slab = torch.empty(shape[:1] + shape[2:], dtype=torch.uint8,
+                               device=device)
+        else:
+            self.dirs = torch.empty(shape, dtype=torch.uint8, device=device)
+        bin = boundary_column(self.params, B, lb, is_sw=is_sw)
+        bout = torch.empty_like(bin)
+        fill = _check_slice("long", is_sw)
+        self.corner = torch.zeros((B, 3), dtype=torch.int32, device=device)
+        self.best = torch.zeros(B, dtype=torch.int32, device=device)
+        m16 = m16_safe(sc, la, lb)
+        parts = []
+        for c in range(nch):
+            args = (self.ac, self.bc, self.na_t, self.nb_t, self.params,
+                    c * ca, bin, bout, slab if host else self.dirs[:, c])
+            if is_sw:
+                mmat = fill(*args, self.best, m16)
+                part = sw_sorted_candidates(mmat, self.na, self.nb, mins,
+                                            x_off=c * ca)
+                parts.append(tuple(v.cpu() for v in part) if host else part)
+                del mmat, part
+            else:
+                fill(*args, self.corner)
+            if host:
+                self.dirs[:, c].copy_(slab, non_blocking=True)
+            bin, bout = bout, bin
+        if is_sw:
+            self._harvested(*merge_candidates(parts, B))
+        if host and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def host_codes(self, j: int) -> ChunkedDirs:
+        """Pair j's slabs on the host (a copy of the device branch's), for
+        the host walks."""
+        return ChunkedDirs(self.dirs[j].cpu().numpy(), self.ca)
 
 
 class SmithWaterman:
@@ -425,7 +659,8 @@ class SmithWaterman:
         results: List = [None] * len(seqs_a)
         for key, idx in _buckets(seqs_a, seqs_b):
             if key is None:
-                _check_slice("long")
+                self._align_long(idx, seqs_a, seqs_b, min_scores, results)
+                continue
             la, lb = key
             # sub-batch by the bytes the fill really holds per pair: codes
             # plus the int16 or int32 M plane, and without a hint the
@@ -442,37 +677,71 @@ class SmithWaterman:
 
     def _align_sub_batch(self, sub, seqs_a, seqs_b, min_scores, la, lb,
                          results):
-        sc = self.scoring
         ga = [seqs_a[i] for i in sub]
         gb = [seqs_b[i] for i in sub]
         mins = [min_scores[i] for i in sub]
-        fill = _SwFill(sc, self.params, self.device, ga, gb, mins, la, lb)
-        host = np.array([self.history is not None or c > _SW_DEVWALK_CANDS
-                         for c in fill.counts])
-        if not host.all():
-            recs, nhits = fill.hits(_SW_PREWALK, host=host)
-        if host.any():
+        fill = _SwFill(self.scoring, self.params, self.device, ga, gb, mins,
+                       la, lb)
+        self._streams(fill, sub, ga, gb, mins, None, results)
+
+    def _align_long(self, idx, seqs_a, seqs_b, min_scores, results,
+                    chunk=None):
+        """The long-pair path: per sub-batch one chunked fill with the
+        harvest of every chunk (:class:`_LongFill`), then the hit rounds
+        over its slabs as on the short path; on the host branch (past the
+        device budget, or ``ref_mask_compat``) every pair's stream walks
+        on the host over its slabs."""
+        for sub, ca, host in _long_groups(
+                self.scoring, self.device, idx, seqs_a, seqs_b, is_sw=True,
+                chunk=chunk,
+                hintless=any(min_scores[i] <= 1 for i in idx),
+                host_mode=self.history is not None):
+            ga = [seqs_a[i] for i in sub]
+            gb = [seqs_b[i] for i in sub]
+            mins = [min_scores[i] for i in sub]
+            fill = _LongFill(self.scoring, self.params, self.device, ga, gb,
+                             ca, is_sw=True, mins=mins, host=host)
+            self._streams(fill, sub, ga, gb, mins, ca, results, host)
+
+    def _streams(self, fill, sub, ga, gb, mins, ca, results, host=False):
+        """The hit streams of one fill's pairs: hits found on the device
+        (``sw_hits``, ``sw_walk``) behind :class:`SwDeviceHits`, or, for
+        every pair when ``host`` or ``ref_mask_compat`` and for a pair past
+        ``_SW_DEVWALK_CANDS`` candidates, a host :class:`SwHitIterator`
+        over a host copy of its codes.  ``ca``: the chunk width of a long
+        fill, for the deeper rounds."""
+        on_host = np.array([host or self.history is not None
+                            or c > _SW_DEVWALK_CANDS for c in fill.counts])
+        if not on_host.all():
+            recs, nhits = fill.hits(_SW_PREWALK, host=on_host)
+        if on_host.any():
             cands = fill.host_candidates()
         for j, i in enumerate(sub):
-            if host[j]:
+            if on_host[j]:
                 results[i] = SwHitIterator(
-                    sc, ga[j], gb[j], int(fill.na[j]), int(fill.nb[j]),
-                    fill.dirs[j].cpu().numpy(), cands[j],
+                    self.scoring, ga[j], gb[j], int(fill.na[j]),
+                    int(fill.nb[j]), fill.host_codes(j), cands[j],
                     history=self.history)
             else:
                 results[i] = SwDeviceHits(
                     ga[j], gb[j], fill.na[j], recs[j], int(nhits[j]),
                     _SW_PREWALK, fill.counts[j],
                     functools.partial(self._more_hits, ga[j], gb[j],
-                                      mins[j]))
+                                      mins[j], ca))
 
-    def _more_hits(self, a: str, b: str, min_score: int, k: int, skip: int):
+    def _more_hits(self, a: str, b: str, min_score: int, ca, k: int,
+                   skip: int):
         """A deeper round of one pair's device stream: the pair filled and
-        harvested again on its own, its first ``k`` hits found, those past
-        ``skip`` traced (see :class:`SwDeviceHits`)."""
-        fill = _SwFill(self.scoring, self.params, self.device, [a], [b],
-                       [min_score], max(64, pad_width(len(a))),
-                       max(64, pad_width(len(b))))
+        harvested again on its own (chunked in ``ca`` columns for a long
+        pair), its first ``k`` hits found, those past ``skip`` traced (see
+        :class:`SwDeviceHits`)."""
+        if ca is None:
+            fill = _SwFill(self.scoring, self.params, self.device, [a], [b],
+                           [min_score], max(64, pad_width(len(a))),
+                           max(64, pad_width(len(b))))
+        else:
+            fill = _LongFill(self.scoring, self.params, self.device, [a],
+                             [b], ca, is_sw=True, mins=[min_score])
         recs, nhits = fill.hits(k, skip)
         return recs[0], int(nhits[0])
 
@@ -485,8 +754,18 @@ class SmithWaterman:
         return _scores_bucketed(self.scoring, self.params, seqs_a, seqs_b,
                                 is_sw=True)
 
-    def align_long(self, *args, **kw):
-        _check_slice("long")
+    def align_long(self, seq_a: str, seq_b: str,
+                   chunk: Optional[int] = None,
+                   min_score: Optional[int] = None):
+        """One pair's hit stream on the long-pair path, seq_a in chunks of
+        ``chunk`` columns (by default the fewest chunks of at most
+        ``LONG_CHUNK``).  ``min_score`` is the hint of ``align_batch``;
+        without one the harvest threshold is 1, which prunes nothing."""
+        results: List = [None]
+        self._align_long([0], [seq_a], [seq_b],
+                         [1 if min_score is None else min_score], results,
+                         chunk)
+        return results[0]
 
     def align_with_matrices(self, *args, **kw):
         _check_slice("matrices")

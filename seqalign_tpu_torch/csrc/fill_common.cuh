@@ -31,6 +31,26 @@
 // equality fill, and with MODES off every flag branch is dead code, so the
 // default instantiations compile to the plain recurrence.
 //
+// CARRY fills one chunk of a long pair (fill_carry_kernel, a kernel of its
+// own, so that fill_kernel's instantiations take no chunk state): the
+// columns x_off+1 .. x_off+CA of the global DP (replacing the chunked mode
+// of pallas_dp.py:_dirs_kernel, driven by fill_dirs_long with _next_bcol,
+// pallas_dp.py:1199-1334).  The
+// chunk's left boundary, column x = x_off, comes in as `bin` (B, 3, LB+1)
+// int32 (M, Ga, Gb by lane y): cell (y, 0) of the chunk, y >= 1, reads
+// bin[y].  Row 0 is not carried: every chunk computes its row-0 cells
+// (0, x_off + xl), xl >= 0, as the global row-0 cells, M = Ga = floor, Gb
+// = gap_open + x * gap_extend (0 under NSG; all zero for SW; the origin
+// (0, 0, 0)), so lane 0 of `bin` is never read.  The loop runs over the
+// chunk's local width min(CA, na - x_off); `a` is read at global x, and
+// lastcol, the x == 1 guard and the corner test use global x.  The column
+// x = x_off + CA goes out as `bout` (lanes 1 .. nb) when the pair reaches
+// it.  Codes and M go to row xl + y - 2 of the chunk's slab, CA +
+// LB - 1 rows a pair, at the pair strides the caller gives.  A pair with
+// na <= x_off writes nothing (but for the NW corner of an empty seq_a,
+// bin[nb], in the chunk at x_off = 0); SW raises the pair's score across
+// launches and never resets it.
+//
 // The modes, each thread knowing its (x, y) and the pair's na, nb:
 // NSG zeroes the boundary gap runs (alignment.c:60-63); NEG takes Ga on the
 // last column x == na and Gb on the last row y == nb as the max of the
@@ -255,20 +275,198 @@ inline int fill_threads(int LB) {
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
-template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES>
-int launch(const void* ac, const void* bc, const void* na, const void* nb,
-           const void* scal, const void* sub, const void* im, int modes,
-           int Kb, int sub_n, int table_smem, int B, int LA, int LB,
-           void* scores, void* corner, void* dirs, void* mout, void* scratch,
-           void* stream) {
-  // above 48 KB a block must opt in; past the 227 KB limit the attribute
-  // call fails and the launch is not made (the wrapper keeps the sum of
-  // diagonals and table under it)
-  const size_t smem =
-      (scratch ? 0 : static_cast<size_t>(36) * (LB + 1)) +
-      (TABLE && table_smem ? static_cast<size_t>(4) * sub_n * (im ? 2 : 1)
-                           : 0);
-  auto kernel = fill_kernel<DIRS, SW, TABLE, MBYTES, MODES>;
+// The chunk of a carry launch: boundary columns in and out, the chunk's
+// global column offset and width, and the pair strides (elements) of the
+// code and M slabs.
+struct Carry {
+  const int* bin;
+  int* bout;
+  int x_off;
+  int CA;
+  long long dstride;
+  long long mstride;
+};
+
+// One chunk of a long pair (CARRY above): fill_kernel's recurrence with
+// codes, over the chunk's columns, with the boundary column carried.
+template <bool SW, bool TABLE, int MBYTES, bool MODES>
+__global__ void fill_carry_kernel(const uint8_t* __restrict__ ac,
+                                  const uint8_t* __restrict__ bc,
+                                  const int* __restrict__ na_,
+                                  const int* __restrict__ nb_,
+                                  const int* __restrict__ scal,
+                                  const int* __restrict__ sub,
+                                  const int* __restrict__ im, int modes,
+                                  int Kb, int sub_n, int table_smem, int LA,
+                                  int LB, int* __restrict__ scores,
+                                  int* __restrict__ corner,
+                                  uint8_t* __restrict__ dirs,
+                                  void* __restrict__ mout,
+                                  int* __restrict__ scratch, Carry cr) {
+  using MT = typename std::conditional<MBYTES == 2, int16_t, int>::type;
+  extern __shared__ int smem[];
+  const int j = blockIdx.x;
+  const int LBp = LB + 1;
+  int* buf = scratch ? scratch + static_cast<size_t>(j) * 9 * LBp : smem;
+  const int match = scal[0], mismatch = scal[1];
+  const int go = scal[2], ge = scal[3], mn = SW ? scal[5] : scal[4];
+  const int gop = add(go, ge);  // gap_open_penalty (alignment.c:38)
+  const int na = min(max(na_[j], 0), LA);
+  const int nb = min(max(nb_[j], 0), LB);
+  // global x = xo + local x, over the chunk's wa columns
+  const int xo = cr.x_off;
+  const int wa = max(0, min(cr.CA, na - xo));
+  const uint8_t* a = ac + static_cast<size_t>(j) * LA + xo;
+  const uint8_t* b = bc + static_cast<size_t>(j) * LB;
+  uint8_t* dj = dirs + j * static_cast<size_t>(cr.dstride);
+  MT* mj = MBYTES
+               ? static_cast<MT*>(mout) + j * static_cast<size_t>(cr.mstride)
+               : nullptr;
+  const int* bin = cr.bin + static_cast<size_t>(j) * 3 * LBp;
+  int* bout = cr.bout + static_cast<size_t>(j) * 3 * LBp;
+  const bool nsg = MODES && (modes & NSG), neg = MODES && (modes & NEG);
+  const bool nga = MODES && (modes & NGA), ngb = MODES && (modes & NGB);
+  const bool nmm = MODES && (modes & NMM);
+  const int* subp = sub;
+  const int* imp = im;
+  if (TABLE && table_smem) {
+    int* t = smem + (scratch ? 0 : 9 * LBp);
+    for (int i = threadIdx.x; i < sub_n; i += blockDim.x) t[i] = sub[i];
+    subp = t;
+    if (MODES && TABLE && nmm) {
+      for (int i = threadIdx.x; i < sub_n; i += blockDim.x)
+        t[sub_n + i] = im[i];
+      imp = t + sub_n;
+    }
+  }
+  int best = 0;  // SW: the floor
+  // the gap run of the row-0 cell at global x = k
+  auto run_at = [&](int k) { return (SW || nsg) ? 0 : add(go, k * ge); };
+
+  if (wa == 0) {  // the pair ends before this chunk
+    if (!SW && threadIdx.x == 0 && na == 0 && xo == 0) {
+      corner[3 * j] = bin[nb];  // cell (nb, 0)
+      corner[3 * j + 1] = bin[LBp + nb];
+      corner[3 * j + 2] = bin[2 * LBp + nb];
+      scores[j] = max3(bin[nb], bin[LBp + nb], bin[2 * LBp + nb]);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    // diagonal 0: cell (0, x_off), the origin or a row-0 cell; diagonal 1:
+    // the row-0 cell (0, x_off + 1) and the carried cell (1, x_off)
+    buf[0] = xo ? mn : 0;
+    buf[LBp] = xo ? mn : 0;
+    buf[2 * LBp] = xo ? run_at(xo) : 0;
+    int* d1 = buf + 3 * LBp;
+    d1[0] = mn;
+    d1[LBp] = mn;
+    d1[2 * LBp] = run_at(xo + 1);
+    d1[1] = bin[1];
+    d1[LBp + 1] = bin[LBp + 1];
+    d1[2 * LBp + 1] = bin[2 * LBp + 1];
+    if (!SW && nb == 0 && na <= xo + cr.CA) {
+      // the corner is the row-0 cell (0, na), in this chunk
+      corner[3 * j] = mn;
+      corner[3 * j + 1] = mn;
+      corner[3 * j + 2] = run_at(na);
+      scores[j] = max(mn, run_at(na));
+    }
+  }
+  __syncthreads();
+
+  for (int d = 2; d <= wa + nb; ++d) {
+    int* cur = buf + (d % 3) * 3 * LBp;
+    const int* p1 = buf + ((d - 1) % 3) * 3 * LBp;
+    const int* p2 = buf + ((d - 2) % 3) * 3 * LBp;
+    if (threadIdx.x == 0) {
+      // the row-0 cell (0, x_off + d) and the carried cell (d, x_off)
+      cur[0] = mn;
+      cur[LBp] = mn;
+      cur[2 * LBp] = run_at(xo + d);
+      if (d <= nb) {
+        cur[d] = bin[d];
+        cur[LBp + d] = bin[LBp + d];
+        cur[2 * LBp + d] = bin[2 * LBp + d];
+      }
+    }
+    const int lo = max(1, d - wa);
+    const int hi = min(nb, d - 1);
+    for (int y = lo + static_cast<int>(threadIdx.x); y <= hi;
+         y += blockDim.x) {
+      const int x = d - y;  // local; global x is xo + x
+      const int ca = a[x - 1], cb = b[y - 1];
+      const int ss = TABLE ? subp[ca * Kb + cb]
+                           : (ca == cb ? match : mismatch);
+      const bool lastcol = MODES && xo + x == na, lastrow = MODES && y == nb;
+      const int m2 = p2[y - 1], ga2 = p2[LBp + y - 1],
+                gb2 = p2[2 * LBp + y - 1];  // (y-1, x-1)
+      const int mu = p1[y - 1], gau = p1[LBp + y - 1],
+                gbu = p1[2 * LBp + y - 1];  // (y-1, x)
+      const int ml = p1[y], gal = p1[LBp + y],
+                gbl = p1[2 * LBp + y];  // (y, x-1)
+      int M = max(add(max3(m2, ga2, gb2), ss), mn);
+      int Ga = max(max3(add(mu, gop), add(gau, ge), add(gbu, gop)), mn);
+      int Gb = max(max3(add(ml, gop), add(gal, gop), add(gbl, ge)), mn);
+      if (MODES) {
+        if (nmm && !(TABLE ? imp[ca * Kb + cb] != 0 : ca == cb)) M = mn;
+        if (neg && lastcol) Ga = max3(mu, gau, gbu);
+        if (nga && !lastcol) Ga = mn;
+        if (neg && lastrow) Gb = max3(ml, gal, gbl);
+        if (ngb && !lastrow) Gb = mn;
+      }
+      cur[y] = M;
+      cur[LBp + y] = Ga;
+      cur[2 * LBp + y] = Gb;
+      const bool diag_a = !nga || xo + x == 1;  // Ga at (y-1|y, x-1)
+      const bool diag_b = !ngb || y == 1;   // Gb at (y-1, x-1) or (y-1, x)
+      const bool up_a = !nga || lastcol;    // Ga at (y-1, x)
+      const bool left_b = !ngb || lastrow;  // Gb at (y, x-1)
+      const int a_open = (neg && lastcol) ? 0 : gop;
+      const int a_ext = (neg && lastcol) ? 0 : ge;
+      const int b_open = (neg && lastrow) ? 0 : gop;
+      const int b_ext = (neg && lastrow) ? 0 : ge;
+      const int dm = pick(diag_a && add(ga2, ss) == M,
+                          diag_b && add(gb2, ss) == M, add(m2, ss) == M);
+      const int dga = pick(up_a && add(gau, a_ext) == Ga,
+                           diag_b && add(gbu, a_open) == Ga,
+                           add(mu, a_open) == Ga);
+      const int dgb = pick(diag_a && add(gal, b_open) == Gb,
+                           left_b && add(gbl, b_ext) == Gb,
+                           add(ml, b_open) == Gb);
+      dj[static_cast<size_t>(d - 2) * LBp + y] =
+          static_cast<uint8_t>(dm | (dga << 2) | (dgb << 4));
+      if (MBYTES)
+        mj[static_cast<size_t>(d - 2) * LBp + y] = static_cast<MT>(M);
+      if (SW) {
+        best = max(best, M);
+      } else if (y == nb && xo + x == na) {
+        corner[3 * j] = M;
+        corner[3 * j + 1] = Ga;
+        corner[3 * j + 2] = Gb;
+        scores[j] = max3(M, Ga, Gb);
+      }
+      if (x == cr.CA) {
+        bout[y] = M;
+        bout[LBp + y] = Ga;
+        bout[2 * LBp + y] = Gb;
+      }
+    }
+    __syncthreads();
+  }
+  if (SW) {
+    // every thread of the block reaches here; blocks are whole warps
+    best = __reduce_max_sync(0xffffffffu, best);
+    if ((threadIdx.x & 31) == 0 && best > 0) atomicMax(scores + j, best);
+  }
+}
+
+// One launch of a fill kernel.  Above 48 KB a block must opt in; past the
+// 227 KB limit the attribute call fails and the launch is not made (the
+// wrapper keeps the sum of diagonals and table under it).
+template <typename... P, typename... A>
+int start(void (*kernel)(P...), size_t smem, int B, int LB, void* stream,
+          A... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,50 +474,81 @@ int launch(const void* ac, const void* bc, const void* na, const void* nb,
     if (e != cudaSuccess) return e;
   }
   kernel<<<B, fill_threads(LB), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(ac), static_cast<const uint8_t*>(bc),
-      static_cast<const int*>(na), static_cast<const int*>(nb),
-      static_cast<const int*>(scal), static_cast<const int*>(sub),
-      static_cast<const int*>(im), modes, Kb, sub_n, table_smem, LA, LB,
-      static_cast<int*>(scores),
-      static_cast<int*>(corner), static_cast<uint8_t*>(dirs), mout,
-      static_cast<int*>(scratch));
+      args...);
   return cudaGetLastError();
+}
+
+// fill_kernel, or fill_carry_kernel for one chunk (CARRY).
+template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES, bool CARRY>
+int launch(const void* ac, const void* bc, const void* na, const void* nb,
+           const void* scal, const void* sub, const void* im, int modes,
+           int Kb, int sub_n, int table_smem, int B, int LA, int LB,
+           void* scores, void* corner, void* dirs, void* mout, void* scratch,
+           void* stream, const Carry& cr) {
+  const size_t smem =
+      (scratch ? 0 : static_cast<size_t>(36) * (LB + 1)) +
+      (TABLE && table_smem ? static_cast<size_t>(4) * sub_n * (im ? 2 : 1)
+                           : 0);
+  const auto ac_ = static_cast<const uint8_t*>(ac);
+  const auto bc_ = static_cast<const uint8_t*>(bc);
+  const auto na_ = static_cast<const int*>(na);
+  const auto nb_ = static_cast<const int*>(nb);
+  const auto scal_ = static_cast<const int*>(scal);
+  const auto sub_ = static_cast<const int*>(sub);
+  const auto im_ = static_cast<const int*>(im);
+  const auto scores_ = static_cast<int*>(scores);
+  const auto corner_ = static_cast<int*>(corner);
+  const auto dirs_ = static_cast<uint8_t*>(dirs);
+  const auto scratch_ = static_cast<int*>(scratch);
+  if constexpr (CARRY) {
+    static_assert(DIRS, "a carry fill emits codes");
+    return start(fill_carry_kernel<SW, TABLE, MBYTES, MODES>, smem, B, LB,
+                 stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
+                 sub_n, table_smem, LA, LB, scores_, corner_, dirs_, mout,
+                 scratch_, cr);
+  } else {
+    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES>, smem, B, LB,
+                 stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
+                 sub_n, table_smem, LA, LB, scores_, corner_, dirs_, mout,
+                 scratch_);
+  }
 }
 
 // The scoring mode and the flags are runtime choices of the wrapper: a
 // table or none, the flag word or 0.  `im` is passed on only under NMM.
-template <bool DIRS, bool SW, int MBYTES, bool MODES>
+template <bool DIRS, bool SW, int MBYTES, bool MODES, bool CARRY>
 int launch_table(const void* ac, const void* bc, const void* na,
                  const void* nb, const void* scal, const void* sub,
                  const void* im, int modes, int Kb, int sub_n,
                  int table_smem, int B, int LA, int LB, void* scores,
                  void* corner, void* dirs, void* mout, void* scratch,
-                 void* stream) {
+                 void* stream, const Carry& cr) {
   if (sub) {
-    return launch<DIRS, SW, true, MBYTES, MODES>(
+    return launch<DIRS, SW, true, MBYTES, MODES, CARRY>(
         ac, bc, na, nb, scal, sub, (modes & NMM) ? im : nullptr, modes, Kb,
         sub_n, table_smem, B, LA, LB, scores, corner, dirs, mout, scratch,
-        stream);
+        stream, cr);
   }
-  return launch<DIRS, SW, false, MBYTES, MODES>(
+  return launch<DIRS, SW, false, MBYTES, MODES, CARRY>(
       ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0, 0, B, LA, LB,
-      scores, corner, dirs, mout, scratch, stream);
+      scores, corner, dirs, mout, scratch, stream, cr);
 }
 
-template <bool DIRS, bool SW, int MBYTES>
+template <bool DIRS, bool SW, int MBYTES, bool CARRY = false>
 int launch_mode(const void* ac, const void* bc, const void* na,
                 const void* nb, const void* scal, const void* sub,
                 const void* im, int modes, int Kb, int sub_n, int table_smem,
                 int B, int LA, int LB, void* scores, void* corner,
-                void* dirs, void* mout, void* scratch, void* stream) {
+                void* dirs, void* mout, void* scratch, void* stream,
+                const Carry& cr = Carry{}) {
   if (modes) {
-    return launch_table<DIRS, SW, MBYTES, true>(
+    return launch_table<DIRS, SW, MBYTES, true, CARRY>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, corner, dirs, mout, scratch, stream);
+        LB, scores, corner, dirs, mout, scratch, stream, cr);
   }
-  return launch_table<DIRS, SW, MBYTES, false>(
+  return launch_table<DIRS, SW, MBYTES, false, CARRY>(
       ac, bc, na, nb, scal, sub, nullptr, 0, Kb, sub_n, table_smem, B, LA, LB,
-      scores, corner, dirs, mout, scratch, stream);
+      scores, corner, dirs, mout, scratch, stream, cr);
 }
 
 }  // namespace fill
@@ -334,3 +563,19 @@ int launch_mode(const void* ac, const void* bc, const void* na,
                       int table_smem, int B, int LA, int LB, void* scores,   \
                       void* corner, void* dirs, void* mout, int m16,         \
                       void* scratch, void* stream)
+
+// The two carry entry points (one chunk of a long pair) add: bin, bout,
+// x_off, CA, and the pair strides of the code and M slabs (ops/build.py).
+#define CARRY_ENTRY(name)                                                    \
+  extern "C" int name(const void* ac, const void* bc, const void* na,       \
+                      const void* nb, const void* scal, const void* sub,     \
+                      const void* im, int modes, int Kb, int sub_n,          \
+                      int table_smem, int B, int LA, int LB, void* scores,   \
+                      void* corner, void* dirs, void* mout, int m16,         \
+                      void* scratch, void* stream, const void* bin,          \
+                      void* bout, int x_off, int CA, long long dstride,      \
+                      long long mstride)
+
+#define CARRY_ARGS                                                           \
+  fill::Carry { static_cast<const int*>(bin), static_cast<int*>(bout),      \
+                x_off, CA, dstride, mstride }

@@ -14,6 +14,12 @@
 // Bound on the card: the code stores, one byte per cell of the padded
 // layout's valid band, plus the barrier per diagonal.  Cells outside the
 // valid band are never written; the walk never reads them.
+//
+// nw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
+// fill_common.cuh; replaces the chunked pallas_dp.py:_dirs_kernel that
+// fill_dirs_long drives): the boundary column comes in as bin and the
+// chunk's last column goes out as bout, the codes land in the chunk's slab,
+// and the corner is written by the chunk that holds x = na.
 
 #include "fill_common.cuh"
 
@@ -21,4 +27,10 @@ FILL_ENTRY(nw_dirs_launch) {
   return fill::launch_mode<true, false, 0>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, corner, dirs, nullptr, scratch, stream);
+}
+
+CARRY_ENTRY(nw_dirs_carry_launch) {
+  return fill::launch_mode<true, false, 0, true>(
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, corner, dirs, nullptr, scratch, stream, CARRY_ARGS);
 }

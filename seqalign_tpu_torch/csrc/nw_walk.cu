@@ -4,7 +4,8 @@
 // behind nw_walk_device).  The start matrix is picked from the corner
 // with preference GAP_A >= GAP_B >= MATCH (needleman_wunsch.c:53-66); each
 // step reads one code byte in place from the skewed dirs tensor, records
-// the matrix walked and moves to the predecessor it names.  Like the scan,
+// the matrix walked and moves to the predecessor it names.  The codes are
+// one plane or a long pair's chunk slabs (slab.cuh).  Like the scan,
 // a DIR_FAIL code is not checked here: it shows as a 3 in the next step
 // of the op trace, and the host raises on it.
 //
@@ -16,6 +17,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "slab.cuh"
+
 namespace {
 
 enum { MATCH = 0, GAP_A = 1, GAP_B = 2 };
@@ -23,8 +26,9 @@ enum { MATCH = 0, GAP_A = 1, GAP_B = 2 };
 __global__ void nw_walk_kernel(const uint8_t* __restrict__ dirs,
                                const int* __restrict__ corner,
                                const int* __restrict__ na_,
-                               const int* __restrict__ nb_, int B, int D,
-                               int LBp, int cap, int8_t* __restrict__ ops,
+                               const int* __restrict__ nb_, int B,
+                               slab::Geometry g, int cap,
+                               int8_t* __restrict__ ops,
                                int* __restrict__ score) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= B) return;
@@ -39,13 +43,13 @@ __global__ void nw_walk_kernel(const uint8_t* __restrict__ dirs,
     s = ga;
   }
   score[j] = s;
-  int X = min(na_[j], D - LBp + 2);  // D - LBp + 2 == LA
-  int Y = min(nb_[j], LBp - 1);
-  const uint8_t* dj = dirs + static_cast<size_t>(j) * D * LBp;
+  int X = min(na_[j], g.nch * g.CA);
+  int Y = min(nb_[j], g.LBp - 1);
+  const uint8_t* dj = dirs + j * g.pair_bytes();
   int8_t* oj = ops + static_cast<size_t>(j) * cap;
   int step = 0;
   for (; step < cap && X > 0 && Y > 0; ++step) {
-    const int code = dj[static_cast<size_t>(X + Y - 2) * LBp + Y];
+    const int code = dj[g.at(X, Y)];
     oj[step] = static_cast<int8_t>(curr);
     const int nxt = (code >> (2 * curr)) & 3;
     if (curr != GAP_A) --X;
@@ -57,15 +61,18 @@ __global__ void nw_walk_kernel(const uint8_t* __restrict__ dirs,
 
 }  // namespace
 
+// dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, stream: dirs
+// holds nch slabs of Dc rows a pair (one slab: Dc = LA + LB - 1)
 extern "C" int nw_walk_launch(const void* dirs, const void* corner,
-                              const void* na, const void* nb, int B, int D,
-                              int LBp, int cap, void* ops, void* score,
-                              void* stream) {
+                              const void* na, const void* nb, int B, int nch,
+                              int Dc, int LBp, int cap, void* ops,
+                              void* score, void* stream) {
+  const slab::Geometry g{Dc - LBp + 2, Dc, LBp, nch};
   const int threads = 128;
   nw_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), static_cast<const int*>(corner),
-      static_cast<const int*>(na), static_cast<const int*>(nb), B, D, LBp,
-      cap, static_cast<int8_t*>(ops), static_cast<int*>(score));
+      static_cast<const int*>(na), static_cast<const int*>(nb), B, g, cap,
+      static_cast<int8_t*>(ops), static_cast<int*>(score));
   return cudaGetLastError();
 }

@@ -14,6 +14,11 @@
 //
 // Bound on the card: the stores, 3 or 5 bytes per valid cell (the codes
 // coalesce per warp, the M values too), and the barrier per diagonal.
+//
+// sw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
+// fill_common.cuh): codes into the chunk's slab, M into a plane of the
+// chunk alone (harvested and freed before the next chunk), the boundary
+// column carried through bin / bout, the pair's best raised in place.
 
 #include "fill_common.cuh"
 
@@ -26,4 +31,15 @@ FILL_ENTRY(sw_dirs_launch) {
   return fill::launch_mode<true, true, 4>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, nullptr, dirs, mout, scratch, stream);
+}
+
+CARRY_ENTRY(sw_dirs_carry_launch) {
+  if (m16) {
+    return fill::launch_mode<true, true, 2, true>(
+        ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+        LB, scores, nullptr, dirs, mout, scratch, stream, CARRY_ARGS);
+  }
+  return fill::launch_mode<true, true, 4, true>(
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, nullptr, dirs, mout, scratch, stream, CARRY_ARGS);
 }

@@ -4,7 +4,8 @@
 // SwDeviceWalker).  Walk w starts in pair jw[w] at cell (y0, x0) with
 // score s0 and steps back until its score reaches 0 (traceback.py:
 // 624-650): each step reads one code byte in place from the skewed dirs
-// tensor, records the matrix walked, and subtracts the step's penalty,
+// tensor (one plane, or a long pair's chunk slabs: slab.cuh), records the
+// matrix walked, and subtracts the step's penalty,
 // the equality score or sub[a, b] for a MATCH step (the codes of the fill
 // are read in place too), gap_extend for a gap that goes on and
 // gap_open + gap_extend for one that opens, and nothing under free end
@@ -24,6 +25,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "slab.cuh"
+
 namespace {
 
 enum { MATCH = 0, GAP_A = 1, GAP_B = 2 };
@@ -39,7 +42,7 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
                                const int* __restrict__ x0,
                                const int* __restrict__ y0,
                                const int* __restrict__ s0, int W, int B,
-                               int LA, int LB, int cap,
+                               int LA, int LB, slab::Geometry g, int cap,
                                int8_t* __restrict__ ops) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
@@ -47,18 +50,17 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
   const int j = jw[w];
   int step = 0;
   if (j >= 0 && j < B) {
-    const int LBp = LB + 1;
     const int match = scal[0], mismatch = scal[1], ge = scal[3];
     const int gop = static_cast<int>(static_cast<unsigned>(scal[2]) +
                                      static_cast<unsigned>(ge));
-    const uint8_t* dj = dirs + static_cast<size_t>(j) * (LA + LB - 1) * LBp;
+    const uint8_t* dj = dirs + j * g.pair_bytes();
     const uint8_t* aj = ac + static_cast<size_t>(j) * LA;
     const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
     const int naj = na[j], nbj = nb[j];
     int X = min(x0[w], LA), Y = min(y0[w], LB), cs = s0[w], curr = MATCH;
     for (; step < cap && cs > 0; ++step) {
       const int Xc = max(X, 1), Yc = max(Y, 1);
-      const int code = dj[static_cast<size_t>(Xc + Yc - 2) * LBp + Yc];
+      const int code = dj[g.at(Xc, Yc)];
       const int nxt = (code >> (2 * curr)) & 3;
       int pen;
       if (curr == MATCH) {
@@ -83,15 +85,17 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
 }  // namespace
 
 // dirs, ac, bc, scal, sub (or null), Kb, na, nb, neg, jw, x0, y0, s0, W, B,
-// LA, LB, cap, ops, stream
+// LA, LB, nch, Dc, cap, ops, stream: dirs holds nch slabs of Dc rows a
+// pair (one slab: Dc = LA + LB - 1)
 extern "C" int sw_walk_launch(const void* dirs, const void* ac,
                               const void* bc, const void* scal,
                               const void* sub, int Kb, const void* na,
                               const void* nb, int neg, const void* jw,
                               const void* x0, const void* y0, const void* s0,
-                              int W, int B, int LA, int LB, int cap,
-                              void* ops, void* stream) {
+                              int W, int B, int LA, int LB, int nch, int Dc,
+                              int cap, void* ops, void* stream) {
   const int threads = 128;
+  const slab::Geometry g{Dc - LB + 1, Dc, LB + 1, nch};
   sw_walk_kernel<<<(W + threads - 1) / threads, threads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), static_cast<const uint8_t*>(ac),
@@ -99,7 +103,7 @@ extern "C" int sw_walk_launch(const void* dirs, const void* ac,
       static_cast<const int*>(sub), Kb, static_cast<const int*>(na),
       static_cast<const int*>(nb), neg, static_cast<const int*>(jw),
       static_cast<const int*>(x0), static_cast<const int*>(y0),
-      static_cast<const int*>(s0), W, B, LA, LB, cap,
+      static_cast<const int*>(s0), W, B, LA, LB, g, cap,
       static_cast<int8_t*>(ops));
   return cudaGetLastError();
 }

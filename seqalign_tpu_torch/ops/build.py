@@ -32,22 +32,27 @@ _I = ctypes.c_int
 # scores, corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
 _FILL = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
          _P, _I, _P, _P)
+# the fill's, then bin, bout, x_off, CA, code and M pair strides
+_CARRY = _FILL + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong)
 _SIGNATURES = {
     "nw_scores_launch": _FILL,
     "nw_dirs_launch": _FILL,
     "sw_scores_launch": _FILL,
     "sw_dirs_launch": _FILL,
-    # dirs, corner, na, nb, B, D, LB+1, cap, ops, score, stream
-    "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "nw_dirs_carry_launch": _CARRY,
+    "sw_dirs_carry_launch": _CARRY,
+    # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, stream
+    "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, jw, x0, y0, s0, W, B, LA,
-    # LB, cap, ops, stream
+    # LB, nch, Dc, cap, ops, stream
     "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P, _P),
+                       _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, cand_flat, cand_score, lo,
-    # hi, B, LA, LB, k, MW, gmask, use_smem, hit_flat, hit_score, nhits,
-    # stream
+    # hi, B, LA, LB, nch, Dc, k, MW, gmask, use_smem, hit_flat, hit_score,
+    # nhits, flat64, stream
     "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P),
+                       _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
+                       _P),
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the fill kernels, global (NW) and local (SW).
 
 A transcription of the JAX package's ``dp.dp_fill`` (seqalign_tpu/ops/
-dp.py:126-429) in its unchunked case, every recurrence mode: a Python loop
+dp.py:126-429), unchunked and chunked, every recurrence mode: a Python loop
 over anti-diagonals ``d = x + y`` whose per-step work is a (B, LB+1)
 vector update, lane = y.  Arithmetic is native int32 and wraps exactly
 like the reference's fill.  Two scoring modes: equality on folded codes
@@ -15,7 +15,16 @@ column's GAP_A and the last row's GAP_B without penalty or floor, the
 no-gaps flags pin GAP_A / GAP_B to the floor off the last column / row and
 guard their direction codes, and no-mismatches pins M to the floor where
 the pair is not an is-match.  ``sw_sorted_candidates`` harvests SW hit
-candidates from an M plane where it lies and puts them in the hit order.
+candidates from an M plane (or one chunk's) where it lies and puts them in
+the hit order, and ``merge_candidates`` joins the chunks' harvests.
+
+The chunked fill (``bin`` given) is one chunk of a long pair: the columns
+x_off+1 .. x_off+CA, with the column x = x_off carried in and the column
+x = x_off+CA carried out, codes and M in the chunk-local skew (cell (y, x)
+at row x - x_off + y - 2).  ``nw_fill_dirs_carry_plain`` /
+``sw_fill_dirs_carry_plain`` are the plain versions of the carry kernels,
+and ``fill_chunked`` drives them over a whole pair as the JAX package's
+``dp.fill_chunked`` drives ``dp_fill``.
 
 These are the reference the CUDA kernels are held against: the wrappers in
 ``ops/kernels.py`` call them for CPU tensors, and the tests and
@@ -32,10 +41,19 @@ from .pack import (DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, NGA, NGB, NMM, NSG,
 
 
 def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
-          emit_dirs: bool = False, m_dtype=None):
-    """Returns (dirs, corner, best, mout); dirs/mout are None unless asked
-    for (``m_dtype`` set emits M)."""
+          emit_dirs: bool = False, m_dtype=None, x_off: int = 0, bin=None):
+    """Returns (dirs, corner, best, mout, bout); dirs/mout are None unless
+    asked for (``m_dtype`` set emits M), bout unless chunked.
+
+    Chunked (``bin`` a (B, 3, LB+1) int32 column M/Ga/Gb at x = x_off):
+    ``ac`` holds the columns x_off+1 .. x_off+LA, column 0 of the chunk is
+    ``bin`` (lanes y >= 1) and row 0 the global row-0 cells, computed, not
+    carried; ``bout`` is the column x = x_off+LA after the fill (lanes
+    y >= 1; lane 0 stays 0), the corner is taken only by the chunk that
+    holds x = na (an empty seq_a's by the chunk at x_off = 0), and the
+    last-column rules and the no-gaps guards see global x."""
     B, LA = ac.shape
+    chunked = bin is not None
     LB = bc.shape[1]
     LBp = LB + 1
     dev = ac.device
@@ -64,29 +82,45 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     mnvec = mn.expand(B, LBp)
 
     def inject(d, Mv, Gav, Gbv):
-        # boundary cells (0, d) and (d, 0) (alignment.c:51-81): all zero
-        # for SW, gap runs beside the sentinel for NW
+        # boundary cells (0, x_off + d) and (d, 0) (alignment.c:51-81): all
+        # zero for SW, gap runs beside the sentinel for NW; a chunk's
+        # column 0 is the carried one
         at0 = yv == 0
         atd = yv == d
+        if chunked:
+            Mv, Gav, Gbv = (torch.where(atd, bin[:, k], v)
+                            for k, v in enumerate((Mv, Gav, Gbv)))
         if is_sw:
-            edge = at0 | atd
+            edge = at0 if chunked else at0 | atd
             return tuple(torch.where(edge, mn, v) for v in (Mv, Gav, Gbv))
         # free start gaps: the runs cost nothing (alignment.c:60-63)
-        run = zero if nsg else gap_open + d * gap_extend
-        Mv = torch.where(at0 | atd, mn, Mv)
-        Gav = torch.where(at0, mn, torch.where(atd, run, Gav))
-        Gbv = torch.where(at0, run, torch.where(atd, mn, Gbv))
+        run0 = zero if nsg else gap_open + (x_off + d) * gap_extend
+        Mv = torch.where(at0, mn, Mv)
+        Gav = torch.where(at0, mn, Gav)
+        Gbv = torch.where(at0, run0, Gbv)
+        if not chunked:
+            run = zero if nsg else gap_open + d * gap_extend
+            Mv = torch.where(atd, mn, Mv)
+            Gav = torch.where(atd, run, Gav)
+            Gbv = torch.where(atd, mn, Gbv)
         return Mv, Gav, Gbv
 
     nb_idx = nb.long()[:, None]
+    # the chunk that takes the corner
+    owns = (((na > x_off) & (na <= x_off + LA)) | ((na == 0) & (x_off == 0))
+            if chunked else torch.ones_like(na, dtype=torch.bool))
 
     def corner_at(d, Mv, Gav, Gbv, corner):
-        hit = ((na + nb) == d)[:, None]
+        hit = (((na + nb) == d + x_off) & owns)[:, None]
         vals = torch.cat([v.gather(1, nb_idx) for v in (Mv, Gav, Gbv)], 1)
         return torch.where(hit, vals, corner)
 
-    m0 = torch.where(yv == 0, zero, mn).expand(B, LBp)
-    pm2 = pga2 = pgb2 = m0
+    if chunked and x_off > 0:  # diagonal 0 is the row-0 cell (0, x_off)
+        run0 = zero if (is_sw or nsg) else gap_open + x_off * gap_extend
+        pm2, pga2, pgb2 = (torch.where(yv == 0, v, mn).expand(B, LBp)
+                           for v in (mn, mn, run0))
+    else:
+        pm2 = pga2 = pgb2 = torch.where(yv == 0, zero, mn).expand(B, LBp)
     pm1, pga1, pgb1 = inject(1, mnvec, mnvec, mnvec)
     corner = torch.zeros((B, 3), dtype=i32, device=dev)
     best = torch.zeros(B, dtype=i32, device=dev)
@@ -98,6 +132,8 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
             if emit_dirs else None)
     mout = (torch.empty(shape, dtype=m_dtype, device=dev)
             if m_dtype is not None else None)
+    bout = torch.full((B, 3, LBp), 0, dtype=i32, device=dev) \
+        if chunked else None
 
     def sh(v):  # the value at lane y-1
         return torch.cat([mncol, v[:, :-1]], 1)
@@ -121,7 +157,8 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         m2s, ga2s, gb2s = sh(pm2), sh(pga2), sh(pgb2)
         m1s, ga1s, gb1s = sh(pm1), sh(pga1), sh(pgb1)
         xv = d - yv
-        lastcol = xv == nax  # x == na
+        gx = xv + x_off  # global x
+        lastcol = gx == nax  # x == na
         lastrow = yv == nbx  # y == nb
         # MATCH (alignment.c:89-119)
         Mv = torch.maximum(max3(m2s, ga2s, gb2s) + ss, mn)
@@ -149,7 +186,7 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
             # a no-gaps matrix is a predecessor only at its boundary
             # coordinates (alignment.c:312-314, 319-321); the guards take
             # the predecessor's cell
-            diag_a = ((xv == 1) | (xv - 1 == nax)) if nga else True
+            diag_a = ((gx == 1) | (gx - 1 == nax)) if nga else True
             diag_b = ((yv == 1) | (yv - 1 == nbx)) if ngb else True
             dm = pick(diag_a & (ga2s + ss == Mv), diag_b & (gb2s + ss == Mv),
                       m2s + ss == Mv)
@@ -158,7 +195,7 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
             a_open = torch.where(lastcol, zero, gop) if neg else gop
             a_ext = (torch.where(lastcol, zero, gap_extend) if neg
                      else gap_extend)
-            up_a = ((xv == 0) | lastcol) if nga else True
+            up_a = ((gx == 0) | lastcol) if nga else True
             dga = pick(up_a & (ga1s + a_ext == ga_v),
                        diag_b & (gb1s + a_open == ga_v),
                        m1s + a_open == ga_v)
@@ -174,13 +211,17 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
             mout[:, d - 2] = Mv.to(m_dtype)
         Mv, ga_v, gb_v = inject(d, Mv, ga_v, gb_v)
         if is_sw:
-            valid = (yv >= 1) & (yv <= nbx) & (xv >= 1) & (xv <= nax)
+            valid = ((yv >= 1) & (yv <= nbx) & (xv >= 1) & (xv <= LA)
+                     & (gx <= nax))
             best = torch.maximum(best, torch.where(valid, Mv, mn).amax(1))
         else:
             corner = corner_at(d, Mv, ga_v, gb_v, corner)
+        if chunked:  # the chunk's last column goes out, but for row 0
+            last = ((xv == LA) & (yv >= 1))[:, None, :]
+            bout = torch.where(last, torch.stack((Mv, ga_v, gb_v), 1), bout)
         pm2, pga2, pgb2 = pm1, pga1, pgb1
         pm1, pga1, pgb1 = Mv, ga_v, gb_v
-    return dirs, corner, best, mout
+    return dirs, corner, best, mout, bout
 
 
 def nw_scores_plain(ac, bc, na, nb, params: KernelParams):
@@ -188,7 +229,7 @@ def nw_scores_plain(ac, bc, na, nb, params: KernelParams):
     codes (folded bytes, or compact codes when ``params.sub`` is set),
     ``na``/``nb`` (B,) int32 true lengths.  Returns ``(scores (B,) int32,
     corner (B, 3) int32)``, corner = M/Ga/Gb at (nb, na)."""
-    _, corner, _, _ = _fill(ac, bc, na, nb, params)
+    corner = _fill(ac, bc, na, nb, params)[1]
     return corner.max(dim=1).values, corner
 
 
@@ -197,7 +238,7 @@ def nw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams):
     (B, LA+LB-1, LB+1) uint8 with cell (y, x) at ``[x+y-2, y]`` and code
     ``dm | dga << 2 | dgb << 4``.  Only cells 1 <= y <= nb, 1 <= x <= na
     are defined."""
-    dirs, corner, _, _ = _fill(ac, bc, na, nb, params, emit_dirs=True)
+    dirs, corner = _fill(ac, bc, na, nb, params, emit_dirs=True)[:2]
     return dirs, corner
 
 
@@ -214,13 +255,138 @@ def sw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams,
     ``nw_fill_dirs_plain``; M is int16 when ``m16`` (callers check
     ``pack.m16_safe``), else int32.  Only cells 1 <= y <= nb,
     1 <= x <= na are defined."""
-    dirs, _, _, mout = _fill(ac, bc, na, nb, params, is_sw=True,
-                             emit_dirs=True,
-                             m_dtype=torch.int16 if m16 else torch.int32)
+    dirs, _, _, mout, _ = _fill(ac, bc, na, nb, params, is_sw=True,
+                                emit_dirs=True,
+                                m_dtype=torch.int16 if m16 else torch.int32)
     return dirs, mout
 
 
-def sw_sorted_candidates(mmat, na, nb, min_scores):
+def _chunk_columns(ac, x_off: int, ca: int):
+    """The columns x_off+1 .. x_off+ca of ``ac``, zero-padded to ``ca``."""
+    cols = ac[:, x_off:x_off + ca]
+    if cols.shape[1] < ca:
+        cols = torch.nn.functional.pad(cols, (0, ca - cols.shape[1]))
+    return cols
+
+
+def _carry(ac, bc, na, nb, params, x_off, bin, bout, dirs, *, is_sw,
+           m_dtype=None):
+    """One chunk by the plain fill, its outputs written where the carry
+    kernel writes them: the codes of the pairs that reach the chunk into
+    ``dirs`` (B, CA+LB-1, LB+1), ``bout`` for the pairs that reach its
+    last column.  Returns the fill's (corner, best, mout)."""
+    ca = dirs.shape[1] - dirs.shape[2] + 2
+    d, corner, best, mout, bo = _fill(
+        _chunk_columns(ac, x_off, ca), bc, na, nb, params, is_sw=is_sw,
+        emit_dirs=True, m_dtype=m_dtype, x_off=x_off, bin=bin)
+    na = na.long()
+    reach = na > x_off
+    dirs[reach] = d[reach]
+    full = na >= x_off + ca
+    bout[full, :, 1:] = bo[full, :, 1:]
+    return corner, best, mout
+
+
+def nw_fill_dirs_carry_plain(ac, bc, na, nb, params: KernelParams,
+                             x_off: int, bin, bout, dirs, corner):
+    """One chunk of a long NW pair, in place (the carry kernel's
+    contract): ``ac`` (B, LA) and ``bc`` (B, LB) the whole pairs' codes,
+    ``bin`` (B, 3, LB+1) int32 the column x = x_off (M, Ga, Gb by lane);
+    fills the columns x_off+1 .. x_off+CA, with CA = D_c - LB + 1 from
+    ``dirs`` (B, D_c, LB+1) uint8, which gets the chunk's codes (cell
+    (y, x) at row x - x_off + y - 2).  ``bout`` gets the column x_off+CA
+    (lanes 1 .. nb) of the pairs that reach it, ``corner`` (B, 3) the
+    corner of the pairs whose x = na is in the chunk.  A pair with
+    na <= x_off is left as it was."""
+    c, _, _ = _carry(ac, bc, na, nb, params, x_off, bin, bout, dirs,
+                     is_sw=False)
+    ca = dirs.shape[1] - dirs.shape[2] + 2
+    na = na.long()
+    owns = ((na > x_off) & (na <= x_off + ca)) | ((na == 0) & (x_off == 0))
+    corner[owns] = c[owns]
+
+
+def sw_fill_dirs_carry_plain(ac, bc, na, nb, params: KernelParams,
+                             x_off: int, bin, bout, dirs, best,
+                             m16: bool = False):
+    """One chunk of a long SW pair, in place (inputs and ``dirs``/``bout``
+    as ``nw_fill_dirs_carry_plain``): ``best`` (B,) int32 is raised to the
+    chunk's best M.  Returns the chunk's M (B, D_c, LB+1), int16 when
+    ``m16``, else int32, in the layout of ``dirs``."""
+    _, b, mout = _carry(ac, bc, na, nb, params, x_off, bin, bout, dirs,
+                        is_sw=True,
+                        m_dtype=torch.int16 if m16 else torch.int32)
+    torch.maximum(best, b, out=best)
+    return mout
+
+
+def boundary_column(params: KernelParams, B: int, LB: int, *, is_sw: bool,
+                    device=None):
+    """The column x = 0 that enters a long pair's first chunk, (B, 3,
+    LB+1) int32 (alignment.c:51-81): all zero for SW; for NW (0, 0, 0) at
+    y = 0 (a lane no chunk reads), then M = Gb = the floor and Ga =
+    gap_open + y * gap_extend (0 under free start gaps)."""
+    dev = params.scal.device if device is None else device
+    col = torch.zeros((B, 3, LB + 1), dtype=torch.int32, device=dev)
+    if is_sw:
+        return col
+    go, ge, mn = (int(v) for v in params.scal[[2, 3, 4]].tolist())
+    y = torch.arange(1, LB + 1, dtype=torch.int64, device=dev)
+    run = torch.zeros_like(y) if params.modes & NSG else go + y * ge
+    col[:, 0, 1:] = mn
+    col[:, 1, 1:] = run.to(torch.int32)
+    col[:, 2, 1:] = mn
+    return col
+
+
+def fill_chunked(ac, bc, na, nb, params: KernelParams, *, is_sw: bool,
+                 chunk: int, m16: bool = False, extract_min=None):
+    """A whole long-pair fill by the plain carry, chunk by chunk: the
+    port's counterpart of the JAX package's ``dp.fill_chunked``
+    (seqalign_tpu/ops/dp.py:665-766), with the same returns, on packed
+    tensors.  ``ac`` (B, LA), ``bc`` (B, LB), ``na``/``nb`` (B,) int32.
+    Returns ``(corner (B, 3), best (B,), dirs_chunks, m_chunks, na, nb)``:
+    ``dirs_chunks`` / ``m_chunks`` the chunks' (B, chunk+LB-1, LB+1) slabs
+    (M only for SW; int16 when ``m16``).  With ``extract_min`` the M slabs
+    are harvested chunk by chunk (``sw_sorted_candidates``) and
+    ``m_chunks`` is instead each pair's ``(flats int64, scores int32)``
+    host arrays, in the hit order."""
+    B, LA = ac.shape
+    LB = bc.shape[1]
+    nch = max(1, -(-LA // chunk))
+    dev = ac.device
+    bin = boundary_column(params, B, LB, is_sw=is_sw, device=dev)
+    bout = torch.empty_like(bin)
+    corner = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    na_h, nb_h = na.cpu().numpy(), nb.cpu().numpy()
+    dirs_chunks, m_chunks, parts = [], [], []
+    for c in range(nch):
+        dirs = torch.zeros((B, chunk + LB - 1, LB + 1), dtype=torch.uint8,
+                           device=dev)
+        if is_sw:
+            m = sw_fill_dirs_carry_plain(ac, bc, na, nb, params, c * chunk,
+                                         bin, bout, dirs, best, m16)
+            if extract_min is None:
+                m_chunks.append(m)
+            else:
+                parts.append(sw_sorted_candidates(m, na_h, nb_h, extract_min,
+                                                  x_off=c * chunk))
+        else:
+            nw_fill_dirs_carry_plain(ac, bc, na, nb, params, c * chunk, bin,
+                                     bout, dirs, corner)
+        dirs_chunks.append(dirs)
+        bin, bout = bout, bin
+    if extract_min is not None:
+        flat, score, off = merge_candidates(parts, B)
+        flat, score, off = (flat.cpu().numpy().astype(np.int64),
+                            score.cpu().numpy(), off.tolist())
+        m_chunks = [(flat[s:e], score[s:e])
+                    for s, e in zip(off[:-1], off[1:])]
+    return corner, best, dirs_chunks, m_chunks, na, nb
+
+
+def sw_sorted_candidates(mmat, na, nb, min_scores, x_off: int = 0):
     """SW hit candidates of a skewed M batch (B, D, LB+1), harvested and
     ordered where M lies (dp.sw_extract_candidates plus the hit iterator's
     sort): the cells 1 <= y <= nb, 1 <= x <= na with M >= max(min_score,
@@ -228,10 +394,16 @@ def sw_sorted_candidates(mmat, na, nb, min_scores):
     then flat ascending (smith_waterman.c:71-86).  Plain tensor ops: a
     mask, ``nonzero`` and two stable sorts, within the pairs and then by
     pair.  ``na``, ``nb`` and ``min_scores`` are (B,) host arrays;
-    ``min_scores`` may be a scalar.  Returns, on M's device, ``(flat int32
-    (N,), score int32 (N,), offsets int64 (B+1,))``: pair j's candidates
-    are ``[offsets[j], offsets[j+1])``, flat = y * (na+1) + x."""
+    ``min_scores`` may be a scalar.  A chunk's M slab takes its ``x_off``:
+    its width is CA = D - LB + 1, its cell (y, x) sits at row
+    x - x_off + y - 2, and only its own columns x_off+1 .. x_off+CA pass
+    (the skew pad past them holds no cell of the chunk).  Returns, on M's
+    device, ``(flat (N,), score int32 (N,), offsets int64 (B+1,))``: pair
+    j's candidates are ``[offsets[j], offsets[j+1])``, flat = y * (na+1) + x
+    with global x, int32 when every pair has (na+1)(nb+1) < 2^31 cells, else
+    int64 so that a long pair's flats do not wrap."""
     B, D, LBp = mmat.shape
+    ca = D - LBp + 2
     dev = mmat.device
     thr = np.maximum(np.broadcast_to(np.asarray(min_scores, np.int64), (B,)),
                      1)
@@ -245,14 +417,16 @@ def sw_sorted_candidates(mmat, na, nb, min_scores):
     m = mmat >= col(np.minimum(thr, np.iinfo(np.int32).max))[:, None, None]
     m &= (y >= 1) & (y <= nb_t[:, None, None])
     m &= r >= y - 1  # x >= 1
-    m &= r <= y - 2 + na_t[:, None, None]  # x <= na
+    # x <= min(CA, na - x_off), local
+    wa = (na_t - x_off).clamp(max=ca)
+    m &= r <= y - 2 + wa[:, None, None]
     idx = m.view(-1).nonzero()[:, 0]
     del m
     score = mmat.view(-1)[idx].to(torch.int32)
     pair, pos = idx.div(D * LBp, rounding_mode="floor"), idx % (D * LBp)
     del idx
     yy = pos % LBp
-    xx = pos.div(LBp, rounding_mode="floor") + 2 - yy
+    xx = pos.div(LBp, rounding_mode="floor") + 2 - yy  # local x
     del pos
     # (-score, x, y) within a pair is (-score, x, flat): one int64 key
     key = -score.long() * ((D + 2) * LBp) + xx * LBp + yy
@@ -260,17 +434,62 @@ def sw_sorted_candidates(mmat, na, nb, min_scores):
     del key
     order = order[torch.sort(pair[order], stable=True).indices]
     pair, xx, yy, score = pair[order], xx[order], yy[order], score[order]
-    flat = (yy * (na_t.long()[pair] + 1) + xx).to(torch.int32)
+    flat = yy * (na_t.long()[pair] + 1) + xx + x_off
+    if _flats_fit_int32(na, nb):
+        flat = flat.int()
     offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
     offsets[1:] = torch.bincount(pair, minlength=B).cumsum(0)
+    return flat, score, offsets
+
+
+def _flats_fit_int32(na, nb) -> bool:
+    """True when every pair's flats y * (na+1) + x fit in int32: (na+1) *
+    (nb+1) < 2^31 for each (host arrays)."""
+    na = np.asarray(na, np.int64)
+    nb = np.asarray(nb, np.int64)
+    return not len(na) or int(((na + 1) * (nb + 1)).max()) <= 2 ** 31 - 1
+
+
+def merge_candidates(parts, B: int):
+    """The candidates of a long pair's chunks, each ``(flat, score,
+    offsets)`` of :func:`sw_sorted_candidates` in chunk order, in one hit
+    order: every pair's by score descending, then x, then flat.  A chunk
+    holds smaller x than the chunks after it and is itself in that order,
+    so one stable sort on (pair, -score) of the chunks laid end to end
+    does it, on int32 keys when they fit.  The list ``parts`` is emptied
+    as the chunks are joined, so that each chunk's tensors go as soon as
+    they are copied.  Returns ``(flat int64, score int32, offsets int64
+    (B+1,))`` as :func:`sw_sorted_candidates` does."""
+    if len(parts) == 1:
+        return parts.pop()
+    dev = parts[0][0].device
+    counts = sum(off[1:] - off[:-1] for _, _, off in parts)
+    top = max(int(s.max()) if len(s) else 0 for _, s, _ in parts)
+    span = top + 1  # scores are 1 .. top
+    pair_ids = torch.arange(B, device=dev)
+    key = torch.cat([torch.repeat_interleave(pair_ids, off[1:] - off[:-1])
+                     * span + (top - s.long()) for _, s, off in parts])
+    if B * span < 2 ** 31:
+        key = key.int()
+    order = torch.sort(key, stable=True).indices
+    del key
+    flats, scores = [p[0] for p in parts], [p[1] for p in parts]
+    parts.clear()
+    flat = torch.cat(flats)
+    del flats
+    flat = flat[order]
+    score = torch.cat(scores)[order]
+    del scores, order
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = counts.cumsum(0)
     return flat, score, offsets
 
 
 def sw_extract_candidates(mmat, na, nb, min_scores):
     """:func:`sw_sorted_candidates` on the host, as the JAX package's
     ``dp.sw_extract_candidates`` returns them: a list of per-pair ``(flats
-    int64, scores int32)`` numpy arrays, flats composed in int64 (here
-    already in the hit iterator's order)."""
+    int64, scores int32)`` numpy arrays (here already in the hit
+    iterator's order)."""
     flat, score, offsets = sw_sorted_candidates(mmat, na, nb, min_scores)
     flat = flat.cpu().numpy().astype(np.int64)
     score = score.cpu().numpy()

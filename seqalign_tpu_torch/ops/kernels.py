@@ -1,8 +1,10 @@
 """Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
 ``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
 substitution-table scoring, the latter when ``params.sub`` is set; the
-scoring flags of ``params.modes``), the
-walks ``nw_walk`` and ``sw_walk``, and the SW hit loop ``sw_hits``.
+scoring flags of ``params.modes``), the long-pair chunk fills
+``nw_fill_dirs_carry`` and ``sw_fill_dirs_carry``, the walks ``nw_walk``
+and ``sw_walk``, and the SW hit loop ``sw_hits`` (the walks and the hit
+loop over a code plane or a long pair's chunk slabs).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -22,16 +24,19 @@ import ctypes
 import torch
 
 from .build import library
-from .dp import (nw_fill_dirs_plain, nw_scores_plain, sw_fill_dirs_plain,
-                 sw_scores_plain)
+from .dp import (nw_fill_dirs_carry_plain, nw_fill_dirs_plain,
+                 nw_scores_plain, sw_fill_dirs_carry_plain,
+                 sw_fill_dirs_plain, sw_scores_plain)
 from .pack import NEG, NMM, KernelParams
-from .traceback import nw_walk_plain, sw_hits_plain, sw_walk_plain, walk_cap
+from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
+                        sw_walk_plain, walk_cap)
 
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
 
-_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_walk": 0, "sw_scores": 0,
-           "sw_fill_dirs": 0, "sw_walk": 0, "sw_hits": 0}
+_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_fill_dirs_carry": 0,
+           "nw_walk": 0, "sw_scores": 0, "sw_fill_dirs": 0,
+           "sw_fill_dirs_carry": 0, "sw_walk": 0, "sw_hits": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -110,12 +115,13 @@ def _launched(name, lib, rc):
 
 
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
-          dirs=None, mout=None, m16=False):
+          dirs=None, mout=None, m16=False, carry=()):
     """Launch one of the fill kernels (csrc/fill_common.cuh).  The rolling
     diagonals (36 bytes per lane) take shared memory when they fit there,
     else a global scratch buffer; the table (4 bytes per entry, twice that
     with the is-match table of no_mismatches) takes the shared memory left,
-    else the read-only global path."""
+    else the read-only global path.  ``carry``: the extra arguments of a
+    carry entry."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
@@ -137,7 +143,8 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
         _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
         _ptr(im), params.modes, kb, sub_n, table_smem, B, LA, LB,
         _ptr(scores), _ptr(corner),
-        _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev))
+        _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev),
+        *carry)
     _launched(name, lib, rc)
 
 
@@ -201,15 +208,112 @@ def sw_fill_dirs(ac, bc, na, nb, params: KernelParams, m16: bool = False):
     return dirs, mout
 
 
+def _check_carry(ac, bc, na, nb, params, x_off, bin, bout, dirs):
+    """The checks of a carry launch: the fill's, then ``bin``/``bout``
+    (B, 3, LB+1) int32, ``dirs`` a (B, D_c, LB+1) uint8 slab whose rows and
+    lanes are contiguous (it may be one chunk of a (B, nch, D_c, LB+1)
+    tensor), and 0 <= x_off < LA.  Returns (B, LA, LB, CA)."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    dev = ac.device
+    _expect(bin, "bin", torch.int32, 3, dev)
+    _expect(bout, "bout", torch.int32, 3, dev)
+    if bin.shape != (B, 3, LB + 1) or bout.shape != bin.shape:
+        raise ValueError(f"bin and bout must be of shape {(B, 3, LB + 1)}")
+    if bin.data_ptr() == bout.data_ptr():
+        raise ValueError("bin and bout must be separate tensors")
+    if not isinstance(dirs, torch.Tensor) or dirs.dtype != torch.uint8 or \
+            dirs.dim() != 3 or dirs.device != dev:
+        raise ValueError(f"dirs must be a 3-d uint8 tensor on {dev}")
+    D, LBp = dirs.shape[1:]
+    if dirs.shape[0] != B or LBp != LB + 1 or D < LB + 1 or \
+            dirs.stride()[1:] != (LBp, 1):
+        raise ValueError("dirs must be a (B, CA+LB-1, LB+1) slab with "
+                         "contiguous rows")
+    if not 0 <= int(x_off) < LA:
+        raise ValueError(f"x_off {x_off} is outside [0, {LA})")
+    return B, LA, LB, D - LB + 1
+
+
+def _carry_args(x_off, bin, bout, dirs, ca, mstride):
+    return (_ptr(bin), _ptr(bout), int(x_off), ca,
+            ctypes.c_longlong(dirs.stride(0)), ctypes.c_longlong(mstride))
+
+
+def nw_fill_dirs_carry(ac, bc, na, nb, params: KernelParams, x_off: int,
+                       bin, bout, dirs, corner):
+    """One chunk of a long NW pair's fill, in place (see
+    ``nw_fill_dirs_carry_plain``): the columns x_off+1 .. x_off+CA, CA from
+    the ``dirs`` slab; ``bin`` the column x = x_off, ``bout`` gets the
+    column x_off+CA, ``corner`` (B, 3) int32 the corner of the pairs that
+    end in this chunk.  The scores the kernel also writes go to a scratch
+    tensor."""
+    B, LA, LB, ca = _check_carry(ac, bc, na, nb, params, x_off, bin, bout,
+                                 dirs)
+    _expect(corner, "corner", torch.int32, 2, ac.device)
+    if corner.shape != (B, 3):
+        raise ValueError("corner must be (B, 3)")
+    if ac.device.type == "cpu":
+        return nw_fill_dirs_carry_plain(ac, bc, na, nb, params, x_off, bin,
+                                        bout, dirs, corner)
+    scores = torch.empty(B, dtype=torch.int32, device=ac.device)
+    _fill("nw_fill_dirs_carry", "nw_dirs_carry_launch", ac, bc, na, nb,
+          params, scores, corner, dirs,
+          carry=_carry_args(x_off, bin, bout, dirs, ca, 0))
+
+
+def sw_fill_dirs_carry(ac, bc, na, nb, params: KernelParams, x_off: int,
+                       bin, bout, dirs, best, m16: bool = False):
+    """One chunk of a long SW pair's fill, in place (see
+    ``sw_fill_dirs_carry_plain``): codes into the ``dirs`` slab, the
+    column x_off+CA into ``bout``, ``best`` (B,) int32 raised to the
+    chunk's best M.  Returns the chunk's M, (B, CA+LB-1, LB+1), int16 if
+    ``m16`` else int32."""
+    B, LA, LB, ca = _check_carry(ac, bc, na, nb, params, x_off, bin, bout,
+                                 dirs)
+    _expect(best, "best", torch.int32, 1, ac.device)
+    if best.shape[0] != B:
+        raise ValueError("best must hold one entry per pair")
+    if ac.device.type == "cpu":
+        return sw_fill_dirs_carry_plain(ac, bc, na, nb, params, x_off, bin,
+                                        bout, dirs, best, m16)
+    mout = torch.empty(dirs.shape, dtype=torch.int16 if m16 else torch.int32,
+                       device=ac.device)
+    _fill("sw_fill_dirs_carry", "sw_dirs_carry_launch", ac, bc, na, nb,
+          params, best, dirs=dirs, mout=mout, m16=m16,
+          carry=_carry_args(x_off, bin, bout, dirs, ca, mout.stride(0)))
+    return mout
+
+
+def _check_codes(dirs, ac, bc):
+    """A walk's codes: a (B, LA+LB-1, LB+1) plane or (B, nch, D_c, LB+1)
+    chunk slabs of CA = D_c - LB + 1 columns that cover the LA columns of
+    ``ac`` (nch = ceil(LA / CA)).  Returns (nch, D_c)."""
+    if dirs.dim() not in (3, 4):
+        raise ValueError("dirs must be a code plane or chunk slabs")
+    _expect(dirs, "dirs", torch.uint8, dirs.dim(), dirs.device)
+    nch, dc, LBp, ca = slab_geometry(dirs)
+    B = dirs.shape[0]
+    LA, LB = ac.shape[1], bc.shape[1]
+    if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or ca < 1 or \
+            not (nch - 1) * ca < LA <= nch * ca or \
+            (dirs.dim() == 3 and ca != LA):
+        raise ValueError("dirs, ac and bc must come from one fill")
+    return nch, dc
+
+
 def nw_walk(dirs, corner, na, nb, cap: int):
-    """Device traceback walk (see ``nw_walk_plain``): returns the op trace
-    (B, walk_cap(cap)) int8 and the start scores (B,) int32."""
+    """Device traceback walk (see ``nw_walk_plain``) over a code plane or
+    chunk slabs: returns the op trace (B, walk_cap(cap)) int8 and the start
+    scores (B,) int32."""
     dev = dirs.device
-    _expect(dirs, "dirs", torch.uint8, 3, dev)
+    if dirs.dim() not in (3, 4):
+        raise ValueError("dirs must be a code plane or chunk slabs")
+    _expect(dirs, "dirs", torch.uint8, dirs.dim(), dev)
     _expect(corner, "corner", torch.int32, 2, dev)
     _expect(na, "na", torch.int32, 1, dev)
     _expect(nb, "nb", torch.int32, 1, dev)
-    B, D, LBp = dirs.shape
+    B = dirs.shape[0]
+    nch, dc, LBp, _ = slab_geometry(dirs)
     if corner.shape != (B, 3) or na.shape[0] != B or nb.shape[0] != B:
         raise ValueError("dirs, corner, na and nb must hold the same pair "
                          "count")
@@ -224,7 +328,7 @@ def nw_walk(dirs, corner, na, nb, cap: int):
     if B == 0:
         return ops, score
     rc = lib.nw_walk_launch(_ptr(dirs), _ptr(corner), _ptr(na), _ptr(nb), B,
-                            D, LBp, capr, _ptr(ops), _ptr(score),
+                            nch, dc, LBp, capr, _ptr(ops), _ptr(score),
                             _stream(dev))
     _launched("nw_walk", lib, rc)
     return ops, score
@@ -233,22 +337,19 @@ def nw_walk(dirs, corner, na, nb, cap: int):
 def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
             cap: int):
     """Device SW candidate walks (see ``sw_walk_plain``) over one fill's
-    ``dirs``, codes and lengths: returns the op traces (W, walk_cap(cap))
-    int8."""
+    ``dirs`` (a plane or chunk slabs), codes and lengths: returns the op
+    traces (W, walk_cap(cap)) int8."""
     dev = dirs.device
-    _expect(dirs, "dirs", torch.uint8, 3, dev)
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
     for t, n in ((na, "na"), (nb, "nb"), (jw, "jw"), (x0, "x0"), (y0, "y0"),
                  (s0, "s0")):
         _expect(t, n, torch.int32, 1, dev)
     _check_params(params, dev)
-    B, D, LBp = dirs.shape
+    nch, dc = _check_codes(dirs, ac, bc)
+    B = dirs.shape[0]
     LA, LB = ac.shape[1], bc.shape[1]
     W = jw.shape[0]
-    if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
-            LA + LB - 1 != D:
-        raise ValueError("dirs, ac and bc must come from one fill")
     if not na.shape[0] == nb.shape[0] == B:
         raise ValueError("na and nb must hold one entry per pair")
     if not x0.shape[0] == y0.shape[0] == s0.shape[0] == W:
@@ -268,34 +369,37 @@ def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
         0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
         int(bool(params.modes & NEG)), _ptr(jw), _ptr(x0), _ptr(y0),
-        _ptr(s0), W, B, LA, LB, capr, _ptr(ops), _stream(dev))
+        _ptr(s0), W, B, LA, LB, nch, dc, capr, _ptr(ops), _stream(dev))
     _launched("sw_walk", lib, rc)
     return ops
 
 
 def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
             params: KernelParams, k: int):
-    """The first ``k`` hits of every pair of one SW fill, found on the
-    device with the reference's overlap mask (see ``sw_hits_plain``):
-    returns ``(hit_flat (B, k) int32, hit_score (B, k) int32, nhits (B,)
-    int32)``.  The mask takes ``(LB+1) * (LA+1)`` bits a pair: shared
+    """The first ``k`` hits of every pair of one SW fill (a code plane or a
+    long pair's chunk slabs), found on the device with the reference's
+    overlap mask (see ``sw_hits_plain``): returns ``(hit_flat (B, k),
+    hit_score (B, k) int32, nhits (B,) int32)``.  Flats are int32, or
+    int64 where a pair has 2^31 cells or more (``sw_sorted_candidates``
+    picks); ``hit_flat`` takes ``cand_flat``'s type.  The mask takes
+    ``(LB+1) * (LA+1)`` bits a pair, LA the pairs' global width: shared
     memory when that fits, else a zeroed global buffer."""
     dev = dirs.device
-    _expect(dirs, "dirs", torch.uint8, 3, dev)
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
     _expect(na, "na", torch.int32, 1, dev)
     _expect(nb, "nb", torch.int32, 1, dev)
-    _expect(cand_flat, "cand_flat", torch.int32, 1, dev)
+    flat64 = getattr(cand_flat, "dtype", None) == torch.int64
+    _expect(cand_flat, "cand_flat", torch.int64 if flat64 else torch.int32,
+            1, dev)
     _expect(cand_score, "cand_score", torch.int32, 1, dev)
     _expect(lo, "lo", torch.int64, 1, dev)
     _expect(hi, "hi", torch.int64, 1, dev)
     _check_params(params, dev)
-    B, D, LBp = dirs.shape
+    nch, dc = _check_codes(dirs, ac, bc)
+    B = dirs.shape[0]
     LA, LB = ac.shape[1], bc.shape[1]
-    if ac.shape[0] != B or bc.shape[0] != B or LB + 1 != LBp or \
-            LA + LB - 1 != D:
-        raise ValueError("dirs, ac and bc must come from one fill")
+    LBp = LB + 1
     if not na.shape[0] == nb.shape[0] == lo.shape[0] == hi.shape[0] == B:
         raise ValueError("na, nb, lo and hi must hold one entry per pair")
     if cand_flat.shape != cand_score.shape:
@@ -307,7 +411,7 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
                              hi, params, k)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    hit_flat = torch.zeros((B, k), dtype=torch.int32, device=dev)
+    hit_flat = torch.zeros((B, k), dtype=cand_flat.dtype, device=dev)
     hit_score = torch.zeros((B, k), dtype=torch.int32, device=dev)
     nhits = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0:
@@ -322,7 +426,8 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
         0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
         int(bool(params.modes & NEG)), _ptr(cand_flat), _ptr(cand_score),
-        _ptr(lo), _ptr(hi), B, LA, LB, k, MW, _ptr(gmask), int(smem),
-        _ptr(hit_flat), _ptr(hit_score), _ptr(nhits), _stream(dev))
+        _ptr(lo), _ptr(hi), B, LA, LB, nch, dc, k, MW, _ptr(gmask),
+        int(smem), _ptr(hit_flat), _ptr(hit_score), _ptr(nhits),
+        int(flat64), _stream(dev))
     _launched("sw_hits", lib, rc)
     return hit_flat, hit_score, nhits

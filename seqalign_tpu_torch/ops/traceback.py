@@ -12,9 +12,14 @@ alignment.c:264-307, ``SwHitIterator._penalty`` there): the port walks
 every pair's hits on the device, constrained modes included.
 ``sw_hits_plain`` is the plain version of the ``sw_hits`` kernel, the
 iterator's hit loop run for a whole batch, and :class:`SwDeviceHits` the
-stream of the hits it finds.
+stream of the hits it finds.  ``ChunkedDirs`` / ``ChunkedM`` and the host
+``nw_traceback`` serve a long pair walked on the host.
 
 Skewed addressing: cell (y, x) of pair j lives at ``dirs[j, x+y-2, y]``.
+A long pair's codes are chunk slabs instead, ``dirs`` (B, nch, D_c, LB+1)
+with D_c = CA + LB - 1: cell (y, x) is in slab c = (x-1) // CA at row
+(x - c*CA) + y - 2 (:func:`slab_index`, the rule of ``csrc/slab.cuh``).
+A (B, D, LB+1) plane is the one-slab case, CA = D - LB + 1.
 """
 
 from __future__ import annotations
@@ -31,6 +36,25 @@ from .host_dp import Alignment
 from .pack import DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, KernelParams
 
 
+def slab_geometry(dirs):
+    """``(nch, D_c, LB+1, CA)`` of a (B, D, LB+1) code plane (one slab)
+    or of (B, nch, D_c, LB+1) chunk slabs."""
+    if dirs.dim() == 3:
+        B, dc, lbp = dirs.shape
+        nch = 1
+    else:
+        B, nch, dc, lbp = dirs.shape
+    return nch, dc, lbp, dc - lbp + 2
+
+
+def slab_index(x, y, ca: int, dc: int, lbp: int):
+    """Offset of the code of cell (y, x), x >= 1 and y >= 1, in a pair's
+    slabs: slab (x-1) // ca, row (x - c*ca) + y - 2, lane y.  Takes ints
+    or tensors."""
+    c = (x - 1) // ca
+    return (c * dc + x - c * ca + y - 2) * lbp + y
+
+
 def walk_cap(cap: int) -> int:
     """Step bound of a walk: rounded up to a multiple of 256, as in the
     JAX package (traceback.py:504), so the op trace widths agree."""
@@ -38,14 +62,16 @@ def walk_cap(cap: int) -> int:
 
 
 def nw_walk_plain(dirs, corner, na, nb, cap: int):
-    """Walk every pair from (nb, na) to the first zero coordinate.
+    """Walk every pair from (nb, na) to the first zero coordinate, over a
+    code plane or chunk slabs (:func:`slab_geometry`).
 
     The start matrix is picked from ``corner`` (B, 3) with preference
     GAP_A >= GAP_B >= MATCH (needleman_wunsch.c:53-66).  Returns the op
     trace (B, walk_cap(cap)) int8 — the matrix walked at each step, -1 once
     done; a DIR_FAIL shows as a 3 in the step after it — and the start
     scores (B,) int32."""
-    B, _, LBp = dirs.shape
+    B = dirs.shape[0]
+    _, dc, LBp, ca = slab_geometry(dirs)
     dev = dirs.device
     cap = walk_cap(cap)
     m, ga, gb = corner.long().unbind(1)
@@ -59,7 +85,7 @@ def nw_walk_plain(dirs, corner, na, nb, cap: int):
     ops = torch.full((B, cap), -1, dtype=torch.int8, device=dev)
     for s in range(cap):
         active = (X > 0) & (Y > 0)
-        idx = (X + Y - 2).clamp(min=0) * LBp + Y
+        idx = slab_index(X.clamp(min=1), Y.clamp(min=1), ca, dc, LBp)
         code = flat.gather(1, idx[:, None])[:, 0].long()
         nxt = (code >> (2 * curr)) & 3
         ops[:, s] = torch.where(active, curr, -1).to(torch.int8)
@@ -67,6 +93,80 @@ def nw_walk_plain(dirs, corner, na, nb, cap: int):
         Y = torch.where(active & (curr != GAP_B), Y - 1, Y)
         curr = torch.where(active, nxt, curr)
     return ops, score.to(torch.int32)
+
+
+class ChunkedDirs:
+    """Host accessor over one pair's chunk slabs (the JAX package's
+    ``traceback.ChunkedDirs``, traceback.py:31-42): ``chunks`` is a
+    (nch, D_c, LB+1) array or a list of (D_c, LB+1) arrays of ``CA``
+    columns each; cell (y, x) is in slab (x-1) // CA at row (x - c*CA) +
+    y - 2, lane y.  An array is used in place."""
+
+    def __init__(self, chunks, CA: int):
+        slabs = chunks if isinstance(chunks, np.ndarray) else np.stack(chunks)
+        self.slabs = np.ascontiguousarray(slabs)
+        self.CA = int(CA)
+        _, self.dc, self.lbp = self.slabs.shape
+        self.flat = self.slabs.reshape(-1)
+
+    def at(self, y: int, x: int) -> int:
+        return int(self.flat[slab_index(x, y, self.CA, self.dc, self.lbp)])
+
+    code = at
+
+
+class ChunkedM(ChunkedDirs):
+    """The same accessor over one pair's chunked SW M slabs, read with
+    ``at(y, x)`` (traceback.py:45-54 of the JAX package)."""
+
+
+def nw_start(corner):
+    """Start matrix and score from the corner (M, Ga, Gb) at (nb, na),
+    preference GAP_A >= GAP_B >= MATCH (needleman_wunsch.c:53-66)."""
+    m, ga, gb = (int(v) for v in corner)
+    curr, score = MATCH, m
+    if gb >= score:
+        curr, score = GAP_B, gb
+    if ga >= score:
+        curr, score = GAP_A, ga
+    return curr, score
+
+
+def nw_traceback(seq_a, seq_b, na: int, nb: int, dirs, corner) -> Alignment:
+    """The global alignment walked on the host (needleman_wunsch.c:34-146;
+    the JAX package's ``traceback.nw_traceback``): ``dirs`` is one pair's
+    code plane (D, LB+1) or a :class:`ChunkedDirs`, ``corner`` its
+    (M, Ga, Gb) at (nb, na).  Raises on a DIR_FAIL step."""
+    a, b = encode(seq_a), encode(seq_b)
+    if isinstance(dirs, np.ndarray):
+        dirs = ChunkedDirs(dirs[None], dirs.shape[0] - dirs.shape[1] + 2)
+    curr, score = nw_start(corner)
+    out_a, out_b = [], []
+    x, y = int(na), int(nb)
+    while x > 0 and y > 0:
+        nxt = (dirs.code(y, x) >> (2 * curr)) & 3
+        if curr == MATCH:
+            out_a.append(chr(a[x - 1]))
+            out_b.append(chr(b[y - 1]))
+            x, y = x - 1, y - 1
+        elif curr == GAP_A:
+            out_a.append("-")
+            out_b.append(chr(b[y - 1]))
+            y -= 1
+        else:
+            out_a.append(chr(a[x - 1]))
+            out_b.append("-")
+            x -= 1
+        if nxt == DIR_FAIL:
+            raise RuntimeError("traceback fail: no predecessor matches "
+                               "(alignment.c:329-349)")
+        curr = nxt
+    # leading unaligned prefix as gap runs (needleman_wunsch.c:117-132)
+    ra = "".join(reversed(out_a))
+    rb = "".join(reversed(out_b))
+    pre_a = a[:x].tobytes().decode("latin-1") + "-" * y
+    pre_b = "-" * x + b[:y].tobytes().decode("latin-1")
+    return Alignment(pre_a + ra, pre_b + rb, score, 0, 0, len(a), len(b))
 
 
 def _spell(a: np.ndarray, b: np.ndarray, ops: np.ndarray, xv, yv):
@@ -120,9 +220,10 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
     """Walk SW candidates back from their end cells, without the overlap
     mask (paths depend only on the codes and the per-step penalties).
 
-    ``dirs`` (B, D, LB+1) uint8 codes and ``ac``/``bc`` (B, LA)/(B, LB)
-    uint8 codes of the fill, ``na``/``nb`` (B,) int32 its true lengths;
-    walk ``w`` starts in pair ``jw[w]`` at cell
+    ``dirs`` (B, D, LB+1) uint8 codes (or chunk slabs,
+    :func:`slab_geometry`) and ``ac``/``bc`` (B, LA)/(B, LB) uint8 codes
+    of the fill, ``na``/``nb`` (B,) int32 its true lengths; walk ``w``
+    starts in pair ``jw[w]`` at cell
     (``y0[w]``, ``x0[w]``) with score ``s0[w]`` and stops once its score
     reaches 0.  The penalty of a MATCH step is the equality score or
     ``params.sub[a, b]``; of a gap step ``gap_extend`` when the gap goes
@@ -133,7 +234,7 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
     done; a DIR_FAIL shows as a 3 in the step after it."""
     cap = walk_cap(cap)
     W = jw.shape[0]
-    LBp = dirs.shape[2]
+    _, dc, LBp, ca = slab_geometry(dirs)
     dev = dirs.device
     match, mismatch, gap_open, gap_extend = params.scal[:4].unbind()
     gop = gap_open + gap_extend
@@ -152,7 +253,7 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
             break
         Xc = X.clamp(min=1)
         Yc = Y.clamp(min=1)
-        code = flat[j, (Xc + Yc - 2) * LBp + Yc].long()
+        code = flat[j, slab_index(Xc, Yc, ca, dc, LBp)].long()
         nxt = (code >> (2 * curr)) & 3
         ai = ac[j, Xc - 1].long()
         bi = bc[j, Yc - 1].long()
@@ -181,16 +282,19 @@ def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
     loop of :meth:`SwHitIterator.fetch`).
 
     ``dirs``, ``ac``, ``bc``, ``na``, ``nb`` and the step penalties as in
-    :func:`sw_walk_plain`; pair j's candidates are
-    ``cand_flat``/``cand_score`` (int32) ``[lo[j], hi[j])`` (int64), in the hit order of
-    ``dp.sw_sorted_candidates``.  Returns ``(hit_flat, hit_score)`` (B, k)
-    int32, the start cell and score of each hit in stream order, and
+    :func:`sw_walk_plain`; pair j's candidates are ``cand_flat`` (int32
+    or int64) / ``cand_score`` (int32) ``[lo[j], hi[j])`` (int64), in the
+    hit order of ``dp.sw_sorted_candidates``.  Returns ``hit_flat`` (B, k)
+    of ``cand_flat``'s type and
+    ``hit_score`` (B, k) int32, the start cell and score of each hit in
+    stream order, and
     ``nhits`` (B,) int32, fewer than ``k`` once a pair's candidates ran
     out and -1 after a DIR_FAIL.  A Python loop over host copies of the
     inputs; the outputs go to ``dirs``' device."""
-    B, _, LBp = dirs.shape
+    B = dirs.shape[0]
+    nch, dc, LBp, ca = slab_geometry(dirs)
     LA = ac.shape[1]
-    plane = (LA + LBp - 2) * LBp
+    plane = nch * dc * LBp
     codes = memoryview(dirs.cpu().numpy().reshape(-1))
     av = ac.cpu().numpy()
     bv = bc.cpu().numpy()
@@ -202,9 +306,10 @@ def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
     else:
         subv = memoryview(params.sub.cpu().numpy().reshape(-1))
         kb = params.sub.shape[1]
-    flats = memoryview(cand_flat.cpu().numpy())
+    flats_h = cand_flat.cpu().numpy()
+    flats = memoryview(flats_h)
     scores = memoryview(cand_score.cpu().numpy())
-    hit_flat = np.zeros((B, k), np.int32)
+    hit_flat = np.zeros((B, k), flats_h.dtype)
     hit_score = np.zeros((B, k), np.int32)
     nhits = np.zeros(B, np.int32)
 
@@ -237,7 +342,8 @@ def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
                     break
                 if x < 1 or y < 1:
                     return -1
-                nxt = (codes[base + (x + y - 2) * LBp + y] >> (2 * curr)) & 3
+                nxt = (codes[base + slab_index(x, y, ca, dc, LBp)]
+                       >> (2 * curr)) & 3
                 if nxt == DIR_FAIL:
                     return -1
                 if curr == MATCH:
@@ -382,8 +488,9 @@ class SwHitIterator:
     with flat = y * (na+1) + x, the interior cells with M >= max(min_score,
     1); they are taken in (score desc, x asc, flat asc) order, the
     reference's stable qsort (smith_waterman.c:71-86,153-161).  ``dirs`` is
-    the pair's skewed code plane (numpy), dropped once the stream is
-    exhausted.  With ``history`` (a shared :class:`SwRefMaskHistory`) the
+    the pair's skewed code plane (numpy) or a :class:`ChunkedDirs` over a
+    long pair's slabs, dropped once the stream is exhausted.  With
+    ``history`` (a shared :class:`SwRefMaskHistory`) the
     overlap mask is the reference's shared bitset, bound at the first
     fetch so sequential consumption reproduces the reference.
     """
@@ -431,10 +538,14 @@ class SwHitIterator:
         self.next_hit = 0
 
     def _codes(self):
-        """The pair's code plane as a flat byte view and its row length."""
+        """The pair's codes as a flat byte view and their slab geometry
+        (lanes, columns and rows per slab; one slab for a plane)."""
         if self._code_view is None:
-            plane = np.ascontiguousarray(self.dirs, np.uint8)
-            self._code_view = (memoryview(plane.reshape(-1)), plane.shape[1])
+            cd = self.dirs
+            if not isinstance(cd, ChunkedDirs):
+                cd = np.ascontiguousarray(cd, np.uint8)
+                cd = ChunkedDirs(cd[None], cd.shape[0] - cd.shape[1] + 2)
+            self._code_view = (memoryview(cd.flat), cd.lbp, cd.CA, cd.dc)
         return self._code_view
 
     def _gap_penalty(self, curr: int, nxt: int, x: int, y: int) -> int:
@@ -454,14 +565,14 @@ class SwHitIterator:
         substitution score on a MATCH step and by :meth:`_gap_penalty` on
         a gap step (alignment.c:264-307)."""
         w = self.w
-        codes, lbp = self._codes()
+        codes, lbp, ca, dc = self._codes()
         sub, av, bv = self._views
         x, y = flat % w, flat // w
         end_x, end_y = x, y
         curr, cs = MATCH, end_score
         out_a, out_b = [], []
         while cs != 0:
-            nxt = (codes[(x + y - 2) * lbp + y] >> (2 * curr)) & 3
+            nxt = (codes[slab_index(x, y, ca, dc, lbp)] >> (2 * curr)) & 3
             if curr == MATCH:
                 out_a.append(chr(av[x - 1]))
                 out_b.append(chr(bv[y - 1]))
@@ -519,7 +630,7 @@ class SwHitIterator:
             self.next_hit = pos
             score = int(self.cand_scores[pos - 1])
             if codes is None:
-                codes, lbp = self._codes()
+                codes, lbp, ca, dc = self._codes()
             x, y = flat % w, flat // w
             curr, cs = MATCH, score
             while True:
@@ -529,7 +640,9 @@ class SwHitIterator:
                 mask[f] = True
                 if cs == 0:
                     return self._spell(flat, score)
-                nxt = (codes[(x + y - 2) * lbp + y] >> (2 * curr)) & 3
+                c = (x - 1) // ca  # slab_index, inline
+                nxt = (codes[(c * dc + x - c * ca + y - 2) * lbp + y]
+                       >> (2 * curr)) & 3
                 if nxt == DIR_FAIL:
                     raise RuntimeError("sw traceback fail")
                 if curr == MATCH:

@@ -198,11 +198,21 @@ def test_out_of_slice_device_batch_raises(monkeypatch, name):
 
 
 def test_long_pair_bucket_raises(monkeypatch):
+    """The long bucket, which raised until the long-pair path was ported
+    (ROADMAP.md Queue 1 item 7), now runs it and equals the JAX package's
+    long path and the host DP."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     monkeypatch.setattr(port_aligners, "LONG_PAIR_CELLS", 100)
+    monkeypatch.setattr(jax_aligners, "LONG_PAIR_CELLS", 100)
     nw = NeedlemanWunsch(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        nw.align_batch(["a" * 20], ["c" * 20])
+    A, B = ["a" * 20, "acgtta" * 5], ["c" * 20, "acgt" * 4]
+    got = nw.align_batch(A, B)
+    want = seqalign_tpu.NeedlemanWunsch().align_batch(A, B)
+    assert [dataclasses.astuple(g) for g in got] == \
+        [dataclasses.astuple(w) for w in want]
+    assert [dataclasses.astuple(g) for g in got] == [
+        dataclasses.astuple(host_dp.nw_align(scoring_system_default(), a, b))
+        for a, b in zip(A, B)]
 
 
 def test_align_sub_batches_follow_the_dirs_bytes(monkeypatch):

@@ -16,8 +16,12 @@ from seqalign_tpu_torch import (NeedlemanWunsch, ScoringConfig, SmithWaterman,
                                 lcs_aligner)
 from seqalign_tpu_torch import aligners
 from seqalign_tpu_torch.ops import host_dp, kernels
-from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain, nw_scores_plain,
+from seqalign_tpu_torch.ops.dp import boundary_column as dp_boundary
+from seqalign_tpu_torch.ops.dp import (merge_candidates,
+                                       nw_fill_dirs_carry_plain,
+                                       nw_fill_dirs_plain, nw_scores_plain,
                                        sw_extract_candidates,
+                                       sw_fill_dirs_carry_plain,
                                        sw_fill_dirs_plain, sw_scores_plain,
                                        sw_sorted_candidates)
 from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch, pack_inputs_mm
@@ -188,6 +192,14 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
     want = sw_hits_plain(*hargs)
     assert all(torch.equal(g, w) for g, w in zip(hits, want))
     assert (hits[2] == 16).sum() > 0
+    # the int64 instantiation (flats of pairs past 2^31 cells) finds the
+    # same hits from the same candidates
+    assert flat.dtype == torch.int32
+    hits64 = kernels.sw_hits(d, ac, bc, na_t, nb_t, flat.long(), score,
+                             off[:-1], off[1:], bp, 16)
+    assert hits64[0].dtype == torch.int64
+    assert torch.equal(hits64[0], hits[0].long())
+    assert all(torch.equal(g, w) for g, w in zip(hits64[1:], hits[1:]))
     sn, cn = kernels.nw_scores(ac, bc, na_t, nb_t, bp)
     spn, cpn = nw_scores_plain(ac, bc, na_t, nb_t, bp)
     assert torch.equal(sn, spn) and torch.equal(cn, cpn)
@@ -196,8 +208,9 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
     assert torch.equal(dn[v], dnp[v]) and torch.equal(cdn, cdnp)
     after = kernel_launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "nw_scores": 1, "nw_fill_dirs": 1, "nw_walk": 0, "sw_scores": 1,
-        "sw_fill_dirs": 2, "sw_walk": 1, "sw_hits": 1}
+        "nw_scores": 1, "nw_fill_dirs": 1, "nw_fill_dirs_carry": 0,
+        "nw_walk": 0, "sw_scores": 1, "sw_fill_dirs": 2,
+        "sw_fill_dirs_carry": 0, "sw_walk": 1, "sw_hits": 2}
 
 
 def test_sw_scores_in_global_scratch(dev):
@@ -362,3 +375,170 @@ def test_modes_on_cuda_match_host(dev, monkeypatch):
         want = [dataclasses.astuple(h) for _, h in zip(
             range(20), host_dp.HostSwHits(sw.scoring, s, s))]
         assert got == want
+
+
+def _slab_valid(dev, D, LB, c, ca, na, nb):
+    """Cells of slab ``c`` (chunk columns c*ca+1 .. c*ca+ca) that lie in
+    the pairs: 1 <= y <= nb, 1 <= x <= na."""
+    y = torch.arange(LB + 1, device=dev)[None, None, :]
+    xl = torch.arange(D, device=dev)[None, :, None] + 2 - y
+    x = xl + c * ca
+    return ((y >= 1) & (y <= nb[:, None, None]) & (xl >= 1) & (xl <= ca)
+            & (x <= na[:, None, None]))
+
+
+def _carry_run(fill, args, nch, ca, LB, B, dev, sw, m16):
+    """Every chunk of a batch through one carry fill (kernel or plain):
+    the slabs, each chunk's bout and M, the corner and the best."""
+    bin = dp_boundary(args[4], B, LB, is_sw=sw, device=dev)
+    bout = torch.zeros_like(bin)
+    dirs = torch.zeros((B, nch, ca + LB - 1, LB + 1), dtype=torch.uint8,
+                       device=dev)
+    acc = torch.zeros((B, 3), dtype=torch.int32, device=dev) if not sw \
+        else torch.zeros(B, dtype=torch.int32, device=dev)
+    bouts, ms = [], []
+    for c in range(nch):
+        m = fill(*args, c * ca, bin, bout, dirs[:, c], acc,
+                 *((m16,) if sw else ()))
+        bouts.append(bout.clone())
+        ms.append(m)
+        bin, bout = bout, bin
+    return dirs, bouts, ms, acc
+
+
+# (mode, (CA, LA, LB)): ragged widths in opt-in shared memory under each
+# mode, and the diagonals in global scratch (LB > 6,455) by default
+CARRY_CASES = [(m, (64, 600, 300)) for m in ("default", "nsg_neg",
+                                             "nga_ngb_nmm", "table")]
+CARRY_CASES.append(("default", (1024, 2600, 6600)))
+
+
+@pytest.mark.parametrize("sw", [False, True], ids=["nw", "sw"])
+@pytest.mark.parametrize("mode,width", CARRY_CASES,
+                         ids=lambda v: v if isinstance(v, str)
+                         else f"LB{v[2]}")
+def test_carry_kernels_equal_plain_versions(dev, mode, sw, width):
+    """Each carry kernel against its plain version chunk by chunk, on
+    ragged pairs that end in different chunks (one of them on a chunk's
+    last column): codes of every slab on the valid cells, bout on the
+    lanes 1 .. nb of the pairs that reach it (row 0 is not carried), the
+    corner (an empty seq_b's among them) or the best, and M; past 6,455
+    lanes the diagonals live in global scratch."""
+    ca, la, lb = width
+    if mode == "table":
+        sc, alpha = _mode_config("nga_ngb_nmm", True)
+    elif mode == "default":
+        sc, alpha = (scoring_system_sw_default() if sw else
+                     scoring_system_default()), "acgtACGT"
+    else:
+        sc, alpha = _mode_config(mode, False)
+    rng = np.random.default_rng(len(mode) + 7 * sw + ca)
+    B = 4
+    A, Bs = _text(rng, alpha, B, la // 2, la), _text(rng, alpha, B, 1, lb)
+    A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
+    Bs[3] = ""  # the corner is a boundary cell
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, la,
+                                    lb)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    nch = -(-la // ca)
+    m16 = m16_safe(sc, la, lb)
+    kfill = kernels.sw_fill_dirs_carry if sw else kernels.nw_fill_dirs_carry
+    pfill = sw_fill_dirs_carry_plain if sw else nw_fill_dirs_carry_plain
+    before = kernel_launch_counts()
+    got = _carry_run(kfill, (*t, bp), nch, ca, lb, B, dev, sw, m16)
+    name = "sw_fill_dirs_carry" if sw else "nw_fill_dirs_carry"
+    assert kernel_launch_counts()[name] == before[name] + nch
+    want = _carry_run(pfill, (*t, bp), nch, ca, lb, B, dev, sw, m16)
+    D = ca + lb - 1
+    na_t, nb_t = t[2], t[3]
+    for c in range(nch):
+        v = _slab_valid(dev, D, lb, c, ca, na_t, nb_t)
+        assert torch.equal(got[0][:, c][v], want[0][:, c][v])
+        if sw:
+            assert torch.equal(got[2][c][v], want[2][c][v])
+        reach = na_t >= (c + 1) * ca
+        y = torch.arange(lb + 1, device=dev)[None, None, :]
+        lanes = (y >= 1) & (y <= nb_t[:, None, None])
+        keep = (reach[:, None, None] & lanes).expand(-1, 3, -1)
+        assert torch.equal(got[1][c][keep], want[1][c][keep])
+    assert torch.equal(got[3], want[3])
+
+
+def test_slab_walks_equal_plain_versions(dev):
+    """nw_walk, sw_hits and sw_walk over chunk slabs against their plain
+    versions, and against the same walks over the unchunked plane."""
+    sc = scoring_system_sw_default()
+    rng = np.random.default_rng(29)
+    B, la, lb, ca = 4, 700, 300, 128
+    A, Bs = _seqs(rng, B, 400, la), _seqs(rng, B, 100, lb)
+    for is_sw in (False, True):
+        nsc = sc if is_sw else scoring_system_default()
+        ac, bc, na, nb, bp = pack_batch(nsc, kernel_params(nsc, dev), A, Bs,
+                                        la, lb)
+        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+        nch = -(-la // ca)
+        fill = kernels.sw_fill_dirs_carry if is_sw else \
+            kernels.nw_fill_dirs_carry
+        slabs, _, ms, acc = _carry_run(fill, (*t, bp), nch, ca, lb, B, dev,
+                                       is_sw, True)
+        cap = int((t[2] + t[3]).max())
+        if not is_sw:
+            d, corner = kernels.nw_fill_dirs(*t, bp)
+            assert torch.equal(acc, corner)
+            got = kernels.nw_walk(slabs, acc, t[2], t[3], cap)
+            assert all(torch.equal(g, w) for g, w in zip(
+                got, nw_walk_plain(slabs, acc, t[2], t[3], cap)))
+            assert all(torch.equal(g, w) for g, w in zip(
+                got, kernels.nw_walk(d, corner, t[2], t[3], cap)))
+            continue
+        parts = [sw_sorted_candidates(m, na, nb, 1, x_off=c * ca)
+                 for c, m in enumerate(ms)]
+        flat, score, off = merge_candidates(parts, B)
+        d, m = kernels.sw_fill_dirs(*t, bp, True)
+        f1, s1, o1 = sw_sorted_candidates(m, na, nb, 1)
+        assert torch.equal(flat, f1) and torch.equal(score, s1)
+        args = (slabs, *t, flat, score, off[:-1], off[1:], bp, 16)
+        hits = kernels.sw_hits(*args)
+        assert all(torch.equal(g, w) for g, w in zip(hits,
+                                                     sw_hits_plain(*args)))
+        assert all(torch.equal(g, w) for g, w in zip(hits, kernels.sw_hits(
+            d, *t, f1, s1, o1[:-1], o1[1:], bp, 16)))
+        keep = torch.arange(16, device=dev)[None, :] < hits[2][:, None]
+        jw, slot = keep.nonzero(as_tuple=True)
+        w = t[2][jw].long() + 1
+        starts = [v.to(torch.int32).contiguous()
+                  for v in (jw, hits[0][jw, slot] % w, hits[0][jw, slot] // w,
+                            hits[1][jw, slot])]
+        o = kernels.sw_walk(slabs, *t, *starts, bp, cap)
+        assert torch.equal(o, sw_walk_plain(slabs, *t, *starts, bp, cap))
+        assert torch.equal(o, kernels.sw_walk(d, *t, *starts, bp, cap))
+
+
+def test_long_path_on_cuda_matches_host(dev, monkeypatch):
+    """Pairs over LONG_PAIR_CELLS through both aligners on the card: the
+    carry kernels and the walks over slabs are launched, and the answers
+    equal the int64 host path."""
+    monkeypatch.setenv("SEQALIGN_FORCE", "device")
+    monkeypatch.setattr(aligners, "LONG_PAIR_CELLS", 20_000)
+    monkeypatch.setattr(aligners, "LONG_CHUNK", 96)
+    rng = np.random.default_rng(31)
+    A, B = _seqs(rng, 6, 150, 400), _seqs(rng, 6, 100, 200)
+    nw = NeedlemanWunsch(device="cuda")
+    before = kernel_launch_counts()
+    got = nw.align_batch(A, B)
+    after = kernel_launch_counts()
+    assert after["nw_fill_dirs_carry"] > before["nw_fill_dirs_carry"]
+    assert after["nw_walk"] > before["nw_walk"]
+    want = [host_dp.nw_align(nw.scoring, a, b) for a, b in zip(A, B)]
+    assert [dataclasses.astuple(g) for g in got] == \
+        [dataclasses.astuple(w) for w in want]
+    sw = SmithWaterman(device="cuda")
+    its = sw.align_batch(A, B)
+    after = kernel_launch_counts()
+    for k in ("sw_fill_dirs_carry", "sw_hits", "sw_walk"):
+        assert after[k] > before[k]
+    for a, b, it in zip(A, B, its):
+        g = [dataclasses.astuple(h) for _, h in zip(range(40), it)]
+        w = [dataclasses.astuple(h) for _, h in zip(
+            range(40), host_dp.HostSwHits(sw.scoring, a, b))]
+        assert g == w

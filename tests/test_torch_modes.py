@@ -314,8 +314,10 @@ def test_check_slice_is_the_dispatch_point():
     assert port_aligners._check_slice("scores", True) is kernels.sw_scores
     assert port_aligners._check_slice("dirs") is kernels.nw_fill_dirs
     assert port_aligners._check_slice("dirs", True) is kernels.sw_fill_dirs
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        port_aligners._check_slice("long")
+    # the long-pair path (ROADMAP.md Queue 1 item 7) is ported
+    assert port_aligners._check_slice("long") is kernels.nw_fill_dirs_carry
+    assert port_aligners._check_slice("long", True) is \
+        kernels.sw_fill_dirs_carry
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         port_aligners._check_slice("matrices")
 

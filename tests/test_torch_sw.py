@@ -461,13 +461,18 @@ def test_constrained_sw_raises_item_6(monkeypatch, flag):
 
 
 def test_sw_long_pairs_and_other_entry_points_raise(monkeypatch):
+    """Long pairs and ``align_long`` (ROADMAP.md Queue 1 item 7) now run
+    and equal the JAX package's streams; the matrix dump (item 4) still
+    raises."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     monkeypatch.setattr(port_aligners, "LONG_PAIR_CELLS", 100)
+    monkeypatch.setattr(jax_aligners, "LONG_PAIR_CELLS", 100)
     sw = SmithWaterman(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sw.align_batch(["a" * 20], ["c" * 20])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sw.align_long("acgt", "acgt")
+    jsw = jax_aligners.SmithWaterman()
+    A, B = ["a" * 20, "acgtta" * 5], ["c" * 20, "acgt" * 4]
+    assert _streams(sw.align_batch(A, B)) == _streams(jsw.align_batch(A, B))
+    assert _streams([sw.align_long("acgtacgt", "tacgta", chunk=3)]) == \
+        _streams([jsw.align_long("acgtacgt", "tacgta", chunk=3)])
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         sw.align_with_matrices("acgt", "acgt")
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
