@@ -4,6 +4,7 @@
 Usage, from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab] [--fills]
+                          [--sass [OLD_TREE]]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
 drives the main paths through the user entry points, with inputs made by
@@ -23,7 +24,9 @@ numpy from a fixed seed:
    ``<kernel>[<mode>]``) at that shape and on ragged batches with empty
    sides, equality and BLOSUM62, and under flag combinations at 6,144 and
    10,240 lanes; the SW hit loop and walk under free end gaps and under the
-   LCS recipe;
+   LCS recipe; the matrix-dump fills (``nw_fill_gab``, ``sw_fill_gab``:
+   codes and the M, Ga and Gb planes) on the ragged batches, default flags
+   and every flag combination of ``MODES``, timed at B = 256, L = 512;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -56,7 +59,30 @@ numpy from a fixed seed:
    pair of 48 kb x 48 kb whose flats pass 2^31; SW under
    ``ref_mask_compat`` on 2 pairs (the host branch).  Each job prints its
    GCUPS, wall, busy share, carry launches per chunk, chunks, slab bytes,
-   harvested candidates, peak device memory and top device items.
+   harvested candidates, peak device memory and top device items;
+7. path ``vpu``, the ALU probe (T1, ``python -m
+   seqalign_tpu_torch.tools.exp_vpu``, its ``run``) once per row of
+   ``VPU_ROWS``: each op and type at 256 x 512 lanes and 512 steps, roll
+   at 32 lanes; it holds ``vpu_chain`` to its plain version and times it,
+   and its T ops/s is printed;
+8. path ``cli``, the three CLIs' ``main`` in-process, stdout to a file, on
+   inputs written from the seed into a temporary directory: job 1
+   (BASELINE.json configs[1]) ``needleman_wunsch --printscores --file`` on
+   4,096 DNA pairs of 1-10 kb in gzip FASTA; job 2 (configs[2])
+   ``smith_waterman --scoring BLOSUM62 --minscore 100 --maxhits 8 --file``
+   on 1,024 protein pairs with a planted segment; job 3 (configs[3])
+   ``needleman_wunsch --freestartgap --freeendgap --wildcard N 0
+   --case_sensitive --printscores --file`` on 1,024 reads of 256-512 bp
+   against references of 1-10 kb; job 4 ``lcs`` on 512 bp (every hit);
+   job 5 ``--printmatrices`` for NW and SW on a 300 x 200 pair.  Each job
+   runs once under ``torch.profiler`` with its launch counts (wall,
+   pairs/s, GCUPS, busy share, output bytes), its output is parsed and
+   checked (scores against ``score_batch``, alignments and hits spelled
+   and rescored by the numpy Gotoh, repeats spelled, the dumps' corner or
+   best equal to the score), and its first 32 pairs (jobs 4 and 5 whole)
+   print the same bytes on the card and under ``SEQALIGN_FORCE=host``;
+   then ``python -m seqalign_tpu_torch.cli.needleman_wunsch --printscores
+   CAGACGT CGATA`` starts cold on the card and prints score -11.
 
 Each path is held against the plain versions on the card (a sample) and
 against numpy Gotoh recurrences written here, global and local, with
@@ -78,11 +104,18 @@ L = 512 and stops; it uses only the kernel wrappers' API, so a copy of this scri
 times an older tree of the package in the same call.  ``--profile DIR`` runs
 each main-path job once more under ``torch.profiler``, prints its device
 time and busy share and writes the ``key_averages`` tables to DIR.
+``--sass [OLD_TREE]`` instead compiles ``csrc/*.cu`` to SASS with the
+build's nvcc flags and stops: it prints the instruction mix of each probe
+kernel and of an add-then-max chain written here (both addmax forms give
+``VIADDMNMX``), and with an older checkout of the repository in OLD_TREE
+compares every fill instantiation the two trees share, instruction by
+instruction (the check that a template change left the default fills as
+they were).
 
 The second-to-last line is a JSON summary of the kernels and modes (each
 row with its launches on its path, its times, and the least time the card
 could take for the same work, from the bytes moved and the int32
-operations done), the last line ``{"ok": true, "device": {...}}``.  Any
+instructions issued), the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises (exit code != 0); without a CUDA device it exits with code 1
 and prints no result.  It imports no JAX.
 """
@@ -96,6 +129,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -131,13 +165,19 @@ KERNELS = {
                          "seqalign_tpu/ops/traceback.py:515"),
     "sw_walk[chunked]": ("sw_walk", "sw_walk.cu", _SWW),
     "sw_hits[chunked]": ("sw_hits", "sw_hits.cu", _SWH),
+    # the matrix dump: dp_fill's emit_gab planes (a lax.scan, not Pallas)
+    "nw_fill_gab": ("nw_fill_gab", "nw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
+    "sw_fill_gab": ("sw_fill_gab", "sw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
 PATHS = {"nw": _NW, "nw_table": _NW, "sw": _SW, "sw_table": _SW,
          "modes": _NW + _SW,
          "long": ("nw_fill_dirs_carry", "sw_fill_dirs_carry", "nw_walk",
-                  "sw_walk", "sw_hits")}
+                  "sw_walk", "sw_hits"),
+         "cli": ("nw_fill_dirs", "nw_walk", "sw_fill_dirs", "sw_hits",
+                 "sw_walk", "nw_fill_gab", "sw_fill_gab"),
+         "vpu": ("vpu_chain",)}
 # the recurrence modes: name -> ScoringConfig flags ("gap_open>0" is a mode
 # of the penalties); every mode gets a row per fill kernel,
 # "<kernel>[<mode>]", and the walks rows under neg and the LCS recipe
@@ -171,6 +211,20 @@ for _m in MODES:
 for _m in ("neg", "lcs"):
     KERNELS.update({f"sw_walk[{_m}]": ("sw_walk", "sw_walk.cu", _SWW),
                     f"sw_hits[{_m}]": ("sw_hits", "sw_hits.cu", _SWH)})
+# T1, the ALU probe (tools/exp_vpu.py:60): (op, dtype, lanes) at the JAX
+# tool's 256 rows and 512 steps
+VPU_ROWS = ([(op, dt, 512) for dt in ("int32", "int16")
+             for op in ("addmax", "add", "roll", "shift")]
+            + [("roll", "int32", 32)])
+VPU_R, VPU_S = 256, 512
+
+
+def vpu_row(op, dt, lanes) -> str:
+    return f"vpu_chain[{op},{dt}{'' if lanes == 512 else f',L{lanes}'}]"
+
+
+for _r in VPU_ROWS:
+    KERNELS[vpu_row(*_r)] = ("vpu_chain", "exp_vpu.cu", "tools/exp_vpu.py:60")
 MODE_WIDE = ((6144, 4097, 6144, 4, "nsg+neg"),
              (10240, 7169, 10000, 4, "all five flags"))
 MODE_B, MODE_L = 256, 512  # the mode rows' shape (bench.py:268-286)
@@ -180,10 +234,22 @@ LCS_SEQS = 256  # DNA sequences of 512-2,048 bp against themselves
 LCS_PLANT = 64  # length of the repeat planted in each of them
 # Published peaks of one H100 SXM: 3.35 TB/s of HBM3; 67 TFLOP/s float32
 # outside the tensor cores, which is 128 lanes x 2 (a fused multiply-add)
-# per SM and clock.  An int32 add, max, compare or select has 64 lanes and
-# no fusing: a quarter of that.
+# per SM and clock.  An int32 instruction (add, max, compare, select, the
+# DPX add-max) has 64 lanes an SM and clock: a quarter of that, 16.75 T
+# lane instructions a second.  One instruction does at most two of the
+# int32 operations the bounds count: an add and a max (the DPX VIADDMNMX,
+# which nvcc also makes of max(a + b, c)), two adds (IADD3), two maxes (the
+# three-input max).  The ALU probe (T1) runs its add-max, add and packed
+# int16 chains at 14.0-15.1 T instructions a second on the card.
 PEAK_BYTES = 3.35e12
 PEAK_INT32 = 67e12 / 4
+OPS_PER_INSTR = 2
+
+
+def alu_s(ops):
+    """The least seconds the card takes for ``ops`` int32 operations:
+    ``OPS_PER_INSTR`` an instruction at ``PEAK_INT32``."""
+    return ops / OPS_PER_INSTR / PEAK_INT32
 # phase 1 at main-path widths (width, shortest, longest, pairs): 36 bytes
 # per lane of rolling diagonals are 73,764 B at 2,048 lanes (above 48 KB:
 # opt-in shared memory), 221,220 B at 6,144 (the widest bucket that fits
@@ -381,7 +447,7 @@ def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=(),
     pairs, and what bounds it.  Operations: int32 adds, maxes, compares and
     selects of the recurrence per cell (the score 2; M 4, Ga 6, Gb 6; the
     SW best 1; the codes 9 + 6 + 6 and 4 to pack them; a flag's own
-    compares and selects) over ``PEAK_INT32``.  Bytes: the letters, lengths,
+    compares and selects), two an instruction (``alu_s``).  Bytes: the letters, lengths,
     scalars and table read once, the scores (and NW corners) and, with
     codes, 1 + ``mbytes`` per valid cell written once, and ``extra_bytes``
     (a carry launch's boundary columns in and out), over
@@ -394,7 +460,7 @@ def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=(),
     moved = (int(na_h.sum() + nb_h.sum()) + 8 * n + 24 + 4 * table
              + (4 if sw else 16) * n + cells * (bool(dirs) + mbytes)
              + extra_bytes)
-    t_ops, t_bytes = cells * per_cell / PEAK_INT32, moved / PEAK_BYTES
+    t_ops, t_bytes = alu_s(cells * per_cell), moved / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -402,10 +468,10 @@ def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=(),
 def walk_bound(ops, per_step, fixed):
     """The bound of a walk kernel from the trace it wrote: every step taken
     reads ``per_step`` bytes (a code, and for SW two letters) and does about
-    8 int32 operations; the whole trace is written once, and ``fixed`` bytes
+    8 int32 operations (``alu_s``); the whole trace is written once, and ``fixed`` bytes
     of starts and corners are read."""
     steps = int((ops >= 0).sum())
-    t_ops = 8 * steps / PEAK_INT32
+    t_ops = alu_s(8 * steps)
     t_bytes = (per_step * steps + ops.numel() + fixed) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -414,7 +480,7 @@ def walk_bound(ops, per_step, fixed):
 def hits_bound(args, out):
     """The bound of one ``sw_hits`` launch: the candidates it has to visit
     (all of a pair's when they ran out, else up to the last hit found), 8
-    bytes and about 6 int32 operations each, plus the hit records written.
+    bytes and about 6 int32 operations (``alu_s``) each, plus the hit records written.
     The cells its walks mark are left out: a lower bound."""
     flat, lo, hi, k = args[5], args[7], args[8], args[-1]
     hit_flat, _, nhits = out
@@ -425,7 +491,7 @@ def hits_bound(args, out):
     is_last = (flat == hit_flat[:, k - 1][pair]) & full[pair]
     pos = is_last.nonzero()[:, 0]
     visited = int(n[~full].sum() + (pos - lo[pair[pos]] + 1).sum())
-    t_ops = 6 * visited / PEAK_INT32
+    t_ops = alu_s(6 * visited)
     t_bytes = (8 * visited + 8 * hit_flat.numel()) / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -435,7 +501,9 @@ def modes_vs_plain(mode, dev, rng, times, bounds):
     """The four fills under one mode against the plain fill, max |diff| of
     each: on 256 DNA pairs of 512 bp, where kernel and plain are timed too
     (the plain runs are the reference), and on ragged batches of 256 pairs
-    (empty sides among them), equality and BLOSUM62."""
+    (empty sides among them), equality and BLOSUM62, where the matrix-dump
+    fills (rows ``nw_fill_gab``, ``sw_fill_gab``) are held to the plain
+    fill's M, Ga and Gb planes too."""
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import (_fill, nw_fill_dirs_plain,
@@ -499,21 +567,32 @@ def modes_vs_plain(mode, dev, rng, times, bounds):
                                              dev, MODE_L)
             v = valid_mask(2 * MODE_L - 1, MODE_L + 1, na, nb)
             m16 = m16_safe(sc, MODE_L, MODE_L)
-            # one plain fill holds both kernels of the family
-            dp_, cp, bestp, mp, _ = _fill(
-                ac, bc, na, nb, bp, is_sw=sw, emit_dirs=True,
-                m_dtype=(torch.int16 if m16 else torch.int32) if sw else None)
+            # one plain fill holds the three kernels of the family, its
+            # M plane the SW M
+            dp_, cp, bestp, gp, _ = _fill(ac, bc, na, nb, bp, is_sw=sw,
+                                          emit_dirs=True, emit_gab=True)
             if sw:
                 note("sw_scores", (kernels.sw_scores(ac, bc, na, nb, bp),
                                    bestp))
                 d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
-                note("sw_fill_dirs", (d[v], dp_[v]), (m[v], mp[v]))
+                note("sw_fill_dirs", (d[v], dp_[v]), (m[v], gp[0][v]))
+                del d, m
+                d, g = kernels.sw_fill_gab(ac, bc, na, nb, bp)
+                corner = []
             else:
                 s, c = kernels.nw_scores(ac, bc, na, nb, bp)
                 note("nw_scores", (s, cp.max(1).values), (c, cp))
                 d, c = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
                 note("nw_fill_dirs", (d[v], dp_[v]), (c, cp))
-            del d, dp_, v
+                del d
+                d, c, g = kernels.nw_fill_gab(ac, bc, na, nb, bp)
+                corner = [(c, cp)]
+            # the matrix dump's planes under the mode, in the family's row
+            k = f"{'sw' if sw else 'nw'}_fill_gab"
+            err[k] = max(err.get(k, 0), max_abs(
+                (d[v], dp_[v]), *corner,
+                *((g[i][v], gp[i][v]) for i in range(3))))
+            del d, dp_, v, g, gp
     torch.cuda.synchronize()
     return err
 
@@ -806,8 +885,9 @@ def carry_vs_plain(dev, rng, times, bounds):
 def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
                      sw=True):
     """Max |kernel - plain| of each kernel and mode on one batch; one
-    plain fill with codes (and SW M) holds both fills of a family, its
-    corner or best being the scores fill's."""
+    plain fill with codes (and SW M) holds the fills of a family, its
+    corner or best being the scores fill's, and on the ragged batches
+    (``width`` None) its M, Ga and Gb planes the matrix-dump fill's."""
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import _fill, sw_extract_candidates
     from seqalign_tpu_torch.ops.pack import m16_safe
@@ -820,13 +900,21 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     mode = "" if bp.sub is None else "[table]"
     cap = int((na + nb).max())
     err = {}
+    gab = width is None  # the dump's fills on the ragged batches
     if nw:
-        dpl, dcp = _fill(ac, bc, na, nb, bp, emit_dirs=True)[:2]
+        dpl, dcp, _, gpl, _ = _fill(ac, bc, na, nb, bp, emit_dirs=True,
+                                    emit_gab=gab)
         s, c = kernels.nw_scores(ac, bc, na, nb, bp)
         err["nw_scores" + mode] = max_abs((s, dcp.max(1).values), (c, dcp))
         d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
         v = valid_cells(d, na, nb)
         err["nw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (dc, dcp))
+        if gab:
+            dg, cg, g = kernels.nw_fill_gab(ac, bc, na, nb, bp)
+            err["nw_fill_gab"] = max_abs((dg[v], dpl[v]), (cg, dcp),
+                                         *((g[i][v], gpl[i][v])
+                                           for i in range(3)))
+            del dg, g, gpl
         del v, dpl
         o, os_ = kernels.nw_walk(d, dc, na, nb, cap)
         op, osp = nw_walk_plain(d, dc, na, nb, cap)
@@ -835,13 +923,21 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     if sw:
         m16 = m16_safe(sc, ac.shape[1], bc.shape[1])
         dpl, _, bestp, mpl, _ = _fill(
-            ac, bc, na, nb, bp, is_sw=True, emit_dirs=True,
+            ac, bc, na, nb, bp, is_sw=True, emit_dirs=True, emit_gab=gab,
             m_dtype=torch.int16 if m16 else torch.int32)
         s = kernels.sw_scores(ac, bc, na, nb, bp)
         err["sw_scores" + mode] = max_abs((s, bestp))
         d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
         v = valid_cells(d, na, nb)
-        err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (m[v], mpl[v]))
+        err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]),
+                                             (m[v], (mpl[0] if gab
+                                                     else mpl)[v]))
+        if gab:
+            dg, g = kernels.sw_fill_gab(ac, bc, na, nb, bp)
+            err["sw_fill_gab"] = max_abs((dg[v], dpl[v]),
+                                         *((g[i][v], mpl[i][v])
+                                           for i in range(3)))
+            del dg, g
         del v, dpl, mpl
         # the hit loop hint-less on the ragged batches (the mask in shared
         # memory), near the best cells at the wide widths (global memory)
@@ -867,9 +963,11 @@ def phase1(scs, rng, dev):
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
+                                           nw_fill_gab_plain,
                                            nw_scores_plain,
                                            sw_extract_candidates,
                                            sw_fill_dirs_plain,
+                                           sw_fill_gab_plain,
                                            sw_scores_plain)
     from seqalign_tpu_torch.ops.traceback import (nw_walk_plain,
                                                   sw_hits_plain,
@@ -925,6 +1023,13 @@ def phase1(scs, rng, dev):
                 cuda_ms(lambda: nw_fill_dirs_plain(ac, bc, na, nb, bp), 1,
                         warm=False))
             if key == "nw":
+                times["nw_fill_gab"] = (
+                    cuda_ms(lambda: kernels.nw_fill_gab(ac, bc, na, nb, bp),
+                            10),
+                    cuda_ms(lambda: nw_fill_gab_plain(ac, bc, na, nb, bp), 1,
+                            warm=False))
+                bounds["nw_fill_gab"] = fill_bound(na_h, nb_h, False, True,
+                                                   12)
                 times["nw_walk"] = (
                     cuda_ms(lambda: kernels.nw_walk(d, dc, na, nb, 1024), 10),
                     cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 1,
@@ -951,6 +1056,14 @@ def phase1(scs, rng, dev):
                                                      m16), 10),
                 cuda_ms(lambda: sw_fill_dirs_plain(ac, bc, na, nb, bp, m16),
                         1, warm=False))
+            if key == "sw":
+                times["sw_fill_gab"] = (
+                    cuda_ms(lambda: kernels.sw_fill_gab(ac, bc, na, nb, bp),
+                            10),
+                    cuda_ms(lambda: sw_fill_gab_plain(ac, bc, na, nb, bp), 1,
+                            warm=False))
+                bounds["sw_fill_gab"] = fill_bound(na_h, nb_h, True, True,
+                                                   12)
             times["sw_walk" + mode] = (
                 cuda_ms(lambda: kernels.sw_walk(d, ac, bc, na, nb, *starts,
                                                 bp, 1024), 10),
@@ -972,11 +1085,11 @@ def phase1(scs, rng, dev):
         log(f"phase 1: fills under {mode} vs plain, 256 x 512 and ragged, "
             f"equality and BLOSUM62: max |diff| {e} "
             f"({time.perf_counter() - t0:.1f} s)")
-        err.update(e)
-    err.update(walks_under_modes(dev, rng, times, bounds))
+        merge(err, e)
+    merge(err, walks_under_modes(dev, rng, times, bounds))
     wide = wide_modes_vs_plain(dev, rng)
     e, sample = carry_vs_plain(dev, rng, times, bounds)
-    err.update(e)
+    merge(err, e)
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
@@ -989,6 +1102,33 @@ def phase1(scs, rng, dev):
     return err, times, bounds, sample
 
 
+def merge(err, e):
+    """Max-merge the errors ``e`` of one check into ``err``."""
+    for k, v in e.items():
+        err[k] = max(err.get(k, 0), v)
+
+
+# lane instructions of T1's chain an element and step, the fewest its op
+# needs: one VIADDMNMX an add-max, one IADD3 two chained adds; a move's add
+# (its shared-memory or shuffle transfer and barrier left out, as the fills'
+# count leaves out theirs); int16 packs two lanes in one instruction, a move
+# adding a byte permute a word
+VPU_INSTR = {("addmax", "int32"): 1, ("add", "int32"): 0.5,
+             ("roll", "int32"): 1, ("shift", "int32"): 1,
+             ("addmax", "int16"): 0.5, ("add", "int16"): 0.5,
+             ("roll", "int16"): 1, ("shift", "int16"): 1}
+
+
+def vpu_bound(op, dt, lanes):
+    """The least time of one probe launch: its lane instructions
+    (``VPU_INSTR``) at ``PEAK_INT32``, or its bytes, the block read and
+    written once."""
+    t_ops = VPU_R * lanes * VPU_S * VPU_INSTR[op, dt] / PEAK_INT32
+    t_bytes = 2 * VPU_R * lanes * (2 if dt == "int16" else 4) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 class PlainGuard:
     """Replaces the plain versions the wrappers call with versions that
     raise on a CUDA tensor, for the main-path phases."""
@@ -996,7 +1136,8 @@ class PlainGuard:
     NAMES = ("nw_scores_plain", "nw_fill_dirs_plain", "nw_walk_plain",
              "sw_scores_plain", "sw_fill_dirs_plain", "sw_walk_plain",
              "sw_hits_plain", "nw_fill_dirs_carry_plain",
-             "sw_fill_dirs_carry_plain")
+             "sw_fill_dirs_carry_plain", "nw_fill_gab_plain",
+             "sw_fill_gab_plain")
 
     def __enter__(self):
         from seqalign_tpu_torch.ops import kernels
@@ -1832,6 +1973,441 @@ def phase_long(rng, dev, gpu, jobs, sample):
     return check
 
 
+def phase_vpu(err, times, bounds):
+    """Path vpu: the probe (``python -m seqalign_tpu_torch.tools.exp_vpu``:
+    its ``parse`` and ``run``) once per row of ``VPU_ROWS``; it holds the
+    kernel to the plain version, times that once and the kernel at 512
+    steps, 16 x and 64 x as many, and the line it prints gives T ops/s.
+    Fills each row's ``err``, ``times`` and ``bounds`` from that run and
+    returns its launches, counted from 0 around it."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch.tools import exp_vpu
+
+    launches = {}
+    for op, dt, lanes in VPU_ROWS:
+        name = vpu_row(op, dt, lanes)
+        args = exp_vpu.parse(["--op", op, "--dtype", dt, "--lanes",
+                              str(lanes), "--rows", str(VPU_R), "--steps",
+                              str(VPU_S)])
+        port.reset_kernel_launch_counts()
+        r = exp_vpu.run(args)
+        launches[name] = port.kernel_launch_counts()
+        counted("vpu", launches[name], f"vpu {name}")
+        err[name] = r["max_abs_err"]
+        times[name] = (r["ms"], r["plain_ms"])
+        bounds[name] = vpu_bound(op, dt, lanes)
+        log(f"path vpu: {exp_vpu.describe(r)}; max |diff| {err[name]}, "
+            f"plain {r['plain_ms']:.1f} ms, bound {bounds[name][0]:.6f} ms "
+            f"({bounds[name][1]})")
+    return launches
+
+
+# path cli: the three CLIs on the BASELINE.json workloads
+CLI_NW_PAIRS = 4096  # configs[1]: DNA pairs of 1-10 kb, gzip FASTA
+CLI_SW_PAIRS = 1024  # configs[2]: protein pairs of 100-1,000 aa, BLOSUM62
+CLI_READS = 1024  # configs[3]: reads of 256-512 bp x references of 1-10 kb
+CLI_LCS_LEN = 512  # lcs prints every hit: ~25 k lines at 512 bp
+CLI_MATRIX = (300, 200)  # the --printmatrices pair
+CLI_SLICE = 32  # pairs of each job run on the card and under the host route
+CLI_SHARDS = 8  # host processes for the slice of 1-10 kb NW pairs
+CLI_SAMPLE = 64  # alignments of a job checked by spelling and rescoring
+CLI_KB = (1000, 10000)  # the 1-10 kb sides of jobs 1 and 3
+
+
+def write_fasta(path, A, B):
+    """Pairs as alternating FASTA records, gzip when ``path`` ends in
+    .gz."""
+    import gzip
+
+    data = "".join(f">a{i}\n{a}\n>b{i}\n{b}\n"
+                   for i, (a, b) in enumerate(zip(A, B))).encode()
+    opener = (lambda: gzip.open(path, "wb", compresslevel=1)) \
+        if path.endswith(".gz") else (lambda: open(path, "wb"))
+    with opener() as fh:
+        fh.write(data)
+    return path
+
+
+def run_cli(tool, args, out_path, env=None):
+    """One CLI ``main`` in-process, stdout to ``out_path``, stderr kept,
+    with ``env`` set around it.  Returns (exit code, stderr)."""
+    import contextlib
+    import io
+
+    from seqalign_tpu_torch.cli import lcs, needleman_wunsch, smith_waterman
+
+    main = {"nw": needleman_wunsch.main, "sw": smith_waterman.main,
+            "lcs": lcs.main}[tool]
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    err = io.StringIO()
+    try:
+        with open(out_path, "w") as fh, contextlib.redirect_stdout(fh), \
+                contextlib.redirect_stderr(err):
+            try:
+                rc = main([tool] + args) or 0
+            except SystemExit as e:
+                rc = e.code or 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, err.getvalue()
+
+
+def cli_job(label, tool, args, out_path, cells, n, need, gpu, env=None):
+    """One job of path cli, once, under ``torch.profiler`` and the
+    plain-version guard: launch counts zeroed before and read after (each
+    kernel of ``need`` must have run), wall (profiler on), pairs/s, GCUPS,
+    busy share (device self time / wall), output bytes, top device items.
+    Returns the output text."""
+    import seqalign_tpu_torch as port
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    port.reset_kernel_launch_counts()
+    with PlainGuard(), torch_profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, err = run_cli(tool, args, out_path, env)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = port.kernel_launch_counts()
+    if rc != 0 or err:
+        raise AssertionError(f"cli {label}: exit {rc}, stderr {err[:500]!r}")
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"cli {label}: {missing} not launched: {counts}")
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(map(_self_device_us, dev_ev))
+    top = sorted(dev_ev, key=_self_device_us, reverse=True)[:3]
+    size = os.path.getsize(out_path)
+    log(f"cli {label}: {n} pairs, {cells} cells in {secs:.4f} s = "
+        f"{n / secs:.1f} pairs/s, {cells / secs / 1e9:.3f} GCUPS, busy share "
+        f"{dev_us / 1e6 / secs:.4f}, {size} output bytes; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; top: " + "; ".join(
+            f"{e.key[:48]} x{e.count} {_self_device_us(e) / 1e3:.3f} ms"
+            for e in top) + f" [{gpu}]")
+    with open(out_path) as fh:
+        return fh.read(), counts
+
+
+def same_on_host(label, tool, args, card_text, work, env_host=None):
+    """The CLI under ``SEQALIGN_FORCE=host`` must print ``card_text`` byte
+    for byte."""
+    out = os.path.join(work, f"{tool}_host.txt")
+    rc, err = run_cli(tool, args, out, dict(SEQALIGN_FORCE="host",
+                                            **(env_host or {})))
+    with open(out) as fh:
+        host = fh.read()
+    if rc != 0 or err or host != card_text:
+        raise AssertionError(f"cli {label}: the host route's stdout differs "
+                             f"(exit {rc}, {len(host)} vs {len(card_text)} "
+                             f"bytes)")
+
+
+def card_slice(label, tool, args, A, B, work, name):
+    """The first CLI_SLICE pairs of a job through the CLI on the card;
+    returns the slice's file and stdout."""
+    path = write_fasta(os.path.join(work, name), A[:CLI_SLICE],
+                       B[:CLI_SLICE])
+    out = os.path.join(work, f"{tool}_slice.txt")
+    rc, err = run_cli(tool, args + ["--file", path], out)
+    if rc != 0 or err:
+        raise AssertionError(f"cli {label} slice: exit {rc}, {err[:300]!r}")
+    with open(out) as fh:
+        return path, fh.read()
+
+
+def host_shards(tool, args, A, B, work):
+    """The NW CLI under the host route on the first CLI_SLICE pairs, in
+    CLI_SHARDS processes of consecutive pairs (NW prints each pair on its
+    own, so the shards' stdout joined is the slice's); each process aligns
+    on the CPU (``SEQALIGN_DEVICE=cpu``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, SEQALIGN_FORCE="host", SEQALIGN_DEVICE="cpu")
+    step = -(-CLI_SLICE // CLI_SHARDS)
+    procs = []
+    for k in range(0, CLI_SLICE, step):
+        end = min(k + step, CLI_SLICE)
+        path = write_fasta(os.path.join(work, f"shard{k}.fa"), A[k:end],
+                           B[k:end])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"seqalign_tpu_torch.cli.{tool}", *args,
+             "--file", path], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    for p in procs:
+        so, se = p.communicate(timeout=600)
+        if p.returncode != 0 or se:
+            raise AssertionError(f"host shard: exit {p.returncode}, {se}")
+        outs.append(so)
+    return "".join(outs)
+
+
+def parse_nw(text):
+    """NW --printscores stdout: [(result_a, result_b, score)]."""
+    out = []
+    for blk in text.split("\n\n")[:-1]:
+        ra, rb, sc = blk.split("\n")
+        out.append(types.SimpleNamespace(result_a=ra, result_b=rb,
+                                         score=int(sc.split(": ")[1])))
+    return out
+
+
+def _part(line):
+    body, _, tail = line[2:].rpartition("  [pos: ")
+    pos, ln = tail.rstrip("]").split("; len: ")
+    return body, int(pos), int(ln)
+
+
+def parse_sw(text):
+    """SW stdout: each alignment's hits, in order."""
+    out = []
+    for blk in text.split("== Alignment ")[1:]:
+        lines = blk.split("\n")
+        hits = []
+        for i, ln in enumerate(lines):
+            if ln.startswith("hit "):
+                ra, pa, la = _part(lines[i + 1])
+                rb, pb, lb = _part(lines[i + 2])
+                hits.append(types.SimpleNamespace(
+                    score=int(ln.rsplit(" ", 1)[1]), result_a=ra, pos_a=pa,
+                    len_a=la, result_b=rb, pos_b=pb, len_b=lb))
+        out.append(hits)
+    return out
+
+
+def parse_matrices(text):
+    """The three matrices of a --printmatrices dump, int64 arrays, and the
+    text after the dump."""
+    mats, rows, rest = [], None, text
+    lines = text.split("\n")
+    for i, ln in enumerate(lines):
+        if ln.endswith("_scores:"):
+            rows = []
+            mats.append(rows)
+        elif ln.startswith("match: "):
+            rest = "\n".join(lines[i + 2:])
+            break
+        elif rows is not None and ln:
+            rows.append([int(v) for v in ln.split("\t")[1:]])
+    return [np.array(m, np.int64) for m in mats], rest
+
+
+def phase_cli(rng, dev, gpu):
+    """Path cli: the CLIs' ``main`` in-process on inputs numpy writes from
+    the seed into a temporary directory, stdout to a file (see the module
+    docstring); each job's launches counted from 0 around it.  Returns the
+    jobs' launch counts summed."""
+    import tempfile
+
+    import seqalign_tpu_torch as port
+
+    total = dict.fromkeys(port.kernel_launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    from seqalign_tpu_torch.io import native
+
+    # set-up: the native FASTA reader is built before the first job
+    log("cli: native sequence reader " + (
+        "built" if native.available() else "unavailable: the Python reader"))
+    with tempfile.TemporaryDirectory(prefix="cli-") as work:
+        nw_sc = port.presets.scoring_system_default()
+        eq = eq_table(nw_sc)
+        # job 1: BASELINE.json configs[1]
+        A = dna(rng, CLI_NW_PAIRS, *CLI_KB)
+        B = dna(rng, CLI_NW_PAIRS, *CLI_KB)
+        fa = write_fasta(os.path.join(work, "pairs.fa.gz"), A, B)
+        label = f"job 1: needleman_wunsch --file pairs.fa.gz, {len(A)} pairs"
+        text, c = cli_job(label, "nw", ["--printscores", "--file", fa],
+                          os.path.join(work, "nw.txt"), cells_of(A, B),
+                          len(A), ("nw_fill_dirs", "nw_walk"), gpu)
+        add(c)
+        alns = parse_nw(text)
+        if len(alns) != len(A):
+            raise AssertionError(f"cli {label}: {len(alns)} alignments")
+        want = port.NeedlemanWunsch(device=dev).score_batch(A, B)
+        if [a.score for a in alns] != want.tolist():
+            raise AssertionError(f"cli {label}: scores disagree with "
+                                 f"score_batch")
+        for k, i in enumerate(rng.choice(len(A), min(CLI_SAMPLE, len(A)),
+                                         replace=False)):
+            witness_alignment(eq, nw_sc, A[i], B[i], alns[i],
+                              f"cli job 1 pair {i}",
+                              opt=None if k < 2 else int(want[i]))
+        _, card = card_slice("job 1", "nw", ["--printscores"], A, B, work,
+                             "slice1.fa.gz")
+        host = host_shards("needleman_wunsch", ["--printscores"], A, B, work)
+        if host != card or not text.startswith(card):
+            raise AssertionError(f"cli job 1: the slice's stdout differs on "
+                                 f"the host route ({host == card}) or from "
+                                 f"the job's")
+        log(f"cli job 1: scores equal score_batch, "
+            f"{min(CLI_SAMPLE, len(A))} alignments spell and rescore, "
+            f"{CLI_SLICE}-pair slice byte-identical on the host route "
+            f"({len(card)} bytes)")
+        del A, B, text, alns
+
+        # job 2: BASELINE.json configs[2]
+        swp = port.presets.scoring_system_BLOSUM62()
+        A, B, _ = job2_inputs(rng, CLI_SW_PAIRS)
+        fa = write_fasta(os.path.join(work, "prot.fa"), A, B)
+        args = ["--scoring", "BLOSUM62", "--minscore", "100", "--maxhits",
+                "8"]
+        label = f"job 2: smith_waterman {' '.join(args)}, {len(A)} pairs"
+        text, c = cli_job(label, "sw", args + ["--file", fa],
+                          os.path.join(work, "sw.txt"), cells_of(A, B),
+                          len(A), ("sw_fill_dirs", "sw_hits", "sw_walk"),
+                          gpu)
+        add(c)
+        hits = parse_sw(text)
+        if len(hits) != len(A) or not sum(map(len, hits)):
+            raise AssertionError(f"cli {label}: {len(hits)} alignments")
+        table = blosum62_table(swp)
+        best = port.SmithWaterman(swp, device=dev).best_score_batch(A, B)
+        for k, i in enumerate(rng.choice(len(A), min(CLI_SAMPLE, len(A)),
+                                         replace=False)):
+            witness_hits(table, swp, A[i], B[i], hits[i], 100,
+                         f"cli job 2 pair {i}",
+                         opt=None if k < 8 else int(best[i]))
+        path, card = card_slice("job 2", "sw", args, A, B, work, "s2.fa")
+        same_on_host("job 2", "sw", args + ["--file", path], card, work)
+        if not text.startswith(card):
+            raise AssertionError("cli job 2: the slice differs from the job")
+        log(f"cli job 2: {sum(map(len, hits))} hits, "
+            f"{min(CLI_SAMPLE, len(A))} pairs' hits spell and rescore, the "
+            f"first at the optimum (8 by the numpy Gotoh); "
+            f"{CLI_SLICE}-pair slice byte-identical on the host route")
+
+        # job 3: BASELINE.json configs[3], reads against references
+        args = ["--freestartgap", "--freeendgap", "--wildcard", "N", "0",
+                "--case_sensitive", "--printscores"]
+        # the reference CLI's --case_sensitive does not reach the scoring
+        # (alignment_cmdline.c, kept bug for bug): letters fold, and so
+        # does the wildcard, which scores 0 against anything
+        sc3 = port.ScoringConfig(1, -2, -4, -1, no_start_gap_penalty=True,
+                                 no_end_gap_penalty=True)
+        t3 = eq_table(sc3)
+        for w in b"Nn":
+            t3[w, :] = t3[:, w] = 0
+        refs = dna(rng, CLI_READS, *CLI_KB)
+        reads = []
+        for r in refs:
+            k = int(rng.integers(READ_LEN[0], READ_LEN[1] + 1))
+            p = int(rng.integers(0, len(r) - k + 1))
+            seg = np.frombuffer(r[p:p + k].encode(), np.uint8).copy()
+            hit = rng.random(k) < 0.03
+            seg[hit] = DNA[rng.integers(0, len(DNA), int(hit.sum()))]
+            seg[rng.random(k) < 0.01] = ord("N")
+            reads.append(seg.tobytes().decode())
+        fa = write_fasta(os.path.join(work, "reads.fa"), refs, reads)
+        label = f"job 3: needleman_wunsch {' '.join(args)}, {len(refs)} pairs"
+        text, c = cli_job(label, "nw", args + ["--file", fa],
+                          os.path.join(work, "reads.txt"),
+                          cells_of(refs, reads), len(refs),
+                          ("nw_fill_dirs", "nw_walk"), gpu)
+        add(c)
+        alns = parse_nw(text)
+        if len(alns) != len(refs) or \
+                min(a.score for a in alns) < READ_LEN[0] // 2:
+            raise AssertionError(f"cli {label}: a read did not find its "
+                                 f"place")
+        for i in rng.choice(len(refs), 16, replace=False):
+            witness_alignment(t3, sc3, refs[i], reads[i], alns[i],
+                              f"cli job 3 pair {i}")
+        path, card = card_slice("job 3", "nw", args, refs, reads, work,
+                                "s3.fa")
+        same_on_host("job 3", "nw", args + ["--file", path], card, work)
+        if not text.startswith(card):
+            raise AssertionError("cli job 3: the slice differs from the job")
+        log(f"cli job 3: 16 alignments at the numpy optimum, "
+            f"{CLI_SLICE}-pair slice byte-identical on the host route")
+
+        # job 4: lcs on one sequence, its every hit
+        seq = seqs(rng, 1, CLI_LCS_LEN, CLI_LCS_LEN,
+                   np.frombuffer(b"acgt", np.uint8))[0]
+        label = f"job 4: lcs on {CLI_LCS_LEN} bp"
+        env = {"SEQALIGN_FORCE": "device"}
+        text, c = cli_job(label, "lcs", [seq], os.path.join(work, "lcs.txt"),
+                          len(seq) ** 2, 1, ("sw_fill_dirs", "sw_hits",
+                                             "sw_walk"), gpu, env)
+        add(c)
+        lines = text.splitlines()
+        for ln in lines:
+            sub, _, at = ln.rpartition(" [")
+            pa, pb = map(int, at.rstrip("]").split(","))
+            if not (pa < pb and seq[pa:pa + len(sub)] == sub
+                    == seq[pb:pb + len(sub)]):
+                raise AssertionError(f"cli {label}: {ln!r} is no repeat")
+        if [len(ln.rpartition(" [")[0]) for ln in lines] != sorted(
+                (len(ln.rpartition(" [")[0]) for ln in lines), reverse=True):
+            raise AssertionError(f"cli {label}: not longest first")
+        same_on_host("job 4", "lcs", [seq], text, work)
+        log(f"cli job 4: {len(lines)} repeats, each spelled at both "
+            f"places, longest first; byte-identical on the host route")
+
+        # job 5: the matrix dump, NW and SW, one pair
+        a = dna(rng, 1, CLI_MATRIX[0], CLI_MATRIX[0])[0]
+        b = plant(rng, a, dna(rng, 1, CLI_MATRIX[1], CLI_MATRIX[1])[0], 100,
+                  0.05)
+        sw_sc = port.ScoringConfig(2, -2, -2, -1)
+        for tool, need, sc in (("nw", ("nw_fill_gab", "nw_walk"), nw_sc),
+                               ("sw", ("sw_fill_gab", "sw_hits", "sw_walk"),
+                                sw_sc)):
+            args = ["--printmatrices"] + (["--printscores"] if tool == "nw"
+                                          else []) + [a, b]
+            label = f"job 5: {tool} --printmatrices, {len(a)} x {len(b)}"
+            text, c = cli_job(label, tool, args,
+                              os.path.join(work, f"m_{tool}.txt"),
+                              len(a) * len(b), 1, need, gpu, env)
+            add(c)
+            tab = eq_table(sc)
+            if tool == "nw":
+                (M, Ga, Gb), rest = parse_matrices(text)
+                aln = parse_nw(rest)[0]
+                witness_alignment(tab, sc, a, b, aln, f"cli {label}")
+                top = max(M[-1, -1], Ga[-1, -1], Gb[-1, -1])
+            else:
+                (M, Ga, Gb), _ = parse_matrices(text.split("\n", 1)[1])
+                hs = parse_sw(text)[0]
+                witness_hits(tab, sc, a, b, hs, 1, f"cli {label}")
+                aln = hs[0]
+                top = M.max()
+            if M.shape != (len(b) + 1, len(a) + 1) or top != aln.score:
+                raise AssertionError(f"cli {label}: dump {M.shape}, its top "
+                                     f"{top}, score {aln.score}")
+            same_on_host(f"job 5 {tool}", tool, args, text, work)
+        log("cli job 5: the dumps' corner / best equal the scores, the "
+            "alignments the numpy optimum; byte-identical on the host route")
+
+    # the module entry point, cold, on the card
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "seqalign_tpu_torch.cli.needleman_wunsch",
+         "--printscores", "CAGACGT", "CGATA"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, SEQALIGN_FORCE="device"), capture_output=True,
+        text=True, timeout=300)
+    if r.returncode or r.stdout != "C-AGACGT\nCGATA---\nscore: -11\n\n":
+        raise AssertionError(f"python -m ...needleman_wunsch: exit "
+                             f"{r.returncode}, {r.stdout!r} {r.stderr!r}")
+    log(f"cli: python -m seqalign_tpu_torch.cli.needleman_wunsch "
+        f"--printscores CAGACGT CGATA -> score -11 on the card in "
+        f"{time.perf_counter() - t0:.2f} s (cold start)")
+    return total
+
+
 def consume_per_pair(sw, A, B, mins, k):
     """``align_batch`` wall seconds, then each pair's seconds for its first
     ``k`` hits, and the pairs' candidate counts."""
@@ -1993,6 +2569,120 @@ def profile(jobs, out_dir):
                 for e in top) + f" (table: {path})")
 
 
+# the add-then-max forms of the probe's addmax step, beside csrc/exp_vpu.cu's
+# DPX intrinsics, for ``--sass``
+ADDMAX_PLAIN_CU = r"""
+__global__ void addmax_plain_s32(const int* x, int* o, int S) {
+  int v = x[threadIdx.x], w = v;
+  for (int i = 0; i < S; ++i) {
+    asm volatile("" : "+r"(v));
+    w = max(static_cast<int>(static_cast<unsigned>(w) +
+                             static_cast<unsigned>(v)), w);
+  }
+  o[threadIdx.x] = w;
+}
+__global__ void addmax_plain_s16x2(const unsigned* x, unsigned* o, int S) {
+  unsigned v = x[threadIdx.x], w = v;
+  for (int i = 0; i < S; ++i) {
+    asm volatile("" : "+r"(v));
+    w = __vmaxs2(__vadd2(w, v), w);
+  }
+  o[threadIdx.x] = w;
+}
+"""
+
+
+def sass_of(sources, work):
+    """{kernel: [instruction, ...]} of the ``.cu`` files ``sources``,
+    compiled to cubins in ``work`` in parallel with the build's nvcc flags
+    and read back with ``cuobjdump -sass``.  A kernel's name loses the hash
+    nvcc gives an anonymous namespace, so that two trees' names meet."""
+    import re
+
+    from seqalign_tpu_torch.ops import build
+
+    nvcc = build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    cubins = [os.path.join(work, f"{i}_{os.path.basename(src)}.cubin")
+              for i, src in enumerate(sources)]
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-cubin", "-o", cb,
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, cb in zip(sources, cubins)]
+    for src, p in zip(sources, procs):
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+    funcs: dict = {}
+    for cb in cubins:
+        text = subprocess.run([cuobjdump, "-sass", cb], capture_output=True,
+                              text=True, check=True).stdout
+        name = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_"
+                              r"[0-9a-f]{8}", r"_anon_\1", m.group(1))
+                funcs[name] = []
+            elif name is not None:
+                m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+                if m:
+                    funcs[name].append(m.group(1))
+    return funcs
+
+
+def opcode_mix(ins, top=10) -> str:
+    """The ``top`` opcodes of a kernel's instructions, with counts."""
+    ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in ins]
+    counts: dict = {}
+    for o in ops:
+        counts[o.split(".")[0]] = counts.get(o.split(".")[0], 0) + 1
+    return ", ".join(f"{k} {v}" for k, v in sorted(
+        counts.items(), key=lambda kv: -kv[1])[:top])
+
+
+def sass_report(old, gpu):
+    """``--sass``: the probe kernels' and the add-then-max chains' opcode
+    mixes, and, with an older tree ``old``, the fill instantiations both
+    trees share compared instruction by instruction."""
+    import tempfile
+    from pathlib import Path
+
+    from seqalign_tpu_torch.ops import build
+
+    with tempfile.TemporaryDirectory() as work:
+        plain = Path(work) / "addmax_plain.cu"
+        plain.write_text(ADDMAX_PLAIN_CU)
+        new_src = sorted(build.CSRC.glob("*.cu"))
+        old_src = (sorted((Path(old) / "seqalign_tpu_torch" / "csrc").glob(
+            "*.cu")) if old else [])
+        if old and not old_src:
+            raise RuntimeError(f"{old} holds no seqalign_tpu_torch/csrc")
+        os.mkdir(os.path.join(work, "new"))
+        os.mkdir(os.path.join(work, "old"))
+        t0 = time.perf_counter()
+        new = sass_of(new_src + [plain], os.path.join(work, "new"))
+        prev = sass_of(old_src, os.path.join(work, "old")) if old else {}
+    log(f"sass: compiled {len(new_src) + 1 + len(old_src)} sources in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
+    for name, ins in sorted(new.items()):
+        if "chain_kernel" in name or "addmax_plain" in name:
+            log(f"sass: {name}: {len(ins)} instructions: {opcode_mix(ins)}")
+    if old:
+        common = sorted(set(new) & set(prev))
+        fills = [n for n in common if "fill_kernel" in n]
+        same = [n for n in fills if new[n] == prev[n]]
+        log(f"sass: {len(fills)} fill_kernel instantiations in both trees, "
+            f"{len(same)} identical instruction by instruction; differing: "
+            f"{[n for n in fills if n not in same]}")
+        others = [n for n in common if n not in fills]
+        only = [n for n in set(new) - set(prev) if "addmax_plain" not in n]
+        log(f"sass: other kernels in both trees: {len(others)}, identical "
+            f"{sum(new[n] == prev[n] for n in others)}; only in this tree: "
+            f"{len(only)}, only in {old}: {len(set(prev) - set(new))}")
+    log(f"sass: done [{gpu}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2006,6 +2696,9 @@ def main() -> int:
     ap.add_argument("--walk-ab", action="store_true",
                     help="only time the SW align jobs' first pairs under "
                          "both walk branches")
+    ap.add_argument("--sass", metavar="OLD_TREE", nargs="?", const="",
+                    help="only print the kernels' SASS instruction mixes and "
+                         "compare the fills with an older checkout's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -2018,6 +2711,9 @@ def main() -> int:
     t_run = time.perf_counter()
     gpu = gpu_name_power()
     print(gpu, flush=True)
+    if args.sass is not None:
+        sass_report(args.sass, gpu)
+        return 0
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -2077,6 +2773,13 @@ def main() -> int:
     counted("long", launches["long"])
     check()
     log(f"path long done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vpu_launches = phase_vpu(err, times, bounds)
+    log(f"path vpu done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["cli"] = phase_cli(rng, dev, gpu)
+    counted("cli", launches["cli"])
+    log(f"path cli done in {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu"))
     if loaded:
@@ -2087,7 +2790,11 @@ def main() -> int:
     rows = []
     for name, (counter, src, rep) in KERNELS.items():
         mode = name.partition("[")[2].rstrip("]")
-        if mode in ("carry", "chunked"):
+        if name.startswith("vpu_chain"):
+            n = vpu_launches[name]
+        elif name.endswith("_fill_gab"):
+            n = launches["cli"]
+        elif mode in ("carry", "chunked"):
             n = launches["long"]
         elif mode in ("", "table"):
             n = launches[name.split("_")[0] + ("_table" if mode else "")]

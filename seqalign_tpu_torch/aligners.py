@@ -16,8 +16,9 @@ JAX package (``_route``):
 The device path covers equality and substitution-matrix/wildcard scoring,
 any gap_open, and the flags no_start_gap_penalty, no_end_gap_penalty,
 no_gaps_in_a, no_gaps_in_b and no_mismatches; :func:`_check_slice` is the
-one place that picks a kernel, and it raises ``NotImplementedError``
-naming the ROADMAP.md item for what is still unported (the matrix dump).
+one place that picks a kernel.  ``align_with_matrices`` (the CLI's
+``--printmatrices``) fills one pair with the M, Ga and Gb planes on the
+device and deskews them (:func:`_deskew_all`).
 
 Pairs over ``LONG_PAIR_CELLS``, and ``align_long``, take the long-pair
 path (:class:`_LongFill`): seq_a in chunks of at most ``LONG_CHUNK``
@@ -42,7 +43,8 @@ import torch
 
 from .io import packer
 from .ops import host_dp, kernels
-from .ops.dp import boundary_column, merge_candidates, sw_sorted_candidates
+from .ops.dp import (boundary_column, deskew, merge_candidates,
+                     sw_sorted_candidates)
 from .ops.pack import (KernelParams, _next_pow2, check_valid_pairs,
                        kernel_params, m16_safe, mm_eligible, pack_batch,
                        pad_width)
@@ -117,26 +119,20 @@ def _route(total_cells: int, n_pairs: int,
     return "device"
 
 
-# what is still unported -> the ROADMAP.md item that will cover it
-_UNPORTED = {
-    "matrices": "align_with_matrices needs the deskewed matrix dump: "
-                "ROADMAP.md Queue 1 item 4",
-}
 _ENTRIES = {("scores", False): "nw_scores", ("scores", True): "sw_scores",
             ("dirs", False): "nw_fill_dirs", ("dirs", True): "sw_fill_dirs",
+            ("gab", False): "nw_fill_gab", ("gab", True): "sw_fill_gab",
             ("long", False): "nw_fill_dirs_carry",
             ("long", True): "sw_fill_dirs_carry"}
 
 
 def _check_slice(what: str, is_sw: bool = False):
     """The device path's single dispatch point: the wrapper in
-    ``ops/kernels.py`` that serves ``what`` ("scores", "dirs", or "long",
-    one chunk of a long pair) for NW or SW.  Each wrapper takes equality
-    or table scoring and the flag word from the batch's ``KernelParams``,
-    so every config has an entry; ``what`` in ``_UNPORTED`` raises with
-    its ROADMAP.md item."""
-    if what in _UNPORTED:
-        raise NotImplementedError(_UNPORTED[what])
+    ``ops/kernels.py`` that serves ``what`` ("scores", "dirs", "gab", the
+    fill with the matrix dump's planes, or "long", one chunk of a long
+    pair) for NW or SW.  Each wrapper takes equality or table scoring and
+    the flag word from the batch's ``KernelParams``, so every config has an
+    entry."""
     return getattr(kernels, _ENTRIES[(what, is_sw)])
 
 
@@ -448,6 +444,33 @@ class NeedlemanWunsch:
         self._align_long([0], [seq_a], [seq_b], results, chunk)
         return results[0]  # type: ignore[return-value]
 
+    def align_with_matrices(self, seq_a: str, seq_b: str):
+        """One fill shared by the alignment and the (M, Ga, Gb) row-major
+        matrices (--printmatrices parity without a second fill, as the
+        reference prints from live fill state, tools/nw_cmdline.c:107-110;
+        seqalign_tpu/aligners.py:1168-1187): on the device ``nw_fill_gab``,
+        the walk ``nw_walk`` and the planes deskewed."""
+        sc = self.scoring
+        if os.environ.get("SEQALIGN_REF_WRAP") == "1":
+            return host_dp.nw_align_ref_wrap(sc, seq_a, seq_b)
+        if _route(len(seq_a) * len(seq_b), 1, sc) == "host":
+            return host_dp.nw_align_with_matrices(sc, seq_a, seq_b)
+        check_valid_pairs(sc, seq_a, seq_b)
+        ac, bc, na, nb, bp = pack_batch(sc, self.params, [seq_a], [seq_b],
+                                        max(1, len(seq_a)),
+                                        max(1, len(seq_b)))
+        ac_t, bc_t, na_t, nb_t = _to(self.device, ac, bc, na, nb)
+        dirs, corner, gab = _check_slice("gab")(ac_t, bc_t, na_t, nb_t, bp)
+        ops, score = kernels.nw_walk(dirs, corner, na_t, nb_t,
+                                     int(na[0] + nb[0]))
+        aln = nw_strings_from_ops([seq_a], [seq_b], na, nb,
+                                  ops.cpu().numpy(), score.cpu().numpy())[0]
+        return aln, _deskew_all(sc, gab, int(na[0]), int(nb[0]), is_sw=False)
+
+    def matrices(self, seq_a: str, seq_b: str):
+        """Full (M, Ga, Gb) row-major matrices for --printmatrices parity."""
+        return self.align_with_matrices(seq_a, seq_b)[1]
+
     def score(self, seq_a: str, seq_b: str) -> int:
         return int(self.score_batch([seq_a], [seq_b])[0])
 
@@ -519,19 +542,25 @@ class _Hits:
 class _SwFill(_Hits):
     """One SW fill on the device and its harvest: ``sw_fill_dirs`` with M,
     the candidates of every pair in hit order (``sw_sorted_candidates``),
-    then M is freed and only the codes stay."""
+    then M is freed and only the codes stay.  With ``gab`` the fill is
+    ``sw_fill_gab`` and its (3, B, D, LB+1) M, Ga and Gb planes stay as
+    ``self.gab`` for the matrix dump."""
 
     def __init__(self, sc: ScoringConfig, params: KernelParams, device, ga,
-                 gb, mins, la: int, lb: int):
+                 gb, mins, la: int, lb: int, gab: bool = False):
         for a, b in zip(ga, gb):
             check_valid_pairs(sc, a, b)
         ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
                                                            la, lb)
         self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
                                                      self.nb)
-        self.dirs, mmat = _check_slice("dirs", True)(
-            self.ac, self.bc, self.na_t, self.nb_t, self.params,
-            m16_safe(sc, la, lb))
+        args = (self.ac, self.bc, self.na_t, self.nb_t, self.params)
+        if gab:
+            self.dirs, self.gab = _check_slice("gab", True)(*args)
+            mmat = self.gab[0]
+        else:
+            self.dirs, mmat = _check_slice("dirs", True)(
+                *args, m16_safe(sc, la, lb))
         self._harvested(*sw_sorted_candidates(mmat, self.na, self.nb, mins))
 
     def host_codes(self, j: int) -> np.ndarray:
@@ -767,10 +796,53 @@ class SmithWaterman:
                          chunk)
         return results[0]
 
-    def align_with_matrices(self, *args, **kw):
-        _check_slice("matrices")
+    def align_with_matrices(self, seq_a: str, seq_b: str):
+        """One fill shared by the hit stream and the row-major matrices
+        (seqalign_tpu/aligners.py:1408-1429): on the device
+        ``sw_fill_gab``, its M plane harvested without a hint, the hits
+        found as ``align_batch`` finds them, and the planes deskewed."""
+        sc = self.scoring
+        if _route(len(seq_a) * len(seq_b), 1) == "host":  # SW: no sentinel
+            mats = host_dp.fill_matrices(sc, seq_a, seq_b, is_sw=True)
+            return host_dp.HostSwHits(sc, seq_a, seq_b, matrices=mats,
+                                      history=self.history), mats
+        fill = _SwFill(sc, self.params, self.device, [seq_a], [seq_b], [1],
+                       max(1, len(seq_a)), max(1, len(seq_b)), gab=True)
+        mats = _deskew_all(sc, fill.gab, int(fill.na[0]), int(fill.nb[0]),
+                           is_sw=True)
+        del fill.gab
+        results: List = [None]
+        self._streams(fill, [0], [seq_a], [seq_b], [1], None, results)
+        return results[0], mats
 
-    matrices = align_with_matrices
+    def matrices(self, seq_a: str, seq_b: str):
+        return self.align_with_matrices(seq_a, seq_b)[1]
+
+
+def _deskew_all(sc: ScoringConfig, gab, na: int, nb: int, *, is_sw):
+    """Pair 0's M, Ga and Gb planes of a ``*_fill_gab`` launch, (3, B, D,
+    LB+1), as row-major (nb+1, na+1) int32 host arrays, with the
+    closed-form boundary row and column (alignment.c:51-81) the fill never
+    stores (seqalign_tpu/aligners.py:1435-1458)."""
+    mn = sc.dp_floor(is_sw)
+    M, Ga, Gb = (deskew(gab[k, 0], na, nb, fill=mn).cpu().numpy()
+                 for k in range(3))
+    if is_sw:
+        M[0, :] = Ga[0, :] = Gb[0, :] = 0
+        M[1:, 0] = Ga[1:, 0] = Gb[1:, 0] = mn  # == 0
+        M[0, 0] = Ga[0, 0] = Gb[0, 0] = 0
+    else:
+        xs = np.arange(1, na + 1, dtype=np.int64)
+        ys = np.arange(1, nb + 1, dtype=np.int64)
+        nsg = sc.no_start_gap_penalty
+        run_x = 0 if nsg else sc.gap_open + xs * sc.gap_extend
+        run_y = 0 if nsg else sc.gap_open + ys * sc.gap_extend
+        M[0, 1:] = Ga[0, 1:] = mn
+        Gb[0, 1:] = run_x
+        M[1:, 0] = Gb[1:, 0] = mn
+        Ga[1:, 0] = run_y
+        M[0, 0] = Ga[0, 0] = Gb[0, 0] = 0
+    return M, Ga, Gb
 
 
 def lcs_hits(seq: str, case_sensitive: bool = True,

@@ -26,10 +26,15 @@
 // scores a cell as sub[a * Kb + b] from the batch's (Ka, Kb) int32 table,
 // copied into shared memory behind the diagonals when it fits there and
 // read through the read-only path otherwise; MBYTES (0, 2 or 4) stores M as
-// int16 or int32 beside the codes; MODES reads the flag word `modes` (bits
-// NSG .. NMM below) at run time.  With all flags off the kernel is the NW
-// equality fill, and with MODES off every flag branch is dead code, so the
-// default instantiations compile to the plain recurrence.
+// int16 or int32 beside the codes, and MBYTES == 12 (GAB, the matrix dump
+// of --printmatrices) stores M, Ga and Gb as int32 into three planes of
+// `mout`, (3, B, LA+LB-1, LB+1): the values of dp_fill(emit_gab=True),
+// seqalign_tpu/ops/dp.py:621-660, which the JAX package computes outside
+// Pallas; MODES reads the flag word `modes` (bits NSG .. NMM below) at run
+// time.  With all flags off the kernel is the NW equality fill, and with
+// MODES off every flag branch is dead code, so the default instantiations
+// compile to the plain recurrence; GAB is an instantiation of its own and
+// its extra stores are dead code in the others.
 //
 // CARRY fills one chunk of a long pair (fill_carry_kernel, a kernel of its
 // own, so that fill_kernel's instantiations take no chunk state): the
@@ -100,7 +105,8 @@ __device__ __forceinline__ int pick(bool ga_ok, bool gb_ok, bool m_ok) {
 // on device.  sub (TABLE only): (Ka, Kb) int32, sub_n = Ka * Kb entries; im
 // (TABLE with NMM): the 0/1 is-match table of the same shape.
 // dirs (DIRS only) and mout (MBYTES > 0): (B, LA+LB-1, LB+1), cell (y, x)
-// at [x+y-2][y]; only cells 1 <= y <= nb, 1 <= x <= na are written.
+// at [x+y-2][y], mout three such planes under GAB (B = gridDim.x); only
+// cells 1 <= y <= nb, 1 <= x <= na are written.
 // scores: NW corner max or SW best M; corner (NW only): M/Ga/Gb at (nb, na).
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES>
 __global__ void fill_kernel(const uint8_t* __restrict__ ac,
@@ -251,6 +257,12 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
       }
       if (MBYTES)
         mj[static_cast<size_t>(d - 2) * LBp + y] = static_cast<MT>(M);
+      if constexpr (MBYTES == 12) {  // GAB: Ga, Gb behind the B M planes
+        const size_t at =
+            gridDim.x * plane + static_cast<size_t>(d - 2) * LBp + y;
+        mj[at] = Ga;
+        mj[gridDim.x * plane + at] = Gb;
+      }
       if (SW) {
         best = max(best, M);
       } else if (y == nb && x == na) {

@@ -20,6 +20,12 @@
 // fill_dirs_long drives): the boundary column comes in as bin and the
 // chunk's last column goes out as bout, the codes land in the chunk's slab,
 // and the corner is written by the chunk that holds x = na.
+//
+// nw_dirs_gab_launch is the same fill with the three matrices for the
+// matrix dump (the GAB mode of fill_common.cuh; replaces the emit_gab
+// planes of seqalign_tpu/ops/dp.py:dp_fill, a lax.scan): M, Ga and Gb as
+// int32 into three skewed planes beside the codes, 13 bytes a cell, which
+// bounds it (bytes) more than the barrier does at the dump's sizes.
 
 #include "fill_common.cuh"
 
@@ -33,4 +39,10 @@ CARRY_ENTRY(nw_dirs_carry_launch) {
   return fill::launch_mode<true, false, 0, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, corner, dirs, nullptr, scratch, stream, CARRY_ARGS);
+}
+
+FILL_ENTRY(nw_dirs_gab_launch) {
+  return fill::launch_mode<true, false, 12>(
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, corner, dirs, mout, scratch, stream);
 }

@@ -19,6 +19,11 @@
 // fill_common.cuh): codes into the chunk's slab, M into a plane of the
 // chunk alone (harvested and freed before the next chunk), the boundary
 // column carried through bin / bout, the pair's best raised in place.
+//
+// sw_dirs_gab_launch is the fill with the three matrices for the matrix
+// dump (the GAB mode; replaces the SW emit_gab planes of dp_fill): M, Ga
+// and Gb as int32 into three skewed planes, the first of which the hit
+// harvest reads as M.
 
 #include "fill_common.cuh"
 
@@ -42,4 +47,10 @@ CARRY_ENTRY(sw_dirs_carry_launch) {
   return fill::launch_mode<true, true, 4, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, nullptr, dirs, mout, scratch, stream, CARRY_ARGS);
+}
+
+FILL_ENTRY(sw_dirs_gab_launch) {
+  return fill::launch_mode<true, true, 12>(
+      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+      LB, scores, nullptr, dirs, mout, scratch, stream);
 }

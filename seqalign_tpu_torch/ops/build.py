@@ -39,6 +39,8 @@ _SIGNATURES = {
     "nw_dirs_launch": _FILL,
     "sw_scores_launch": _FILL,
     "sw_dirs_launch": _FILL,
+    "nw_dirs_gab_launch": _FILL,
+    "sw_dirs_gab_launch": _FILL,
     "nw_dirs_carry_launch": _CARRY,
     "sw_dirs_carry_launch": _CARRY,
     # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, stream
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
                        _P),
+    # x, o, R, L, S, op, i16, stream
+    "vpu_chain_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -17,6 +17,9 @@ guard their direction codes, and no-mismatches pins M to the floor where
 the pair is not an is-match.  ``sw_sorted_candidates`` harvests SW hit
 candidates from an M plane (or one chunk's) where it lies and puts them in
 the hit order, and ``merge_candidates`` joins the chunks' harvests.
+``nw_fill_gab_plain`` / ``sw_fill_gab_plain`` add the M, Ga and Gb planes
+of the matrix dump (``dp_fill(emit_gab=True)``), and ``deskew`` turns one
+pair's plane into the row-major matrix the CLI prints.
 
 The chunked fill (``bin`` given) is one chunk of a long pair: the columns
 x_off+1 .. x_off+CA, with the column x = x_off carried in and the column
@@ -41,9 +44,13 @@ from .pack import (DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, NGA, NGB, NMM, NSG,
 
 
 def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
-          emit_dirs: bool = False, m_dtype=None, x_off: int = 0, bin=None):
+          emit_dirs: bool = False, m_dtype=None, emit_gab: bool = False,
+          x_off: int = 0, bin=None):
     """Returns (dirs, corner, best, mout, bout); dirs/mout are None unless
-    asked for (``m_dtype`` set emits M), bout unless chunked.
+    asked for (``m_dtype`` set emits M), bout unless chunked.  With
+    ``emit_gab`` (unchunked) ``mout`` is instead the (3, B, D, LB+1) int32
+    planes of M, Ga and Gb in the skewed layout, the values of
+    ``dp_fill(emit_gab=True)`` on the cells 1 <= y <= nb, 1 <= x <= na.
 
     Chunked (``bin`` a (B, 3, LB+1) int32 column M/Ga/Gb at x = x_off):
     ``ac`` holds the columns x_off+1 .. x_off+LA, column 0 of the chunk is
@@ -130,8 +137,11 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     shape = (B, LA + LB - 1, LBp)
     dirs = (torch.empty(shape, dtype=torch.uint8, device=dev)
             if emit_dirs else None)
-    mout = (torch.empty(shape, dtype=m_dtype, device=dev)
-            if m_dtype is not None else None)
+    if emit_gab:
+        mout = torch.empty((3,) + shape, dtype=i32, device=dev)
+    else:
+        mout = (torch.empty(shape, dtype=m_dtype, device=dev)
+                if m_dtype is not None else None)
     bout = torch.full((B, 3, LBp), 0, dtype=i32, device=dev) \
         if chunked else None
 
@@ -207,7 +217,9 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
                        left_b & (pgb1 + b_ext == gb_v),
                        pm1 + b_open == gb_v)
             dirs[:, d - 2] = (dm | (dga << 2) | (dgb << 4)).to(torch.uint8)
-        if mout is not None:
+        if emit_gab:
+            mout[:, :, d - 2] = torch.stack((Mv, ga_v, gb_v))
+        elif mout is not None:
             mout[:, d - 2] = Mv.to(m_dtype)
         Mv, ga_v, gb_v = inject(d, Mv, ga_v, gb_v)
         if is_sw:
@@ -259,6 +271,40 @@ def sw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams,
                                 emit_dirs=True,
                                 m_dtype=torch.int16 if m16 else torch.int32)
     return dirs, mout
+
+
+def nw_fill_gab_plain(ac, bc, na, nb, params: KernelParams):
+    """The NW fill with direction codes and the three matrices, for the
+    matrix dump: returns ``(dirs, corner, gab)``, dirs and corner as
+    ``nw_fill_dirs_plain``, gab (3, B, LA+LB-1, LB+1) int32 the M, Ga and
+    Gb planes in the same skewed layout (:func:`deskew` reads them).  Only
+    cells 1 <= y <= nb, 1 <= x <= na are defined."""
+    dirs, corner, _, gab, _ = _fill(ac, bc, na, nb, params, emit_dirs=True,
+                                    emit_gab=True)
+    return dirs, corner, gab
+
+
+def sw_fill_gab_plain(ac, bc, na, nb, params: KernelParams):
+    """The SW fill with direction codes and the three matrices: returns
+    ``(dirs, gab)`` in the layouts of ``nw_fill_gab_plain``; ``gab[0]`` is
+    the int32 M plane the hit harvest reads."""
+    dirs, _, _, gab, _ = _fill(ac, bc, na, nb, params, is_sw=True,
+                               emit_dirs=True, emit_gab=True)
+    return dirs, gab
+
+
+def deskew(skewed, na: int, nb: int, fill=0):
+    """One pair's skewed (D, LB+1) plane back to row-major (nb+1, na+1)
+    [y][x] (seqalign_tpu/ops/dp.py:850-859), on the plane's device: cell
+    (y, x) is ``skewed[x + y - 2, y]``.  Row 0 and column 0 hold ``fill``;
+    the caller writes the closed-form boundary."""
+    out = torch.full((nb + 1, na + 1), fill, dtype=skewed.dtype,
+                     device=skewed.device)
+    if na and nb:
+        y = torch.arange(1, nb + 1, device=skewed.device)[:, None]
+        x = torch.arange(1, na + 1, device=skewed.device)[None, :]
+        out[1:, 1:] = skewed[x + y - 2, y]
+    return out
 
 
 def _chunk_columns(ac, x_off: int, ca: int):

@@ -1,10 +1,11 @@
 """Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
 ``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
 substitution-table scoring, the latter when ``params.sub`` is set; the
-scoring flags of ``params.modes``), the long-pair chunk fills
-``nw_fill_dirs_carry`` and ``sw_fill_dirs_carry``, the walks ``nw_walk``
-and ``sw_walk``, and the SW hit loop ``sw_hits`` (the walks and the hit
-loop over a code plane or a long pair's chunk slabs).
+scoring flags of ``params.modes``), the matrix-dump fills ``nw_fill_gab``
+and ``sw_fill_gab``, the long-pair chunk fills ``nw_fill_dirs_carry`` and
+``sw_fill_dirs_carry``, the walks ``nw_walk`` and ``sw_walk``, the SW hit
+loop ``sw_hits`` (the walks and the hit loop over a code plane or a long
+pair's chunk slabs), and the ALU probe ``vpu_chain``.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -25,8 +26,8 @@ import torch
 
 from .build import library
 from .dp import (nw_fill_dirs_carry_plain, nw_fill_dirs_plain,
-                 nw_scores_plain, sw_fill_dirs_carry_plain,
-                 sw_fill_dirs_plain, sw_scores_plain)
+                 nw_fill_gab_plain, nw_scores_plain, sw_fill_dirs_carry_plain,
+                 sw_fill_dirs_plain, sw_fill_gab_plain, sw_scores_plain)
 from .pack import NEG, NMM, KernelParams
 from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
                         sw_walk_plain, walk_cap)
@@ -34,9 +35,10 @@ from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
 
-_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_fill_dirs_carry": 0,
-           "nw_walk": 0, "sw_scores": 0, "sw_fill_dirs": 0,
-           "sw_fill_dirs_carry": 0, "sw_walk": 0, "sw_hits": 0}
+_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_fill_gab": 0,
+           "nw_fill_dirs_carry": 0, "nw_walk": 0, "sw_scores": 0,
+           "sw_fill_dirs": 0, "sw_fill_gab": 0, "sw_fill_dirs_carry": 0,
+           "sw_walk": 0, "sw_hits": 0, "vpu_chain": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -206,6 +208,43 @@ def sw_fill_dirs(ac, bc, na, nb, params: KernelParams, m16: bool = False):
     _fill("sw_fill_dirs", "sw_dirs_launch", ac, bc, na, nb, params, scores,
           dirs=dirs, mout=mout, m16=m16)
     return dirs, mout
+
+
+def nw_fill_gab(ac, bc, na, nb, params: KernelParams):
+    """The NW fill with direction codes and the M, Ga and Gb planes for the
+    matrix dump (see ``nw_fill_gab_plain``): returns ``(dirs (B, LA+LB-1,
+    LB+1) uint8, corner (B, 3) int32, gab (3, B, LA+LB-1, LB+1) int32)``;
+    only cells 1 <= y <= nb, 1 <= x <= na are defined."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    if ac.device.type == "cpu":
+        return nw_fill_gab_plain(ac, bc, na, nb, params)
+    dev = ac.device
+    shape = (B, LA + LB - 1, LB + 1)
+    dirs = torch.empty(shape, dtype=torch.uint8, device=dev)
+    gab = torch.empty((3,) + shape, dtype=torch.int32, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    corner = torch.empty((B, 3), dtype=torch.int32, device=dev)
+    _fill("nw_fill_gab", "nw_dirs_gab_launch", ac, bc, na, nb, params,
+          scores, corner, dirs, gab)
+    return dirs, corner, gab
+
+
+def sw_fill_gab(ac, bc, na, nb, params: KernelParams):
+    """The SW fill with direction codes and the M, Ga and Gb planes (see
+    ``sw_fill_gab_plain``): returns ``(dirs uint8, gab (3, B, LA+LB-1,
+    LB+1) int32)``, ``gab[0]`` the M plane; only cells 1 <= y <= nb,
+    1 <= x <= na are defined."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    if ac.device.type == "cpu":
+        return sw_fill_gab_plain(ac, bc, na, nb, params)
+    dev = ac.device
+    shape = (B, LA + LB - 1, LB + 1)
+    dirs = torch.empty(shape, dtype=torch.uint8, device=dev)
+    gab = torch.empty((3,) + shape, dtype=torch.int32, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    _fill("sw_fill_gab", "sw_dirs_gab_launch", ac, bc, na, nb, params,
+          scores, dirs=dirs, mout=gab)
+    return dirs, gab
 
 
 def _check_carry(ac, bc, na, nb, params, x_off, bin, bout, dirs):
@@ -431,3 +470,57 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
         int(flat64), _stream(dev))
     _launched("sw_hits", lib, rc)
     return hit_flat, hit_score, nhits
+
+
+VPU_OPS = ("addmax", "add", "roll", "shift")
+
+
+def vpu_chain_plain(x, steps: int, op: str):
+    """``steps`` dependent steps of one elementwise op on ``x`` (R, L),
+    int32 or int16, as the Pallas kernel of tools/exp_vpu.py:42-56 computes
+    them, with v = x and w starting at x: ``addmax`` w = max(w + v, w);
+    ``add`` w = w + v; ``roll`` w[:, j] = w[:, j-1] + v (lane 0 takes lane
+    L-1); ``shift`` the same with 1 entering at lane 0.  Sums wrap in the
+    tensor's type."""
+    v = w = x
+    for _ in range(steps):
+        if op == "addmax":
+            w = torch.maximum(w + v, w)
+        elif op == "add":
+            w = w + v
+        elif op == "roll":
+            w = torch.roll(w, 1, 1) + v
+        else:
+            w = torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]], 1) + v
+    return w
+
+
+def vpu_chain(x, steps: int, op: str):
+    """The ALU probe (see ``vpu_chain_plain``; csrc/exp_vpu.cu): returns
+    the (R, L) result, ``addmax`` by the Hopper DPX add-max.  One row a
+    block: L <= 1024 lanes of int32, or an even L <= 2048 of int16."""
+    if not isinstance(x, torch.Tensor) or x.dtype not in (torch.int32,
+                                                           torch.int16):
+        raise ValueError("x must be an int32 or int16 tensor")
+    _expect(x, "x", x.dtype, 2, x.device)
+    if op not in VPU_OPS:
+        raise ValueError(f"op must be one of {VPU_OPS}, not {op!r}")
+    if steps < 0:
+        raise ValueError("steps must be >= 0")
+    if x.device.type == "cpu":
+        return vpu_chain_plain(x, steps, op)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    R, L = x.shape
+    i16 = x.dtype == torch.int16
+    if (i16 and L % 2) or not 1 <= (L // 2 if i16 else L) <= 1024:
+        raise ValueError(f"a row of {L} {x.dtype} lanes does not fit a "
+                         f"block")
+    o = torch.empty_like(x)
+    if R == 0:
+        return o
+    lib = library()
+    rc = lib.vpu_chain_launch(_ptr(x), _ptr(o), R, L, int(steps),
+                              VPU_OPS.index(op), int(i16), _stream(x.device))
+    _launched("vpu_chain", lib, rc)
+    return o

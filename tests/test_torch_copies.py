@@ -189,3 +189,62 @@ def test_aligners_take_either_config():
     assert kernel_params(ref).modes == kernel_params(own).modes == 2
     assert dataclasses.astuple(nw.align("acgtt", "cgt")) == \
         dataclasses.astuple(jax_host_dp.nw_align(ref, "acgtt", "cgt"))
+
+
+# the CLI layer's copies: (path under both packages, most lines added, most
+# lines dropped).  They change only import paths, the build directory (the
+# native reader builds into the port's _build/), the device selector (the
+# JAX platform pinning of cli/_common.py gives way to SEQALIGN_DEVICE) and
+# the profiler (torch.profiler for jax.profiler).
+CLI_COPIES = (("io/seqio.py", 0, 0), ("io/native.py", 16, 7),
+              ("native/seqio.cpp", 3, 3), ("cli/_common.py", 19, 24),
+              ("cli/needleman_wunsch.py", 2, 1),
+              ("cli/smith_waterman.py", 2, 1), ("cli/lcs.py", 5, 3),
+              ("utils/metrics.py", 15, 6))
+
+
+@pytest.mark.parametrize("path,most_added,most_dropped", CLI_COPIES,
+                         ids=[c[0] for c in CLI_COPIES])
+def test_cli_layer_copies_differ_only_where_stated(path, most_added,
+                                                   most_dropped):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "seqalign_tpu_torch", path)) as f:
+        ours = f.read().splitlines()
+    with open(os.path.join(root, "seqalign_tpu", path)) as f:
+        theirs = f.read().splitlines()
+    added = [ln for ln in ours if ln not in set(theirs)]
+    dropped = [ln for ln in theirs if ln not in set(ours)]
+    assert len(added) <= most_added, added
+    assert len(dropped) <= most_dropped, dropped
+    assert not any("jax" in ln for ln in added)
+    if path.startswith("cli/") and path != "cli/_common.py":
+        # the mains differ in the device they build their aligner on
+        assert all("cli_device" in ln or "lcs_aligner" in ln or
+                   "stats_timer" in ln or "sw=sw" in ln for ln in added)
+
+
+def test_native_reader_builds_into_the_ports_build_dir():
+    from seqalign_tpu.io import native as jax_native
+    from seqalign_tpu_torch.io import native, seqio
+
+    assert os.path.basename(native._BUILD_DIR) == "_build"
+    assert os.path.dirname(native._SO) == native._BUILD_DIR
+    assert os.path.dirname(native._BUILD_DIR) == os.path.dirname(
+        os.path.dirname(os.path.abspath(native.__file__)))
+    assert native._SRC.endswith(os.path.join("seqalign_tpu_torch", "native",
+                                             "seqio.cpp"))
+    assert native._SO != jax_native._SO
+    if native.available():
+        assert os.path.exists(native._SO)
+    # the pure-Python reader of the copy reads what the original reads
+    from seqalign_tpu.io import seqio as jax_seqio
+
+    golden = os.path.join(root_dir(), "tests", "golden", "cli", "inputs")
+    for name in sorted(os.listdir(golden)):
+        path = os.path.join(golden, name)
+        assert list(seqio.read_seqs(path)) == \
+            list(jax_seqio.read_seqs(path)), name
+
+
+def root_dir():
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

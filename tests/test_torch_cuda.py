@@ -542,3 +542,82 @@ def test_long_path_on_cuda_matches_host(dev, monkeypatch):
         w = [dataclasses.astuple(h) for _, h in zip(
             range(40), host_dp.HostSwHits(sw.scoring, a, b))]
         assert g == w
+
+
+@pytest.mark.parametrize("table", [False, True], ids=["equality", "table"])
+@pytest.mark.parametrize("mode", ["default"] + list(MODES))
+def test_gab_kernels_equal_plain_versions(dev, mode, table):
+    """The matrix-dump fills (codes, corner, M, Ga and Gb planes) under
+    every recurrence mode against their plain versions on the same CUDA
+    tensors, with empty sides; beside them the dirs fills' codes and M."""
+    from seqalign_tpu_torch.ops.dp import nw_fill_gab_plain, sw_fill_gab_plain
+
+    sc, alpha = ((ScoringConfig(1, -2, -4, -1), "acgtACGT")
+                 if mode == "default" else _mode_config(mode, table))
+    if mode == "default" and table:
+        sc, alpha = scoring_system_BLOSUM62(), "ARNDCQEGHILKMFPSTWYV"
+    B, LA, LB = 12, 300, 200
+    rng = np.random.default_rng(len(mode) + 2 * table)
+    A, Bs = _text(rng, alpha, B, 0, LA), _text(rng, alpha, B, 0, LB)
+    A[0], Bs[1] = "", ""
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, LA, LB)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    v = _valid(dev, t[2], t[3], LA, LB)
+    before = kernel_launch_counts()
+    d, c, g = kernels.nw_fill_gab(*t, bp)
+    dp_, cp, gp = nw_fill_gab_plain(*t, bp)
+    assert torch.equal(d[v], dp_[v]) and torch.equal(c, cp)
+    assert all(torch.equal(g[k][v], gp[k][v]) for k in range(3))
+    assert torch.equal(d[v], kernels.nw_fill_dirs(*t, bp)[0][v])
+    d, g = kernels.sw_fill_gab(*t, bp)
+    dp_, gp = sw_fill_gab_plain(*t, bp)
+    assert torch.equal(d[v], dp_[v])
+    assert all(torch.equal(g[k][v], gp[k][v]) for k in range(3))
+    _, m = kernels.sw_fill_dirs(*t, bp, False)
+    assert torch.equal(m[v], g[0][v])
+    after = kernel_launch_counts()
+    assert after["nw_fill_gab"] == before["nw_fill_gab"] + 1
+    assert after["sw_fill_gab"] == before["sw_fill_gab"] + 1
+
+
+def test_matrix_dump_on_cuda_matches_host(dev, monkeypatch):
+    """``align_with_matrices`` on the card (the GAB fills) equals the int64
+    host route: alignment, hit stream and all three matrices."""
+    monkeypatch.setenv("SEQALIGN_FORCE", "device")
+    rng = np.random.default_rng(41)
+    a, b = _seqs(rng, 1, 300, 300)[0], _seqs(rng, 1, 200, 200)[0]
+    nw = NeedlemanWunsch(device="cuda")
+    aln, mats = nw.align_with_matrices(a, b)
+    want, wmats = host_dp.nw_align_with_matrices(nw.scoring, a, b)
+    assert dataclasses.astuple(aln) == dataclasses.astuple(want)
+    for m, w in zip(mats, wmats):
+        assert np.array_equal(m, w)
+    sw = SmithWaterman(device="cuda")
+    hits, mats = sw.align_with_matrices(a, b)
+    wmats = host_dp.fill_matrices(sw.scoring, a, b, True)
+    for m, w in zip(mats, wmats):
+        assert np.array_equal(m, w)
+    got = [dataclasses.astuple(h) for _, h in zip(range(40), hits)]
+    assert got == [dataclasses.astuple(h) for _, h in zip(
+        range(40), host_dp.HostSwHits(sw.scoring, a, b))]
+
+
+@pytest.mark.parametrize("lanes", [512, 32, 64, 1000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16],
+                         ids=["int32", "int16"])
+def test_vpu_chain_equals_plain_version(dev, dtype, lanes):
+    """The ALU probe, every op, against its plain version: int16 sums wrap
+    as int16 (the DPX add-max included); int32 at 32 lanes and int16 at 32
+    or 64 lanes (one word of two lanes a thread) take the warp-shuffle
+    move, every other case the block-wide one (1,000 lanes of int16 are
+    500 threads, not whole warps)."""
+    rng = np.random.default_rng(lanes)
+    x = torch.from_numpy(rng.integers(-3000, 8000, (64, lanes))).to(
+        dtype).to(dev)
+    for op in kernels.VPU_OPS:
+        assert torch.equal(kernels.vpu_chain(x, 300, op),
+                           kernels.vpu_chain_plain(x, 300, op)), op
+    with pytest.raises(ValueError):
+        kernels.vpu_chain(x[:, :-1] if dtype == torch.int16 else
+                          torch.zeros((2, 1025), dtype=dtype, device=dev),
+                          4, "add")

@@ -318,8 +318,10 @@ def test_check_slice_is_the_dispatch_point():
     assert port_aligners._check_slice("long") is kernels.nw_fill_dirs_carry
     assert port_aligners._check_slice("long", True) is \
         kernels.sw_fill_dirs_carry
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port_aligners._check_slice("matrices")
+    # the matrix dump (ROADMAP.md Queue 1 item 4) is ported
+    assert port_aligners._check_slice("gab") is kernels.nw_fill_gab
+    assert port_aligners._check_slice("gab", True) is kernels.sw_fill_gab
+    assert not hasattr(port_aligners, "_UNPORTED")
 
 
 def test_swap_symmetric_equals_the_jax_rule():

@@ -462,8 +462,8 @@ def test_constrained_sw_raises_item_6(monkeypatch, flag):
 
 def test_sw_long_pairs_and_other_entry_points_raise(monkeypatch):
     """Long pairs and ``align_long`` (ROADMAP.md Queue 1 item 7) now run
-    and equal the JAX package's streams; the matrix dump (item 4) still
-    raises."""
+    and equal the JAX package's streams; so does the matrix dump (item 4),
+    its matrices cell for cell."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     monkeypatch.setattr(port_aligners, "LONG_PAIR_CELLS", 100)
     monkeypatch.setattr(jax_aligners, "LONG_PAIR_CELLS", 100)
@@ -473,10 +473,11 @@ def test_sw_long_pairs_and_other_entry_points_raise(monkeypatch):
     assert _streams(sw.align_batch(A, B)) == _streams(jsw.align_batch(A, B))
     assert _streams([sw.align_long("acgtacgt", "tacgta", chunk=3)]) == \
         _streams([jsw.align_long("acgtacgt", "tacgta", chunk=3)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        sw.align_with_matrices("acgt", "acgt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        sw.matrices("acgt", "acgt")
+    hits, mats = sw.align_with_matrices("acgt", "acgt")
+    jhits, jmats = jsw.align_with_matrices("acgt", "acgt")
+    assert _streams([hits]) == _streams([jhits])
+    for got, want in zip(mats + sw.matrices("acgt", "acgt"), jmats * 2):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_sw_sub_batches_follow_codes_and_m_bytes(monkeypatch):
