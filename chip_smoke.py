@@ -27,6 +27,13 @@ numpy from a fixed seed:
    LCS recipe; the matrix-dump fills (``nw_fill_gab``, ``sw_fill_gab``:
    codes and the M, Ga and Gb planes) on the ragged batches, default flags
    and every flag combination of ``MODES``, timed at B = 256, L = 512;
+   and one fill launch across widths (rows ``nw_fill_dirs[ragged]``,
+   ``nw_scores[ragged]``: a fill schedule, the codes in planes at each
+   pair's widths) on CLI job 1's mix of 256 pairs of 1-10 kb, against the
+   uniform launches of its width buckets on every pair, kernel against
+   kernel, and against the plain versions on 8 ragged pairs of up to
+   300 bp, timed beside the bucket launches at two shared-memory lane
+   counts;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -168,6 +175,9 @@ KERNELS = {
     # the matrix dump: dp_fill's emit_gab planes (a lax.scan, not Pallas)
     "nw_fill_gab": ("nw_fill_gab", "nw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
     "sw_fill_gab": ("sw_fill_gab", "sw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
+    # one launch across widths (a fill schedule; NW codes in ragged planes)
+    "nw_fill_dirs[ragged]": ("nw_fill_dirs", "nw_dirs.cu", _B2),
+    "nw_scores[ragged]": ("nw_scores", "nw_scores.cu", _B1),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
@@ -256,6 +266,11 @@ def alu_s(ops):
 # the 227 KB) and 368,676 B at 10,240 (global scratch)
 WIDE = ((2048, 1000, 2048, 4), (6144, 4097, 6144, 4), (10240, 7169, 10000, 4))
 SHORT_BATCH = 4096
+# the ragged rows: CLI job 1's chunk (256 pairs of 1-10 kb, one
+# align_batch call of the CLI); the launch timed at these shared-memory
+# lanes a block, the last the default (kernels.RAGGED_SMEM_LANES)
+RAGGED_PAIRS = 256
+RAGGED_LANES = (3072, 6400)
 STREAM_PAIRS = 16_384  # a quarter of BASELINE.json configs[4]'s 65,536
 ALIGN_LONG_PAIRS = 1024
 PROTEIN_PAIRS = 4096  # BASELINE.json configs[2]: 100-1,000 aa
@@ -1090,16 +1105,123 @@ def phase1(scs, rng, dev):
     wide = wide_modes_vs_plain(dev, rng)
     e, sample = carry_vs_plain(dev, rng, times, bounds)
     merge(err, e)
+    merge(err, ragged_vs_buckets(nw_sc, params["nw"], rng, dev, times,
+                                 bounds))
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
     for k, (t, tp) in times.items():
         b, by = bounds[k]
         shape = ("4 pairs, one chunk of 2048" if "[carry]" in k else
-                 "4 pairs' slabs" if "[chunked]" in k else "B=256 L=512")
+                 "4 pairs' slabs" if "[chunked]" in k else
+                 f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: 8 pairs of "
+                 f"0-300 bp)" if "[ragged]" in k else "B=256 L=512")
         log(f"phase 1: {k} at {shape}: kernel {t:.4f} ms, plain "
             f"{tp:.4f} ms, bound {b:.6f} ms ({by})")
     return err, times, bounds, sample
+
+
+def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
+    """Rows ``nw_fill_dirs[ragged]`` and ``nw_scores[ragged]``: one launch
+    across widths (``kernels.fill_schedule``) on CLI job 1's mix,
+    ``RAGGED_PAIRS`` DNA pairs of 1-10 kb, held to the uniform launches of
+    its width buckets on every pair, kernel against kernel (codes on the
+    valid cells of each pair's plane, corners, scores), and to the plain
+    versions on 8 ragged pairs of up to 300 bp with an empty side (codes,
+    corners, scores, and ``nw_walk`` over the planes); timed with CUDA
+    events at each of ``RAGGED_LANES`` beside the sum of the bucket
+    launches.  Returns the max |diff| of each row."""
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import nw_fill_dirs_plain, nw_scores_plain
+    from seqalign_tpu_torch.ops.pack import pack_batch, pad_width
+    from seqalign_tpu_torch.ops.traceback import nw_walk_plain
+
+    t0 = time.perf_counter()
+    A, B = dna(rng, RAGGED_PAIRS, *CLI_KB), dna(rng, RAGGED_PAIRS, *CLI_KB)
+    ac, bc, na_h, nb_h, bp = pack_batch(sc, params, A, B, max(map(len, A)),
+                                        max(map(len, B)))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    scheds = {lanes: kernels.fill_schedule(na_h, nb_h, dev, lanes, True)
+              for lanes in sorted({*RAGGED_LANES, kernels.RAGGED_SMEM_LANES})}
+    sched = scheds[kernels.RAGGED_SMEM_LANES]
+    flat, corner = kernels.nw_fill_dirs(*t, bp, sched)
+    s, c = kernels.nw_scores(*t, bp, sched)
+    err = {"nw_fill_dirs[ragged]": 0, "nw_scores[ragged]": 0}
+    off = sched.off.tolist()
+    groups = {}
+    for j, (a, b) in enumerate(zip(A, B)):
+        groups.setdefault((pad_width(len(a)), pad_width(len(b))),
+                          []).append(j)
+    bucket_ms = {"nw_fill_dirs": 0.0, "nw_scores": 0.0}
+    for (wa, wb), idx in groups.items():
+        g = pack_batch(sc, params, [A[j] for j in idx], [B[j] for j in idx],
+                       wa, wb)
+        tb = [torch.from_numpy(v).to(dev) for v in g[:4]]
+        d, dc = kernels.nw_fill_dirs(*tb, g[4])
+        sb, cb = kernels.nw_scores(*tb, g[4])
+        jj = torch.tensor(idx, device=dev)
+        e = max_abs((corner[jj], dc))
+        for i, j in enumerate(idx):
+            lanes = int(nb_h[j]) + 1
+            plane = flat[off[j]:off[j + 1]].view(-1, lanes)
+            v = valid_mask(plane.shape[0], lanes, t[2][j:j + 1],
+                           t[3][j:j + 1])[0]
+            e = max(e, max_abs((plane[v],
+                                d[i, :plane.shape[0], :lanes][v])))
+        merge(err, {"nw_fill_dirs[ragged]": e,
+                    "nw_scores[ragged]": max_abs((s[jj], sb), (c[jj], cb))})
+        bucket_ms["nw_fill_dirs"] += cuda_ms(
+            lambda: kernels.nw_fill_dirs(*tb, g[4]), 1)
+        bucket_ms["nw_scores"] += cuda_ms(
+            lambda: kernels.nw_scores(*tb, g[4]), 1)
+        del d
+    del flat
+    ms = {}
+    for lanes, sd in scheds.items():
+        ms[lanes] = (cuda_ms(lambda: kernels.nw_fill_dirs(*t, bp, sd), 3),
+                     cuda_ms(lambda: kernels.nw_scores(*t, bp, sd), 3))
+    log(f"phase 1: ragged rows on {RAGGED_PAIRS} pairs of 1-10 kb in "
+        f"{len(groups)} width buckets: one launch (nw_fill_dirs, "
+        f"nw_scores) " + ", ".join(f"{ms[k][0]:.3f}, {ms[k][1]:.3f} ms at "
+                                   f"{k} shared-memory lanes" for k in ms)
+        + f"; the {len(groups)} bucket launches "
+        f"{bucket_ms['nw_fill_dirs']:.3f}, {bucket_ms['nw_scores']:.3f} ms")
+    # the plain versions on 8 ragged pairs of up to 300 bp
+    As, Bs = dna(rng, 8, 1, 300), dna(rng, 8, 1, 300)
+    As[1] = ""
+    g = pack_batch(sc, params, As, Bs, 300, 300)
+    ts = [torch.from_numpy(v).to(dev) for v in g[:4]]
+    small = kernels.fill_schedule(g[2], g[3], dev, planes=True)
+    fk, ck = kernels.nw_fill_dirs(*ts, g[4], small)
+    t1 = time.perf_counter()
+    fp, cp = nw_fill_dirs_plain(*ts, g[4], small.off)
+    plain_fill = 1e3 * (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    sp, cps = nw_scores_plain(*ts, g[4])
+    plain_scores = 1e3 * (time.perf_counter() - t1)
+    sk, csk = kernels.nw_scores(*ts, g[4], small)
+    offs = small.off.tolist()
+    v = torch.zeros_like(fp, dtype=torch.bool)
+    for i in range(len(As)):
+        lanes = max(int(g[3][i]), 1) + 1
+        v[offs[i]:offs[i + 1]] = valid_mask(
+            (offs[i + 1] - offs[i]) // lanes, lanes, ts[2][i:i + 1],
+            ts[3][i:i + 1]).reshape(-1)
+    cap = int((g[2] + g[3]).max())
+    merge(err, {"nw_fill_dirs[ragged]": max_abs(
+        (fk[v], fp[v]), (ck, cp),
+        *zip(kernels.nw_walk(fk, ck, ts[2], ts[3], cap, small.off),
+             nw_walk_plain(fp, cp, ts[2], ts[3], cap, small.off))),
+        "nw_scores[ragged]": max_abs((sk, sp), (csk, cps))})
+    lanes = kernels.RAGGED_SMEM_LANES
+    times["nw_fill_dirs[ragged]"] = (ms[lanes][0], plain_fill)
+    times["nw_scores[ragged]"] = (ms[lanes][1], plain_scores)
+    bounds["nw_fill_dirs[ragged]"] = fill_bound(na_h, nb_h, False, True)
+    bounds["nw_scores[ragged]"] = fill_bound(na_h, nb_h, False, False)
+    torch.cuda.synchronize()
+    log(f"phase 1: ragged rows vs bucket kernels and plain: max |diff| "
+        f"{err} ({time.perf_counter() - t0:.1f} s)")
+    return err
 
 
 def merge(err, e):
@@ -2796,6 +2918,8 @@ def main() -> int:
             n = launches["cli"]
         elif mode in ("carry", "chunked"):
             n = launches["long"]
+        elif mode == "ragged":  # CLI job 1's fills; path nw's score_batch
+            n = launches["cli" if counter == "nw_fill_dirs" else "nw"]
         elif mode in ("", "table"):
             n = launches[name.split("_")[0] + ("_table" if mode else "")]
         else:  # the LCS recipe runs in the modes path as nga+ngb+nmm

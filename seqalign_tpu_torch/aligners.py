@@ -10,8 +10,14 @@ JAX package (``_route``):
   regime;
 * **device**: the CUDA kernels of ``ops/kernels.py`` on the aligner's
   ``device`` (their plain PyTorch versions when that device is the CPU).
-  Batches are bucketed by padded side widths so ragged batches do not pay
-  max-length padding.
+  NW ``align_batch``, ``score_batch`` and SW ``best_score_batch`` fill a
+  batch of mixed widths in one launch (``kernels.fill_schedule``: the
+  pairs largest first, NW codes in planes at each pair's own widths,
+  ``pack.ragged_planes``); ``score_pairs_stream`` and SW ``align_batch``
+  bucket pairs by padded side widths.
+
+The aligners run on the GPU (``device="cuda"``) unless built with
+``device="cpu"``; there is no fallback from one to the other.
 
 The device path covers equality and substitution-matrix/wildcard scoring,
 any gap_open, and the flags no_start_gap_penalty, no_end_gap_penalty,
@@ -60,9 +66,12 @@ from .scoring.presets import scoring_system_default, scoring_system_sw_default
 HOST_MAX_CELLS = int(os.environ.get("SEQALIGN_HOST_MAX_CELLS", 4_000_000))
 HOST_MAX_PAIRS = 32
 LONG_PAIR_CELLS = 112_000_000  # > 10240^2: 1-10 kb reads never go per-pair
-# device dirs (and SW M) bytes in flight per alignment sub-batch
+# device dirs (and SW M) bytes in flight per alignment sub-batch: SW's,
+# and NW's on the CPU or when SEQALIGN_ALIGN_DIRS_BUDGET is set; NW on the
+# card otherwise takes _BUDGET_SHARE of the card's memory (_align_budget)
 ALIGN_DIRS_BUDGET = int(os.environ.get("SEQALIGN_ALIGN_DIRS_BUDGET",
                                        str(1_500_000_000)))
+_BUDGET_FROM_ENV = "SEQALIGN_ALIGN_DIRS_BUDGET" in os.environ
 # The SW harvest (``sw_sorted_candidates``) holds about 40 bytes per
 # candidate while it sorts.  Without a min_score hint every cell with
 # M >= 1 is a candidate: about a quarter of the cells on 4-letter DNA,
@@ -85,11 +94,11 @@ _LONG_HARVEST_BYTES = 96
 # 2 or 4 bytes a pair.  PERF.md gives the measured reason for 16,384.
 LONG_CHUNK = 16_384
 # device bytes a long-pair sub-batch holds (slabs, the chunk's M and
-# harvest, the hit mask): when None, _LONG_BUDGET_SHARE of the card's
-# memory (ALIGN_DIRS_BUDGET on the CPU); the rest is left to the harvest's
-# sort buffers, which the count leaves out for a hinted harvest
+# harvest, the hit mask): when None, _BUDGET_SHARE of the card's memory
+# (ALIGN_DIRS_BUDGET on the CPU); the rest is left to the harvest's sort
+# buffers, which the count leaves out for a hinted harvest
 LONG_DIRS_BUDGET = None
-_LONG_BUDGET_SHARE = 0.4
+_BUDGET_SHARE = 0.4
 # pairs of the long path by branch: walked on the device, or on the host
 _LONG_BRANCHES = {"device": 0, "host": 0}
 
@@ -140,12 +149,27 @@ def _to(dev, *arrays):
     return [torch.from_numpy(v).to(dev) for v in arrays]
 
 
+def _device(device) -> torch.device:
+    """The torch device an aligner runs on.  A CUDA device must exist:
+    nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the aligners run on the GPU by default; "
+            "device='cpu' runs the kernels' plain PyTorch versions")
+    return dev
+
+
 def _scores_auto(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
-                 *, is_sw: bool, defer: bool = False):
-    """Scores of one bucket: host numpy for small workloads, the scores
-    kernel otherwise (NW corner max or SW best M).  ``defer=True`` returns
-    the device tensor without fetching it, so streaming callers overlap
-    the next bucket's packing with this bucket's fill."""
+                 *, is_sw: bool, defer: bool = False, across: bool = False):
+    """Scores of a batch: host numpy for small workloads, the scores
+    kernel otherwise (NW corner max or SW best M), ``across`` widths in one
+    launch under a fill schedule (the widths of one bucket otherwise).
+    ``defer=True`` returns the device tensor without fetching it, so
+    streaming callers overlap the next bucket's packing with this bucket's
+    fill."""
+    if not len(seqs_a):
+        return np.zeros(0, np.int32)
     cells = sum(len(a) * len(b) for a, b in zip(seqs_a, seqs_b))
     if _route(cells, len(seqs_a), None if is_sw else sc) == "host":
         out = np.zeros(len(seqs_a), np.int32)
@@ -159,20 +183,16 @@ def _scores_auto(sc: ScoringConfig, params: KernelParams, seqs_a, seqs_b,
     fill = _check_slice("scores", is_sw)
     for sa, sb in zip(seqs_a, seqs_b):
         check_valid_pairs(sc, sa, sb)
-    # pow2 pair-count padding as in the JAX package (aligners.py:174-188):
-    # fillers record length 1 and every return slices back to n
-    n = len(seqs_a)
-    npad = _next_pow2(max(8, n))
-    seqs_a = list(seqs_a) + [""] * (npad - n)
-    seqs_b = list(seqs_b) + [""] * (npad - n)
+    # no pair-count padding: the JAX package's pow2 fillers
+    # (aligners.py:174-188) serve its jit shapes, and a launch takes any B
+    dev = params.scal.device
     la = pad_width(max(1, int(packer.seq_lens(seqs_a).max())))
     lb = pad_width(max(1, int(packer.seq_lens(seqs_b).max())))
     ac, bc, na, nb, bparams = pack_batch(sc, params, seqs_a, seqs_b, la, lb)
-    na[n:] = 1
-    nb[n:] = 1
-    ac, bc, na, nb = _to(params.scal.device, ac, bc, na, nb)
-    scores = fill(ac, bc, na, nb, bparams)
-    scores = (scores if is_sw else scores[0])[:n]
+    sched = kernels.fill_schedule(na, nb, dev) if across else None
+    ac, bc, na, nb = _to(dev, ac, bc, na, nb)
+    scores = fill(ac, bc, na, nb, bparams, sched)
+    scores = scores if is_sw else scores[0]
     return scores if defer else scores.cpu().numpy()
 
 
@@ -187,18 +207,46 @@ def _swap_symmetric(sc: ScoringConfig) -> bool:
     return bool(np.array_equal(sub, sub.T))
 
 
-def _buckets(seqs_a, seqs_b, long_key: bool = True):
+def _buckets(seqs_a, seqs_b):
     """Group pair indices by padded side widths (pow2 up to 4096, then
-    1024-granular), floored at 64.  With ``long_key``, pairs over
-    LONG_PAIR_CELLS take the key None."""
+    1024-granular), floored at 64; pairs over LONG_PAIR_CELLS take the key
+    None."""
     groups = {}
     for i, (sa, sb) in enumerate(zip(seqs_a, seqs_b)):
-        if long_key and len(sa) * len(sb) > LONG_PAIR_CELLS:
+        if len(sa) * len(sb) > LONG_PAIR_CELLS:
             key = None
         else:
             key = (max(64, pad_width(len(sa))), max(64, pad_width(len(sb))))
         groups.setdefault(key, []).append(i)
     return groups.items()
+
+
+def _align_budget(device: torch.device) -> int:
+    """Device bytes of codes an NW alignment sub-batch holds: on the card
+    _BUDGET_SHARE of its memory unless SEQALIGN_ALIGN_DIRS_BUDGET is set,
+    else ALIGN_DIRS_BUDGET."""
+    if device.type == "cuda" and not _BUDGET_FROM_ENV:
+        total = torch.cuda.get_device_properties(device).total_memory
+        return int(_BUDGET_SHARE * total)
+    return ALIGN_DIRS_BUDGET
+
+
+def _plane_subbatches(idx, seqs_a, seqs_b, budget: int):
+    """The pairs ``idx`` in order, cut into sub-batches whose code planes
+    at each pair's own widths (``pack.ragged_planes``) hold at most
+    ``budget`` bytes together (one pair at least)."""
+    subs, cur, held = [], [], 0
+    for i in idx:
+        wa, wb = max(1, len(seqs_a[i])), max(1, len(seqs_b[i]))
+        size = (wa + wb - 1) * (wb + 1)
+        if cur and held + size > budget:
+            subs.append(cur)
+            cur, held = [], 0
+        cur.append(i)
+        held += size
+    if cur:
+        subs.append(cur)
+    return subs
 
 
 def _long_subbuckets(idx, seqs_a, seqs_b):
@@ -230,7 +278,7 @@ def _long_budget(device: torch.device) -> int:
         return LONG_DIRS_BUDGET
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
-        return int(_LONG_BUDGET_SHARE * total)
+        return int(_BUDGET_SHARE * total)
     return ALIGN_DIRS_BUDGET
 
 
@@ -288,32 +336,32 @@ def _long_groups(sc, device, idx, seqs_a, seqs_b, *, is_sw, chunk=None,
 
 def _scores_bucketed(sc: ScoringConfig, params: KernelParams, seqs_a,
                      seqs_b, *, is_sw: bool) -> np.ndarray:
-    """Scores with length bucketing and, for symmetric configs, each pair
-    canonicalized so side b is the shorter one."""
-    n = len(seqs_a)
-    if n <= 1:
-        return _scores_auto(sc, params, seqs_a, seqs_b, is_sw=is_sw)
+    """Scores of a batch in one launch across widths (the JAX package's
+    ``_scores_bucketed`` launches once a width bucket) and, for symmetric
+    configs, each pair canonicalized so side b is the shorter one."""
     if _swap_symmetric(sc):
         sa = [a if len(a) >= len(b) else b for a, b in zip(seqs_a, seqs_b)]
         sb = [b if len(a) >= len(b) else a for a, b in zip(seqs_a, seqs_b)]
     else:
         sa, sb = list(seqs_a), list(seqs_b)
-    out = np.zeros(n, np.int32)
-    for _, idx in _buckets(sa, sb, long_key=False):
-        out[idx] = _scores_auto(sc, params, [sa[i] for i in idx],
-                                [sb[i] for i in idx], is_sw=is_sw)
-    return out
+    return _scores_auto(sc, params, sa, sb, is_sw=is_sw, across=True)
 
 
-def score_pairs_stream(sc: ScoringConfig, params: KernelParams, pairs, *,
-                       is_sw: bool, flush_cells: int = 2 ** 31,
-                       flush_pairs: int = 1024, max_inflight: int = 4):
+def score_pairs_stream(sc: ScoringConfig, pairs, *, is_sw: bool,
+                       params: Optional[KernelParams] = None,
+                       flush_cells: int = 2 ** 31, flush_pairs: int = 1024,
+                       max_inflight: int = 4):
     """Streaming NW or SW scores over an iterator of ``(idx, seq_a,
     seq_b)``: pairs accumulate into width buckets (side-canonicalized for
     symmetric configs); a bucket dispatches once it holds ``flush_pairs``
     pairs or ``flush_cells`` padded cells, and at most ``max_inflight``
     results stay on the device until the drain fetches them.  Yields
-    ``(indices, scores)`` chunks (seqalign_tpu/aligners.py:333-387)."""
+    ``(indices, scores)`` chunks (seqalign_tpu/aligners.py:333-387).
+    ``params``: the kernels' scoring state and device, by default
+    ``kernel_params(sc)`` on the GPU."""
+    sc = from_reference(sc)
+    if params is None:
+        params = kernel_params(sc, _device("cuda"))
     swap_ok = _swap_symmetric(sc)
     buckets: dict = {}
     inflight: list = []
@@ -348,13 +396,15 @@ def score_pairs_stream(sc: ScoringConfig, params: KernelParams, pairs, *,
 
 
 class NeedlemanWunsch:
-    """Global affine-gap aligner (Gotoh) on a torch device."""
+    """Global affine-gap aligner (Gotoh) on a torch device: the GPU unless
+    ``device="cpu"`` (the kernels' plain versions); without one, building
+    it raises."""
 
-    def __init__(self, scoring: Optional[ScoringConfig] = None,
+    def __init__(self, scoring: Optional[ScoringConfig] = None, *,
                  device="cuda"):
         self.scoring = (from_reference(scoring) if scoring is not None
                         else scoring_system_default())
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.params = kernel_params(self.scoring, self.device)
 
     def align(self, seq_a: str, seq_b: str) -> Alignment:
@@ -373,35 +423,38 @@ class NeedlemanWunsch:
         return self._align_batch_device(seqs_a, seqs_b)
 
     def _align_batch_device(self, seqs_a, seqs_b) -> List[Alignment]:
+        """The pairs over ``LONG_PAIR_CELLS`` on the long-pair path; the
+        others in sub-batches of at most ``_align_budget`` bytes of codes,
+        each one fill launch across widths (the pairs' codes in planes at
+        their own widths), one ``nw_walk`` launch over those planes and the
+        strings."""
         sc = self.scoring
         fill = _check_slice("dirs")
         results: List[Optional[Alignment]] = [None] * len(seqs_a)
-        for key, idx in _buckets(seqs_a, seqs_b):
-            if key is None:
-                self._align_long(idx, seqs_a, seqs_b, results)
-                continue
-            la, lb = key
-            # sub-batch by the bytes the dirs tensor really holds:
-            # (la+lb-1) * (lb+1) per pair
-            step = max(1, ALIGN_DIRS_BUDGET // ((la + lb - 1) * (lb + 1)))
-            for s in range(0, len(idx), step):
-                sub = idx[s:s + step]
-                ga = [seqs_a[i] for i in sub]
-                gb = [seqs_b[i] for i in sub]
-                for a, b in zip(ga, gb):
-                    check_valid_pairs(sc, a, b)
-                ac, bc, na, nb, bparams = pack_batch(sc, self.params, ga, gb,
-                                                     la, lb)
-                ac_t, bc_t, na_t, nb_t = _to(self.device, ac, bc, na, nb)
-                dirs, corner = fill(ac_t, bc_t, na_t, nb_t, bparams)
-                ops, score = kernels.nw_walk(dirs, corner, na_t, nb_t,
-                                             int(np.max(na + nb)))
-                del dirs  # free it before the next sub-batch allocates
-                alns = nw_strings_from_ops(ga, gb, na, nb,
-                                           ops.cpu().numpy(),
-                                           score.cpu().numpy())
-                for j, i in enumerate(sub):
-                    results[i] = alns[j]
+        short, long_ = [], []
+        for i, (a, b) in enumerate(zip(seqs_a, seqs_b)):
+            (short if len(a) * len(b) <= LONG_PAIR_CELLS else long_).append(i)
+        if long_:
+            self._align_long(long_, seqs_a, seqs_b, results)
+        for sub in _plane_subbatches(short, seqs_a, seqs_b,
+                                     _align_budget(self.device)):
+            ga = [seqs_a[i] for i in sub]
+            gb = [seqs_b[i] for i in sub]
+            for a, b in zip(ga, gb):
+                check_valid_pairs(sc, a, b)
+            ac, bc, na, nb, bparams = pack_batch(
+                sc, self.params, ga, gb, max(1, max(map(len, ga))),
+                max(1, max(map(len, gb))))
+            sched = kernels.fill_schedule(na, nb, self.device, planes=True)
+            ac_t, bc_t, na_t, nb_t = _to(self.device, ac, bc, na, nb)
+            dirs, corner = fill(ac_t, bc_t, na_t, nb_t, bparams, sched)
+            ops, score = kernels.nw_walk(dirs, corner, na_t, nb_t,
+                                         int(np.max(na + nb)), sched.off)
+            del dirs  # free it before the next sub-batch allocates
+            alns = nw_strings_from_ops(ga, gb, na, nb, ops.cpu().numpy(),
+                                       score.cpu().numpy())
+            for j, i in enumerate(sub):
+                results[i] = alns[j]
         return results  # type: ignore[return-value]
 
     def _align_long(self, idx, seqs_a, seqs_b, results, chunk=None):
@@ -483,8 +536,8 @@ class NeedlemanWunsch:
 
     def score_pairs_stream(self, pairs, **kw):
         """Streaming scores: see :func:`score_pairs_stream`."""
-        return score_pairs_stream(self.scoring, self.params, pairs,
-                                  is_sw=False, **kw)
+        return score_pairs_stream(self.scoring, pairs, is_sw=False,
+                                  params=self.params, **kw)
 
 
 class _Hits:
@@ -640,14 +693,15 @@ class SmithWaterman:
     reference's shared overlap mask across the pairs this instance aligns
     (one instance == one reference ``sw_aligner_t``; see
     :class:`~seqalign_tpu_torch.ops.traceback.SwRefMaskHistory`).
-    Iterators must then be consumed in pair order.
+    Iterators must then be consumed in pair order.  It runs on the GPU
+    unless ``device="cpu"``, as :class:`NeedlemanWunsch`.
     """
 
     def __init__(self, scoring: Optional[ScoringConfig] = None,
-                 device="cuda", ref_mask_compat: Optional[bool] = None):
+                 ref_mask_compat: Optional[bool] = None, *, device="cuda"):
         self.scoring = (from_reference(scoring) if scoring is not None
                         else scoring_system_sw_default())
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.params = kernel_params(self.scoring, self.device)
         if ref_mask_compat is None:
             ref_mask_compat = os.environ.get("SEQALIGN_SW_REF_MASK") == "1"
@@ -860,7 +914,7 @@ def lcs_hits(seq: str, case_sensitive: bool = True,
             yield hit
 
 
-def lcs_aligner(case_sensitive: bool = True,
+def lcs_aligner(case_sensitive: bool = True, *,
                 device="cuda") -> SmithWaterman:
     """The lcs tool's constrained SW aligner (lcs_cmdline.c:39-64)."""
     sc = ScoringConfig(

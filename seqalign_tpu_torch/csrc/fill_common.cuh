@@ -16,9 +16,25 @@
 // __syncthreads() between diagonals, and its threads stride over the lanes
 // y of the pair's valid band max(1, d-na) <= y <= min(nb, d-1).  Three
 // rolling diagonals of M/Ga/Gb (int32, lane = y) hold all the state:
-// buf[(k * 3 + matrix) * (LB+1) + y] with k = d mod 3.  They live in
-// dynamic shared memory when 36 * (LB+1) bytes fit in the 227 KB a block may
-// use, and otherwise in a global scratch buffer the wrapper allocates.
+// buf[(k * 3 + matrix) * BL + y] with k = d mod 3 and BL = max(nb, 1) + 1,
+// the pair's own lanes.  They live in dynamic shared memory when the
+// pair's BL fits the launch's `smem_lanes` (36 * smem_lanes bytes of the
+// 227 KB a block may use), and otherwise in the pair's slice of a global
+// scratch buffer the wrapper allocates, 9 * (LB+1) int32 a slice.
+//
+// One launch serves a batch of mixed widths (Sched): ac / bc are padded to
+// the widest pair and each block sizes its loop by its own na, nb; block i
+// fills pair order[i] (the wrapper orders the pairs by cells, largest
+// first, so that the longest start first and the launch's tail is short);
+// a pair past smem_lanes takes scratch slice slot[j]; and with `off` the
+// codes (and M) go to planes at each pair's own widths, pair j's at
+// dirs + off[j] with rows of BL lanes (ops/pack.py:ragged_planes), not to
+// the uniform (B, LA+LB-1, LB+1) layout.  The GAB planes stay uniform.
+// A launch without a schedule is the uniform case: block i fills pair i,
+// and every pair keeps its diagonals, at LB+1 lanes, in shared memory or
+// in scratch slice j.  The schedule is a template flag (SCHED), so that
+// the uniform instantiations compile to the code they had before it; only
+// the scores fills and the NW codes fill (MBYTES == 0) take one.
 //
 // Template flags: DIRS stores the packed direction codes; SW floors every
 // cell at 0 with an all-zero boundary and reduces the best M (per thread,
@@ -73,7 +89,7 @@
 // What bounds it on an H100: the per-diagonal barrier and the few integer
 // ops per cell (plus, with TABLE, one dependent shared-memory load); there
 // is one block per pair, so a batch needs a few hundred pairs to fill 132
-// SMs.  Sums wrap in two's complement, like the int32 fills of the JAX
+// SMs: hence one launch across widths rather than one per width bucket.  Sums wrap in two's complement, like the int32 fills of the JAX
 // package, so every value agrees bit for bit.
 
 #pragma once
@@ -101,14 +117,24 @@ __device__ __forceinline__ int pick(bool ga_ok, bool gb_ok, bool m_ok) {
   return ga_ok ? GAP_A : (gb_ok ? GAP_B : (m_ok ? MATCH : DIR_FAIL));
 }
 
+// The schedule of a launch across widths (see Layout above), read when
+// SCHED is set.
+struct Sched {
+  const int* order;      // block -> pair
+  const int* slot;       // pair -> scratch slice, read past smem_lanes
+  const long long* off;  // pair -> its code (and M) plane, in elements
+  int smem_lanes;        // lanes of rolling diagonals in shared memory
+};
+
 // scal = {match, mismatch, gap_open, gap_extend, NW floor, SW floor}, int32
 // on device.  sub (TABLE only): (Ka, Kb) int32, sub_n = Ka * Kb entries; im
 // (TABLE with NMM): the 0/1 is-match table of the same shape.
 // dirs (DIRS only) and mout (MBYTES > 0): (B, LA+LB-1, LB+1), cell (y, x)
-// at [x+y-2][y], mout three such planes under GAB (B = gridDim.x); only
-// cells 1 <= y <= nb, 1 <= x <= na are written.
+// at [x+y-2][y], mout three such planes under GAB (B = gridDim.x), or with
+// sc.off the pairs' own planes (Layout above); only cells 1 <= y <= nb,
+// 1 <= x <= na are written.
 // scores: NW corner max or SW best M; corner (NW only): M/Ga/Gb at (nb, na).
-template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES>
+template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES, bool SCHED>
 __global__ void fill_kernel(const uint8_t* __restrict__ ac,
                             const uint8_t* __restrict__ bc,
                             const int* __restrict__ na_,
@@ -121,29 +147,41 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
                             int* __restrict__ corner,
                             uint8_t* __restrict__ dirs,
                             void* __restrict__ mout,
-                            int* __restrict__ scratch) {
+                            int* __restrict__ scratch, Sched sc) {
   using MT = typename std::conditional<MBYTES == 2, int16_t, int>::type;
   extern __shared__ int smem[];
-  const int j = blockIdx.x;
-  const int LBp = LB + 1;
-  int* buf = scratch ? scratch + static_cast<size_t>(j) * 9 * LBp : smem;
+  const int j = SCHED ? sc.order[blockIdx.x] : blockIdx.x;
+  // the lanes of the rolling diagonals: the pair's own under a schedule
+  // (and then the row stride of its plane under sc.off), else LB+1
+  const int BL = SCHED ? max(min(max(nb_[j], 0), LB), 1) + 1 : LB + 1;
+  int* buf;
+  if (SCHED) {
+    buf = BL <= sc.smem_lanes ? smem
+                              : scratch + static_cast<size_t>(sc.slot[j]) *
+                                              9 * (LB + 1);
+  } else {
+    buf = scratch ? scratch + static_cast<size_t>(j) * 9 * BL : smem;
+  }
   const int match = scal[0], mismatch = scal[1];
   const int go = scal[2], ge = scal[3], mn = SW ? scal[5] : scal[4];
   const int gop = add(go, ge);  // gap_open_penalty (alignment.c:38)
   const int na = min(max(na_[j], 0), LA);
   const int nb = min(max(nb_[j], 0), LB);
+  const int LBp = SCHED && sc.off ? BL : LB + 1;  // the output's row stride
   const uint8_t* a = ac + static_cast<size_t>(j) * LA;
   const uint8_t* b = bc + static_cast<size_t>(j) * LB;
-  const size_t plane = static_cast<size_t>(LA + LB - 1) * LBp;
-  uint8_t* dj = DIRS ? dirs + j * plane : nullptr;
-  MT* mj = MBYTES ? static_cast<MT*>(mout) + j * plane : nullptr;
+  const size_t plane = static_cast<size_t>(LA + LB - 1) * (LB + 1);
+  const size_t at_j =
+      SCHED && sc.off ? static_cast<size_t>(sc.off[j]) : j * plane;
+  uint8_t* dj = DIRS ? dirs + at_j : nullptr;
+  MT* mj = MBYTES ? static_cast<MT*>(mout) + at_j : nullptr;
   const bool nsg = MODES && (modes & NSG), neg = MODES && (modes & NEG);
   const bool nga = MODES && (modes & NGA), ngb = MODES && (modes & NGB);
   const bool nmm = MODES && (modes & NMM);
   const int* subp = sub;
   const int* imp = im;
   if (TABLE && table_smem) {
-    int* t = smem + (scratch ? 0 : 9 * LBp);
+    int* t = smem + (SCHED ? 9 * sc.smem_lanes : (scratch ? 0 : 9 * BL));
     for (int i = threadIdx.x; i < sub_n; i += blockDim.x) t[i] = sub[i];
     subp = t;
     if (MODES && TABLE && nmm) {
@@ -157,16 +195,16 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
   if (threadIdx.x == 0) {
     // diagonal 0: cell (0, 0); diagonal 1: cells (0, 1) and (1, 0)
     buf[0] = 0;
-    buf[LBp] = 0;
-    buf[2 * LBp] = 0;
-    int* d1 = buf + 3 * LBp;
+    buf[BL] = 0;
+    buf[2 * BL] = 0;
+    int* d1 = buf + 3 * BL;
     const int run1 = (SW || nsg) ? 0 : add(go, ge);
     d1[0] = mn;
-    d1[LBp] = mn;
-    d1[2 * LBp] = run1;
+    d1[BL] = mn;
+    d1[2 * BL] = run1;
     d1[1] = mn;
-    d1[LBp + 1] = run1;
-    d1[2 * LBp + 1] = mn;
+    d1[BL + 1] = run1;
+    d1[2 * BL + 1] = mn;
     if (SW) {
       scores[j] = 0;  // raised by the warps' atomicMax below
     } else if (na == 0 || nb == 0) {  // the corner is a boundary cell
@@ -187,19 +225,19 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
   __syncthreads();
 
   for (int d = 2; d <= na + nb; ++d) {
-    int* cur = buf + (d % 3) * 3 * LBp;
-    const int* p1 = buf + ((d - 1) % 3) * 3 * LBp;
-    const int* p2 = buf + ((d - 2) % 3) * 3 * LBp;
+    int* cur = buf + (d % 3) * 3 * BL;
+    const int* p1 = buf + ((d - 1) % 3) * 3 * BL;
+    const int* p2 = buf + ((d - 2) % 3) * 3 * BL;
     if (threadIdx.x == 0) {
       // boundary cells (0, d) and (d, 0) (alignment.c:51-81)
       const int run = (SW || nsg) ? 0 : add(go, d * ge);
       cur[0] = mn;
-      cur[LBp] = mn;
-      cur[2 * LBp] = run;
+      cur[BL] = mn;
+      cur[2 * BL] = run;
       if (d <= nb) {
         cur[d] = mn;
-        cur[LBp + d] = run;
-        cur[2 * LBp + d] = mn;
+        cur[BL + d] = run;
+        cur[2 * BL + d] = mn;
       }
     }
     const int lo = max(1, d - na);
@@ -211,12 +249,12 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
       const int ss = TABLE ? subp[ca * Kb + cb]
                            : (ca == cb ? match : mismatch);
       const bool lastcol = MODES && x == na, lastrow = MODES && y == nb;
-      const int m2 = p2[y - 1], ga2 = p2[LBp + y - 1],
-                gb2 = p2[2 * LBp + y - 1];  // (y-1, x-1)
-      const int mu = p1[y - 1], gau = p1[LBp + y - 1],
-                gbu = p1[2 * LBp + y - 1];  // (y-1, x)
-      const int ml = p1[y], gal = p1[LBp + y],
-                gbl = p1[2 * LBp + y];  // (y, x-1)
+      const int m2 = p2[y - 1], ga2 = p2[BL + y - 1],
+                gb2 = p2[2 * BL + y - 1];  // (y-1, x-1)
+      const int mu = p1[y - 1], gau = p1[BL + y - 1],
+                gbu = p1[2 * BL + y - 1];  // (y-1, x)
+      const int ml = p1[y], gal = p1[BL + y],
+                gbl = p1[2 * BL + y];  // (y, x-1)
       // MATCH (alignment.c:89-119)
       int M = max(add(max3(m2, ga2, gb2), ss), mn);
       // GAP_A, gap in seq_a (alignment.c:121-137)
@@ -231,8 +269,8 @@ __global__ void fill_kernel(const uint8_t* __restrict__ ac,
         if (ngb && !lastrow) Gb = mn;
       }
       cur[y] = M;
-      cur[LBp + y] = Ga;
-      cur[2 * LBp + y] = Gb;
+      cur[BL + y] = Ga;
+      cur[2 * BL + y] = Gb;
       if (DIRS) {
         // guards on the predecessor's cell; inside the valid band
         // 1 <= x <= na, 1 <= y <= nb they reduce to these four
@@ -490,15 +528,17 @@ int start(void (*kernel)(P...), size_t smem, int B, int LB, void* stream,
   return cudaGetLastError();
 }
 
-// fill_kernel, or fill_carry_kernel for one chunk (CARRY).
+// fill_kernel under the schedule `sc`, or fill_carry_kernel for one chunk
+// (CARRY; its diagonals in shared memory unless `scratch` is given).
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool MODES, bool CARRY>
 int launch(const void* ac, const void* bc, const void* na, const void* nb,
            const void* scal, const void* sub, const void* im, int modes,
            int Kb, int sub_n, int table_smem, int B, int LA, int LB,
            void* scores, void* corner, void* dirs, void* mout, void* scratch,
-           void* stream, const Carry& cr) {
+           void* stream, const Sched& sc, const Carry& cr) {
+  const int lanes = CARRY ? (scratch ? 0 : LB + 1) : sc.smem_lanes;
   const size_t smem =
-      (scratch ? 0 : static_cast<size_t>(36) * (LB + 1)) +
+      static_cast<size_t>(36) * lanes +
       (TABLE && table_smem ? static_cast<size_t>(4) * sub_n * (im ? 2 : 1)
                            : 0);
   const auto ac_ = static_cast<const uint8_t*>(ac);
@@ -518,11 +558,16 @@ int launch(const void* ac, const void* bc, const void* na, const void* nb,
                  stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
                  sub_n, table_smem, LA, LB, scores_, corner_, dirs_, mout,
                  scratch_, cr);
+  } else if (MBYTES == 0 && sc.order) {  // a launch across widths
+    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES, MBYTES == 0>,
+                 smem, B, LB, stream, ac_, bc_, na_, nb_, scal_, sub_, im_,
+                 modes, Kb, sub_n, table_smem, LA, LB, scores_, corner_,
+                 dirs_, mout, scratch_, sc);
   } else {
-    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES>, smem, B, LB,
-                 stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
+    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES, false>, smem, B,
+                 LB, stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
                  sub_n, table_smem, LA, LB, scores_, corner_, dirs_, mout,
-                 scratch_);
+                 scratch_, sc);
   }
 }
 
@@ -534,16 +579,16 @@ int launch_table(const void* ac, const void* bc, const void* na,
                  const void* im, int modes, int Kb, int sub_n,
                  int table_smem, int B, int LA, int LB, void* scores,
                  void* corner, void* dirs, void* mout, void* scratch,
-                 void* stream, const Carry& cr) {
+                 void* stream, const Sched& sc, const Carry& cr) {
   if (sub) {
     return launch<DIRS, SW, true, MBYTES, MODES, CARRY>(
         ac, bc, na, nb, scal, sub, (modes & NMM) ? im : nullptr, modes, Kb,
         sub_n, table_smem, B, LA, LB, scores, corner, dirs, mout, scratch,
-        stream, cr);
+        stream, sc, cr);
   }
   return launch<DIRS, SW, false, MBYTES, MODES, CARRY>(
       ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0, 0, B, LA, LB,
-      scores, corner, dirs, mout, scratch, stream, cr);
+      scores, corner, dirs, mout, scratch, stream, sc, cr);
 }
 
 template <bool DIRS, bool SW, int MBYTES, bool CARRY = false>
@@ -552,29 +597,36 @@ int launch_mode(const void* ac, const void* bc, const void* na,
                 const void* im, int modes, int Kb, int sub_n, int table_smem,
                 int B, int LA, int LB, void* scores, void* corner,
                 void* dirs, void* mout, void* scratch, void* stream,
-                const Carry& cr = Carry{}) {
+                const Sched& sc, const Carry& cr = Carry{}) {
   if (modes) {
     return launch_table<DIRS, SW, MBYTES, true, CARRY>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, corner, dirs, mout, scratch, stream, cr);
+        LB, scores, corner, dirs, mout, scratch, stream, sc, cr);
   }
   return launch_table<DIRS, SW, MBYTES, false, CARRY>(
       ac, bc, na, nb, scal, sub, nullptr, 0, Kb, sub_n, table_smem, B, LA, LB,
-      scores, corner, dirs, mout, scratch, stream, cr);
+      scores, corner, dirs, mout, scratch, stream, sc, cr);
 }
 
 }  // namespace fill
 
-// The four fill entry points share one C signature (ops/build.py):
+// The fill entry points share one C signature (ops/build.py):
 // ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,
-// scores, corner, dirs, mout, m16, scratch, stream.
+// scores, corner, dirs, mout, m16, scratch, stream, and the schedule:
+// order, slot, off (each null or a device array), smem_lanes.
 #define FILL_ENTRY(name)                                                     \
   extern "C" int name(const void* ac, const void* bc, const void* na,       \
                       const void* nb, const void* scal, const void* sub,     \
                       const void* im, int modes, int Kb, int sub_n,          \
                       int table_smem, int B, int LA, int LB, void* scores,   \
                       void* corner, void* dirs, void* mout, int m16,         \
-                      void* scratch, void* stream)
+                      void* scratch, void* stream, const void* order,        \
+                      const void* slot, const void* off, int smem_lanes)
+
+#define SCHED_ARGS                                                           \
+  fill::Sched { static_cast<const int*>(order),                             \
+                static_cast<const int*>(slot),                              \
+                static_cast<const long long*>(off), smem_lanes }
 
 // The two carry entry points (one chunk of a long pair) add: bin, bout,
 // x_off, CA, and the pair strides of the code and M slabs (ops/build.py).

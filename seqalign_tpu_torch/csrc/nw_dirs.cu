@@ -32,17 +32,18 @@
 FILL_ENTRY(nw_dirs_launch) {
   return fill::launch_mode<true, false, 0>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, nullptr, scratch, stream);
+      LB, scores, corner, dirs, nullptr, scratch, stream, SCHED_ARGS);
 }
 
 CARRY_ENTRY(nw_dirs_carry_launch) {
   return fill::launch_mode<true, false, 0, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, nullptr, scratch, stream, CARRY_ARGS);
+      LB, scores, corner, dirs, nullptr, scratch, stream, fill::Sched{},
+      CARRY_ARGS);
 }
 
 FILL_ENTRY(nw_dirs_gab_launch) {
   return fill::launch_mode<true, false, 12>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, mout, scratch, stream);
+      LB, scores, corner, dirs, mout, scratch, stream, SCHED_ARGS);
 }

@@ -24,7 +24,7 @@
 FILL_ENTRY(nw_scores_launch) {
   return fill::launch_mode<false, false, 0>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, nullptr, nullptr, scratch, stream);
+      LB, scores, corner, nullptr, nullptr, scratch, stream, SCHED_ARGS);
 }
 
 extern "C" const char* nw_error_string(int code) {

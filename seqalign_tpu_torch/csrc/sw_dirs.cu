@@ -31,26 +31,28 @@ FILL_ENTRY(sw_dirs_launch) {
   if (m16) {
     return fill::launch_mode<true, true, 2>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, nullptr, dirs, mout, scratch, stream);
+        LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
   }
   return fill::launch_mode<true, true, 4>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream);
+      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
 }
 
 CARRY_ENTRY(sw_dirs_carry_launch) {
   if (m16) {
     return fill::launch_mode<true, true, 2, true>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, nullptr, dirs, mout, scratch, stream, CARRY_ARGS);
+        LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
+        CARRY_ARGS);
   }
   return fill::launch_mode<true, true, 4, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream, CARRY_ARGS);
+      LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
+      CARRY_ARGS);
 }
 
 FILL_ENTRY(sw_dirs_gab_launch) {
   return fill::launch_mode<true, true, 12>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream);
+      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
 }

@@ -21,5 +21,5 @@
 FILL_ENTRY(sw_scores_launch) {
   return fill::launch_mode<false, true, 0>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, nullptr, nullptr, scratch, stream);
+      LB, scores, nullptr, nullptr, nullptr, scratch, stream, SCHED_ARGS);
 }

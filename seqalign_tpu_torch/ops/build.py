@@ -30,10 +30,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,
 # scores, corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
-_FILL = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-         _P, _I, _P, _P)
-# the fill's, then bin, bout, x_off, CA, code and M pair strides
-_CARRY = _FILL + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong)
+_COMMON = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+           _P, _P, _I, _P, _P)
+# then the schedule: order, slot, off, smem_lanes
+_FILL = _COMMON + (_P, _P, _P, _I)
+# then bin, bout, x_off, CA, code and M pair strides
+_CARRY = _COMMON + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong)
 _SIGNATURES = {
     "nw_scores_launch": _FILL,
     "nw_dirs_launch": _FILL,
@@ -43,8 +45,8 @@ _SIGNATURES = {
     "sw_dirs_gab_launch": _FILL,
     "nw_dirs_carry_launch": _CARRY,
     "sw_dirs_carry_launch": _CARRY,
-    # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, stream
-    "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, off, stream
+    "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, jw, x0, y0, s0, W, B, LA,
     # LB, nch, Dc, cap, ops, stream
     "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,

@@ -20,6 +20,8 @@ the hit order, and ``merge_candidates`` joins the chunks' harvests.
 ``nw_fill_gab_plain`` / ``sw_fill_gab_plain`` add the M, Ga and Gb planes
 of the matrix dump (``dp_fill(emit_gab=True)``), and ``deskew`` turns one
 pair's plane into the row-major matrix the CLI prints.
+``nw_fill_dirs_plain`` also writes the codes as planes at each pair's own
+widths (``pack.ragged_planes``), as one fill launch across widths does.
 
 The chunked fill (``bin`` given) is one chunk of a long pair: the columns
 x_off+1 .. x_off+CA, with the column x = x_off carried in and the column
@@ -245,13 +247,22 @@ def nw_scores_plain(ac, bc, na, nb, params: KernelParams):
     return corner.max(dim=1).values, corner
 
 
-def nw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams):
+def nw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams, off=None):
     """The NW fill with direction codes: returns ``(dirs, corner)``, dirs
     (B, LA+LB-1, LB+1) uint8 with cell (y, x) at ``[x+y-2, y]`` and code
     ``dm | dga << 2 | dgb << 4``.  Only cells 1 <= y <= nb, 1 <= x <= na
-    are defined."""
+    are defined.  With ``off`` ((B+1,) int64, ``pack.ragged_planes``)
+    dirs is instead 1-d, each pair's plane at its own widths from
+    ``off[j]``: the padded fill's planes cut to those widths."""
     dirs, corner = _fill(ac, bc, na, nb, params, emit_dirs=True)[:2]
-    return dirs, corner
+    if off is None:
+        return dirs, corner
+    off = off.tolist()
+    flat = torch.empty(off[-1], dtype=torch.uint8, device=dirs.device)
+    for j, (n_a, n_b) in enumerate(zip(na.tolist(), nb.tolist())):
+        wa, wb = max(n_a, 1), max(n_b, 1)
+        flat[off[j]:off[j + 1]] = dirs[j, :wa + wb - 1, :wb + 1].reshape(-1)
+    return flat, corner
 
 
 def sw_scores_plain(ac, bc, na, nb, params: KernelParams):

@@ -1,7 +1,9 @@
 """Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
 ``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
 substitution-table scoring, the latter when ``params.sub`` is set; the
-scoring flags of ``params.modes``), the matrix-dump fills ``nw_fill_gab``
+scoring flags of ``params.modes``; the first three also as one launch
+across widths under a :class:`FillSchedule`, ``nw_fill_dirs`` then writing
+each pair's codes at its own widths), the matrix-dump fills ``nw_fill_gab``
 and ``sw_fill_gab``, the long-pair chunk fills ``nw_fill_dirs_carry`` and
 ``sw_fill_dirs_carry``, the walks ``nw_walk`` and ``sw_walk``, the SW hit
 loop ``sw_hits`` (the walks and the hit loop over a code plane or a long
@@ -21,19 +23,76 @@ under its kernel's name.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .build import library
 from .dp import (nw_fill_dirs_carry_plain, nw_fill_dirs_plain,
                  nw_fill_gab_plain, nw_scores_plain, sw_fill_dirs_carry_plain,
                  sw_fill_dirs_plain, sw_fill_gab_plain, sw_scores_plain)
-from .pack import NEG, NMM, KernelParams
+from .pack import NEG, NMM, KernelParams, ragged_planes
 from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
                         sw_walk_plain, walk_cap)
 
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
+# lanes of rolling diagonals (36 bytes each) a block of a launch across
+# widths keeps in shared memory; a pair with more lanes takes a slice of
+# global scratch.  6,400 lanes hold every pair of up to 6,399 bp on side b
+# at one block an SM (PERF.md: chip_smoke.py's ragged rows time the
+# choices).
+RAGGED_SMEM_LANES = 6400
+
+
+class FillSchedule(NamedTuple):
+    """How one fill launch across widths runs (csrc/fill_common.cuh,
+    Sched): built on the host by :func:`fill_schedule`.
+
+    order: (B,) int32 on the device, block i fills pair order[i]: the pairs
+      by cells, largest first, so that the longest start first.
+    slot: (B,) int32, the pair's slice of global scratch for its rolling
+      diagonals, -1 when they fit ``smem_lanes``.
+    nslots: slices of scratch the launch allocates.
+    smem_lanes: lanes of rolling diagonals in shared memory per block.
+    off: with planes, (B+1,) int64 on the device, ``pack.ragged_planes``:
+      ``nw_fill_dirs`` writes pair j's codes at its own widths from
+      ``off[j]`` into a 1-d tensor of ``total`` bytes.
+    """
+
+    order: torch.Tensor
+    slot: torch.Tensor
+    nslots: int
+    smem_lanes: int
+    off: Optional[torch.Tensor] = None
+    total: int = 0
+
+
+def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
+                  planes: bool = False) -> FillSchedule:
+    """The schedule of one fill launch over pairs of lengths ``na``,
+    ``nb`` (host arrays), on ``device``: ``smem_lanes`` (default
+    ``RAGGED_SMEM_LANES``) lanes of shared memory a block, and with
+    ``planes`` the ragged code planes of ``nw_fill_dirs``."""
+    lanes = RAGGED_SMEM_LANES if smem_lanes is None else int(smem_lanes)
+    if not 0 <= 36 * lanes <= SMEM_MAX:
+        raise ValueError(f"{lanes} lanes of diagonals do not fit shared "
+                         f"memory")
+    na = np.asarray(na, np.int64)
+    nb = np.asarray(nb, np.int64)
+    order = np.argsort(-(na * nb), kind="stable")
+    need = np.maximum(nb, 1) + 1 > lanes
+    slot = np.where(need, np.cumsum(need) - 1, -1)
+
+    def dev(v, dtype):
+        return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
+
+    off = ragged_planes(na, nb) if planes else None
+    return FillSchedule(dev(order, np.int32), dev(slot, np.int32),
+                        int(need.sum()), lanes,
+                        None if off is None else dev(off, np.int64),
+                        0 if off is None else int(off[-1]))
 
 _COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_fill_gab": 0,
            "nw_fill_dirs_carry": 0, "nw_walk": 0, "sw_scores": 0,
@@ -116,78 +175,107 @@ def _launched(name, lib, rc):
     _COUNTS[name] += 1
 
 
+def _check_sched(sched, B):
+    if sched is not None and not (sched.order.shape[0] == sched.slot.shape[0]
+                                  == B):
+        raise ValueError("the schedule must hold one entry per pair")
+
+
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
-          dirs=None, mout=None, m16=False, carry=()):
-    """Launch one of the fill kernels (csrc/fill_common.cuh).  The rolling
-    diagonals (36 bytes per lane) take shared memory when they fit there,
-    else a global scratch buffer; the table (4 bytes per entry, twice that
-    with the is-match table of no_mismatches) takes the shared memory left,
-    else the read-only global path.  ``carry``: the extra arguments of a
-    carry entry."""
+          dirs=None, mout=None, m16=False, sched=None, carry=None):
+    """Launch one of the fill kernels (csrc/fill_common.cuh).  Without a
+    schedule the rolling diagonals (36 bytes per lane) of every pair take
+    shared memory when LB+1 lanes fit there, else a global scratch buffer;
+    with one, a pair's take shared memory when its own lanes fit the
+    schedule's, else its slice of scratch.  The table (4 bytes per entry,
+    twice that with the is-match table of no_mismatches) takes the shared
+    memory left, else the read-only global path.  ``carry``: the extra
+    arguments of a carry entry, which takes no schedule."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
         return
     dev = ac.device
-    diag = 36 * (LB + 1)
-    scratch = (None if diag <= SMEM_MAX else
-               torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev))
+    if sched is None:
+        lanes = LB + 1 if 36 * (LB + 1) <= SMEM_MAX else 0
+        nscratch = 0 if lanes else B
+    else:
+        lanes, nscratch = min(sched.smem_lanes, LB + 1), sched.nslots
+    scratch = (torch.empty((nscratch, 9, LB + 1), dtype=torch.int32,
+                           device=dev) if nscratch else None)
     sub = params.sub
     im = params.im if sub is not None and params.modes & NMM else None
     kb = sub_n = table_smem = 0
     if sub is not None:
         kb, sub_n = sub.shape[1], sub.numel()
-        used = 0 if scratch is not None else diag
         tables = 4 * sub_n * (1 if im is None else 2)
-        table_smem = int(used + tables <= SMEM_MAX)
+        table_smem = int(36 * lanes + tables <= SMEM_MAX)
     lib = library()
+    if carry is None:
+        tail = ((None, None, None, lanes) if sched is None else
+                (_ptr(sched.order), _ptr(sched.slot), _ptr(sched.off), lanes))
+    else:
+        tail = carry
     rc = getattr(lib, entry)(
         _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
         _ptr(im), params.modes, kb, sub_n, table_smem, B, LA, LB,
         _ptr(scores), _ptr(corner),
         _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev),
-        *carry)
+        *tail)
     _launched(name, lib, rc)
 
 
-def nw_scores(ac, bc, na, nb, params: KernelParams):
+def nw_scores(ac, bc, na, nb, params: KernelParams,
+              sched: Optional[FillSchedule] = None):
     """NW scores and corners of a padded batch (see ``nw_scores_plain``):
-    returns ``(scores (B,) int32, corner (B, 3) int32)``."""
+    returns ``(scores (B,) int32, corner (B, 3) int32)``.  ``sched``: one
+    launch across widths (:func:`fill_schedule`)."""
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    _check_sched(sched, B)
     if ac.device.type == "cpu":
         return nw_scores_plain(ac, bc, na, nb, params)
     scores = torch.empty(B, dtype=torch.int32, device=ac.device)
     corner = torch.empty((B, 3), dtype=torch.int32, device=ac.device)
     _fill("nw_scores", "nw_scores_launch", ac, bc, na, nb, params, scores,
-          corner)
+          corner, sched=sched)
     return scores, corner
 
 
-def nw_fill_dirs(ac, bc, na, nb, params: KernelParams):
+def nw_fill_dirs(ac, bc, na, nb, params: KernelParams,
+                 sched: Optional[FillSchedule] = None):
     """The NW fill with direction codes (see ``nw_fill_dirs_plain``):
     returns ``(dirs (B, LA+LB-1, LB+1) uint8, corner (B, 3) int32)``; only
-    cells 1 <= y <= nb, 1 <= x <= na of dirs are defined."""
+    cells 1 <= y <= nb, 1 <= x <= na of dirs are defined.  Under a
+    schedule with planes (:func:`fill_schedule`), one launch across
+    widths: dirs is 1-d, ``sched.total`` bytes, pair j's plane at its own
+    widths from ``sched.off[j]`` (``pack.ragged_planes``)."""
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    _check_sched(sched, B)
+    off = None if sched is None else sched.off
     if ac.device.type == "cpu":
-        return nw_fill_dirs_plain(ac, bc, na, nb, params)
+        return nw_fill_dirs_plain(ac, bc, na, nb, params, off)
     dev = ac.device
-    dirs = torch.empty((B, LA + LB - 1, LB + 1), dtype=torch.uint8,
-                       device=dev)
+    dirs = torch.empty((B, LA + LB - 1, LB + 1) if off is None
+                       else (sched.total,), dtype=torch.uint8, device=dev)
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     corner = torch.empty((B, 3), dtype=torch.int32, device=dev)
     _fill("nw_fill_dirs", "nw_dirs_launch", ac, bc, na, nb, params, scores,
-          corner, dirs)
+          corner, dirs, sched=sched)
     return dirs, corner
 
 
-def sw_scores(ac, bc, na, nb, params: KernelParams):
+def sw_scores(ac, bc, na, nb, params: KernelParams,
+              sched: Optional[FillSchedule] = None):
     """SW best scores of a padded batch (see ``sw_scores_plain``): (B,)
-    int32."""
+    int32.  ``sched``: one launch across widths (:func:`fill_schedule`;
+    its planes, if any, are not used)."""
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    _check_sched(sched, B)
     if ac.device.type == "cpu":
         return sw_scores_plain(ac, bc, na, nb, params)
     scores = torch.empty(B, dtype=torch.int32, device=ac.device)
-    _fill("sw_scores", "sw_scores_launch", ac, bc, na, nb, params, scores)
+    _fill("sw_scores", "sw_scores_launch", ac, bc, na, nb, params, scores,
+          sched=sched)
     return scores
 
 
@@ -340,24 +428,34 @@ def _check_codes(dirs, ac, bc):
     return nch, dc
 
 
-def nw_walk(dirs, corner, na, nb, cap: int):
+def nw_walk(dirs, corner, na, nb, cap: int, off=None):
     """Device traceback walk (see ``nw_walk_plain``) over a code plane or
-    chunk slabs: returns the op trace (B, walk_cap(cap)) int8 and the start
-    scores (B,) int32."""
+    chunk slabs, or with ``off`` ((B+1,) int64, a schedule's) over the 1-d
+    planes at each pair's own widths of one launch across widths: returns
+    the op trace (B, walk_cap(cap)) int8 and the start scores (B,)
+    int32."""
     dev = dirs.device
-    if dirs.dim() not in (3, 4):
-        raise ValueError("dirs must be a code plane or chunk slabs")
+    if dirs.dim() not in ((1,) if off is not None else (3, 4)):
+        raise ValueError("dirs must be a code plane or chunk slabs, or 1-d "
+                         "planes with their offsets")
     _expect(dirs, "dirs", torch.uint8, dirs.dim(), dev)
     _expect(corner, "corner", torch.int32, 2, dev)
     _expect(na, "na", torch.int32, 1, dev)
     _expect(nb, "nb", torch.int32, 1, dev)
-    B = dirs.shape[0]
-    nch, dc, LBp, _ = slab_geometry(dirs)
-    if corner.shape != (B, 3) or na.shape[0] != B or nb.shape[0] != B:
+    B = corner.shape[0]
+    if off is None:
+        nch, dc, LBp, _ = slab_geometry(dirs)
+    else:
+        _expect(off, "off", torch.int64, 1, dev)
+        nch, dc, LBp = 1, 1, 1  # unused: each pair's widths are its own
+        if off.shape[0] != B + 1:
+            raise ValueError("off must hold B+1 offsets")
+    if corner.shape != (B, 3) or na.shape[0] != B or nb.shape[0] != B or \
+            (off is None and dirs.shape[0] != B):
         raise ValueError("dirs, corner, na and nb must hold the same pair "
                          "count")
     if dev.type == "cpu":
-        return nw_walk_plain(dirs, corner, na, nb, cap)
+        return nw_walk_plain(dirs, corner, na, nb, cap, off)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = library()
@@ -368,7 +466,7 @@ def nw_walk(dirs, corner, na, nb, cap: int):
         return ops, score
     rc = lib.nw_walk_launch(_ptr(dirs), _ptr(corner), _ptr(na), _ptr(nb), B,
                             nch, dc, LBp, capr, _ptr(ops), _ptr(score),
-                            _stream(dev))
+                            _ptr(off), _stream(dev))
     _launched("nw_walk", lib, rc)
     return ops, score
 

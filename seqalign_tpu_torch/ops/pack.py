@@ -7,7 +7,9 @@ are written again here on the port's own packer and scoring layers
 ``dp.compact_inputs``, ``dp._present_bytes``, ``dp.mm_eligible`` and
 ``dp.check_valid_pairs``
 (dp.py:437-610), ``pallas_dp2.m16_safe`` (pallas_dp2.py:94-101), and the
-direction codes of dp.py:47.
+direction codes of dp.py:47.  :func:`ragged_planes` is the port's own:
+the layout of code planes at each pair's widths, which one fill launch
+across widths writes and ``nw_walk`` reads.
 
 This system has no weights: its state is the :class:`ScoringConfig`.
 :func:`kernel_params` turns it into the tensors the kernels read.
@@ -96,6 +98,20 @@ def pad_width(n: int) -> int:
     if n <= 4096:
         return _next_pow2(n)
     return -(-n // 1024) * 1024
+
+
+def ragged_planes(na, nb) -> np.ndarray:
+    """Offsets (B+1,) int64 of B code planes laid end to end, each at its
+    pair's own widths: pair j's plane, ``[off[j], off[j+1])``, is the
+    skewed layout of a uniform plane (cell (y, x) at row x + y - 2, lane
+    y) with wa + wb - 1 rows of wb + 1 lanes, wa = max(na_j, 1) and
+    wb = max(nb_j, 1).  A uniform batch of widths (LA, LB) is the case
+    ``off[j] = j * (LA + LB - 1) * (LB + 1)``."""
+    wa = np.maximum(np.asarray(na, np.int64), 1)
+    wb = np.maximum(np.asarray(nb, np.int64), 1)
+    off = np.zeros(len(wa) + 1, np.int64)
+    np.cumsum((wa + wb - 1) * (wb + 1), out=off[1:])
+    return off
 
 
 def pad_batch(seqs, pad_to: Optional[int] = None,

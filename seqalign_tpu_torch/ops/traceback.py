@@ -61,18 +61,32 @@ def walk_cap(cap: int) -> int:
     return -(-int(cap) // 256) * 256
 
 
-def nw_walk_plain(dirs, corner, na, nb, cap: int):
+def nw_walk_plain(dirs, corner, na, nb, cap: int, off=None):
     """Walk every pair from (nb, na) to the first zero coordinate, over a
-    code plane or chunk slabs (:func:`slab_geometry`).
+    code plane or chunk slabs (:func:`slab_geometry`), or with ``off``
+    ((B+1,) int64, ``pack.ragged_planes``) over the 1-d planes at each
+    pair's own widths that one fill launch across widths writes.
 
     The start matrix is picked from ``corner`` (B, 3) with preference
     GAP_A >= GAP_B >= MATCH (needleman_wunsch.c:53-66).  Returns the op
     trace (B, walk_cap(cap)) int8 — the matrix walked at each step, -1 once
     done; a DIR_FAIL shows as a 3 in the step after it — and the start
     scores (B,) int32."""
-    B = dirs.shape[0]
-    _, dc, LBp, ca = slab_geometry(dirs)
+    B = corner.shape[0]
     dev = dirs.device
+    if off is None:
+        _, dc, LBp, ca = slab_geometry(dirs)
+        flat = dirs.reshape(B, -1)
+
+        def code_at(X, Y):
+            idx = slab_index(X, Y, ca, dc, LBp)
+            return flat.gather(1, idx[:, None])[:, 0].long()
+    else:
+        base = off[:B].long()
+        lanes = nb.long().clamp(min=1) + 1
+
+        def code_at(X, Y):
+            return dirs[base + (X + Y - 2) * lanes + Y].long()
     cap = walk_cap(cap)
     m, ga, gb = corner.long().unbind(1)
     curr = torch.where(gb >= m, GAP_B, MATCH)
@@ -81,12 +95,10 @@ def nw_walk_plain(dirs, corner, na, nb, cap: int):
     score = torch.maximum(score, ga)
     X = na.long()
     Y = nb.long()
-    flat = dirs.reshape(B, -1)
     ops = torch.full((B, cap), -1, dtype=torch.int8, device=dev)
     for s in range(cap):
         active = (X > 0) & (Y > 0)
-        idx = slab_index(X.clamp(min=1), Y.clamp(min=1), ca, dc, LBp)
-        code = flat.gather(1, idx[:, None])[:, 0].long()
+        code = code_at(X.clamp(min=1), Y.clamp(min=1))
         nxt = (code >> (2 * curr)) & 3
         ops[:, s] = torch.where(active, curr, -1).to(torch.int8)
         X = torch.where(active & (curr != GAP_A), X - 1, X)

@@ -100,8 +100,9 @@ def test_align_batch_empty_sides(device_path):
 
 
 def test_score_batch_fillers_do_not_leak(device_path):
-    """Pow2 pair-count padding adds length-1 fillers; only n results come
-    back, equal to the unpadded answers."""
+    """No result past n comes back: the port launches the n pairs without
+    the JAX package's pow2 pair-count fillers, and the n scores equal the
+    host DP's."""
     sc = scoring_system_default()
     A, B = _pairs(7, 5, 1, 30), _pairs(8, 5, 1, 30)
     nw = NeedlemanWunsch(sc, device="cpu")
@@ -216,11 +217,14 @@ def test_long_pair_bucket_raises(monkeypatch):
 
 
 def test_align_sub_batches_follow_the_dirs_bytes(monkeypatch):
-    """Sub-batches are sized by the (la+lb-1)*(lb+1) bytes per pair the
-    dirs tensor holds."""
+    """Sub-batches are sized by the bytes each pair's code plane holds at
+    its own widths, (na+nb-1)*(nb+1): each sub-batch's planes fit the
+    budget, and the next pair would not have fit beside them."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
-    per_pair = (64 + 64 - 1) * (64 + 1)
-    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET", 2 * per_pair)
+    A, B = _pairs(9, 5, 10, 40), _pairs(10, 5, 10, 40)
+    plane = [(len(a) + len(b) - 1) * (len(b) + 1) for a, b in zip(A, B)]
+    budget = plane[0] + plane[1]
+    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET", budget)
     sizes = []
     real = port_aligners.kernels.nw_fill_dirs
 
@@ -229,9 +233,15 @@ def test_align_sub_batches_follow_the_dirs_bytes(monkeypatch):
         return real(ac, *args)
 
     monkeypatch.setattr(port_aligners.kernels, "nw_fill_dirs", spy)
-    A, B = _pairs(9, 5, 10, 40), _pairs(10, 5, 10, 40)
     got = NeedlemanWunsch(device="cpu").align_batch(A, B)
-    assert sizes == [2, 2, 1]
+    assert sum(sizes) == 5 and len(sizes) > 1 and sizes[0] == 2
+    start = 0
+    for n in sizes:
+        held = sum(plane[start:start + n])
+        assert n == 1 or held <= budget
+        if start + n < 5:
+            assert held + plane[start + n] > budget
+        start += n
     sc = scoring_system_default()
     assert [g.score for g in got] == [host_dp.nw_align(sc, a, b).score
                                       for a, b in zip(A, B)]

@@ -210,7 +210,8 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
     assert {k: after[k] - before[k] for k in after} == {
         "nw_scores": 1, "nw_fill_dirs": 1, "nw_fill_dirs_carry": 0,
         "nw_walk": 0, "sw_scores": 1, "sw_fill_dirs": 2,
-        "sw_fill_dirs_carry": 0, "sw_walk": 1, "sw_hits": 2}
+        "sw_fill_dirs_carry": 0, "sw_walk": 1, "sw_hits": 2,
+        "nw_fill_gab": 0, "sw_fill_gab": 0, "vpu_chain": 0}
 
 
 def test_sw_scores_in_global_scratch(dev):
@@ -621,3 +622,201 @@ def test_vpu_chain_equals_plain_version(dev, dtype, lanes):
         kernels.vpu_chain(x[:, :-1] if dtype == torch.int16 else
                           torch.zeros((2, 1025), dtype=dtype, device=dev),
                           4, "add")
+
+
+def _sched_fills(fill, t, bp, lanes, planes=False):
+    """``fill`` over the batch ``t`` under a schedule of ``lanes`` lanes of
+    shared memory a block (its planes with ``planes``)."""
+    na, nb = (v.cpu().numpy() for v in t[2:4])
+    return fill(*t, bp, kernels.fill_schedule(na, nb, t[0].device, lanes,
+                                              planes))
+
+
+@pytest.mark.parametrize("case", ["default", "nsg_neg", "table"])
+def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
+    """One fill launch across widths (ragged code planes, blocks largest
+    first, each pair's diagonals in shared memory or its scratch slice)
+    against the uniform launch of each width bucket, kernel against
+    kernel; against the plain ragged fill; and nw_walk over the planes
+    against the walk over the bucket planes.  The scores fills under the
+    same schedules equal their uniform launches.  Shared-memory lanes 0
+    (every pair in scratch), 700 and the default; a pair of 6,600 lanes
+    takes scratch under the default."""
+    from seqalign_tpu_torch.ops.pack import pad_width
+
+    if case == "table":
+        sc, alpha = scoring_system_BLOSUM62(), PROTEIN
+    else:
+        flags = case != "default"
+        sc = ScoringConfig(1, -2, -4, -1, no_start_gap_penalty=flags,
+                           no_end_gap_penalty=flags)
+        alpha = "acgtACGT"
+    rng = np.random.default_rng(len(case))
+    A, Bs = _text(rng, alpha, 23, 1, 2000), _text(rng, alpha, 23, 1, 1500)
+    A[2], Bs[5] = "", ""
+    A.append(_text(rng, alpha, 1, 3000, 3000)[0])
+    Bs.append(_text(rng, alpha, 1, 6600, 6600)[0])
+    p = kernel_params(sc, dev)
+    la, lb = max(map(len, A)), max(map(len, Bs))
+    ac, bc, na, nb, bp = pack_batch(sc, p, A, Bs, la, lb)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    cap = int((na + nb).max())
+    before = kernel_launch_counts()
+    outs = [_sched_fills(kernels.nw_fill_dirs, t, bp, lanes, True)
+            for lanes in (0, 700, kernels.RAGGED_SMEM_LANES)]
+    s_nw, c_nw = kernels.nw_scores(*t, bp)
+    s_sw = kernels.sw_scores(*t, bp)
+    for lanes in (0, 700, kernels.RAGGED_SMEM_LANES):
+        s, c = _sched_fills(kernels.nw_scores, t, bp, lanes)
+        assert torch.equal(s, s_nw) and torch.equal(c, c_nw)
+        assert torch.equal(_sched_fills(kernels.sw_scores, t, bp, lanes),
+                           s_sw)
+    off = kernels.fill_schedule(na, nb, dev, planes=True).off
+    walk = kernels.nw_walk(outs[0][0], outs[0][1], t[2], t[3], cap, off)
+    for flat, corner in outs[1:]:
+        assert torch.equal(corner, outs[0][1])
+        got = kernels.nw_walk(flat, corner, t[2], t[3], cap, off)
+        assert all(torch.equal(g, w) for g, w in zip(got, walk))
+    after = kernel_launch_counts()
+    assert after["nw_fill_dirs"] == before["nw_fill_dirs"] + 3
+    assert after["nw_walk"] == before["nw_walk"] + 3
+    offs = off.tolist()
+    buckets = {}
+    for j, (a, b) in enumerate(zip(A, Bs)):
+        buckets.setdefault((pad_width(max(1, len(a))),
+                            pad_width(max(1, len(b)))), []).append(j)
+    for (wa, wb), idx in buckets.items():
+        g = pack_batch(sc, p, [A[j] for j in idx], [Bs[j] for j in idx], wa,
+                       wb)
+        tb = [torch.from_numpy(v).to(dev) for v in g[:4]]
+        d, c = kernels.nw_fill_dirs(*tb, g[4])
+        ops, score = kernels.nw_walk(d, c, tb[2], tb[3], cap)
+        for i, j in enumerate(idx):
+            lanes = max(int(nb[j]), 1) + 1
+            for flat, corner in outs:
+                plane = flat[offs[j]:offs[j + 1]].view(-1, lanes)
+                assert torch.equal(corner[j], c[i])
+                v = _valid(dev, tb[2][i:i + 1], tb[3][i:i + 1], wa,
+                           wb)[0][:, :lanes]
+                rows = plane.shape[0]
+                assert torch.equal(plane[v[:rows]], d[i, :rows, :lanes][
+                    v[:rows]])
+            assert torch.equal(walk[0][j], ops[i])
+            assert walk[1][j] == score[i]
+    # the plain ragged fill, on 8 pairs of up to 300 bp
+    As, Bss = _text(rng, alpha, 8, 0, 300), _text(rng, alpha, 8, 0, 300)
+    As[1] = ""
+    g = pack_batch(sc, p, As, Bss, 300, 300)
+    ts = [torch.from_numpy(v).to(dev) for v in g[:4]]
+    flat, corner = _sched_fills(kernels.nw_fill_dirs, ts, g[4], 700, True)
+    offs = kernels.fill_schedule(g[2], g[3], dev, planes=True).off
+    fp, cp = nw_fill_dirs_plain(*ts, g[4], offs)
+    assert torch.equal(corner, cp)
+    v = torch.zeros_like(fp, dtype=torch.bool)
+    for i in range(len(As)):
+        lanes = max(int(g[3][i]), 1) + 1
+        rows = (int(offs[i + 1]) - int(offs[i])) // lanes
+        y = torch.arange(lanes, device=dev)[None, :]
+        x = torch.arange(rows, device=dev)[:, None] + 2 - y
+        v[offs[i]:offs[i + 1]] = ((y >= 1) & (y <= int(g[3][i])) & (x >= 1)
+                                  & (x <= int(g[2][i]))).reshape(-1)
+    assert torch.equal(flat[v], fp[v])
+    capp = int((g[2] + g[3]).max())
+    assert all(torch.equal(a, b) for a, b in zip(
+        kernels.nw_walk(flat, corner, ts[2], ts[3], capp, offs),
+        nw_walk_plain(fp, cp, ts[2], ts[3], capp, offs)))
+
+
+def test_aligners_across_widths_on_cuda_match_host(dev, monkeypatch):
+    """NW align_batch and score_batch and SW best_score_batch on a batch
+    of mixed widths: one fill launch each, equal to the int64 host path."""
+    monkeypatch.setenv("SEQALIGN_FORCE", "device")
+    rng = np.random.default_rng(43)
+    A, B = _seqs(rng, 40, 1, 1500), _seqs(rng, 40, 1, 1500)
+    nw, sw = NeedlemanWunsch(device=dev), SmithWaterman(device=dev)
+    before = kernel_launch_counts()
+    alns = nw.align_batch(A, B)
+    scores = nw.score_batch(A, B)
+    best = sw.best_score_batch(A, B)
+    after = kernel_launch_counts()
+    assert {k: after[k] - before[k] for k in
+            ("nw_fill_dirs", "nw_walk", "nw_scores", "sw_scores")} == {
+        "nw_fill_dirs": 1, "nw_walk": 1, "nw_scores": 1, "sw_scores": 1}
+    for a, b, got, s, bs in zip(A, B, alns, scores, best):
+        want = host_dp.nw_align(nw.scoring, a, b)
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)
+        assert s == want.score
+        M = host_dp.fill_matrices(sw.scoring, a, b, True)[0]
+        assert bs == M.max(initial=0)
+
+
+def _hits_and_int64(args):
+    """``sw_hits`` on ``args`` against its plain version, and the int64
+    instantiation on the same candidates against the int32 one."""
+    got = kernels.sw_hits(*args)
+    want = sw_hits_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    a64 = (*args[:5], args[5].long(), *args[6:])
+    got64 = kernels.sw_hits(*a64)
+    assert got64[0].dtype == torch.int64
+    assert torch.equal(got64[0], got[0].long())
+    assert all(torch.equal(g, w) for g, w in zip(got64[1:], got[1:]))
+    return got
+
+
+@pytest.mark.parametrize("mask", ["shared", "global"])
+def test_sw_hits_window_cases_equal_plain(dev, monkeypatch, mask):
+    """The warp pre-walk of sw_hits against the serial plain loop, with
+    the mask in shared or (no shared memory allowed) global memory, int32
+    and int64 flats: real hint-less fills under four scorings (k from 1
+    to past every candidate), fills with DIR_FAIL codes planted, the
+    window cascade with and without DIR_FAIL MATCH codes on its diagonal,
+    and a DIR_FAIL past the k-th hit."""
+    from test_torch_hits_window import (cascade_case, dir_fail_past_k_case,
+                                        fail_cascade, fill_cases, hit_args,
+                                        plant_dir_fails, with_k)
+
+    cases = [args for _, args in fill_cases(dev)]
+    cases += [plant_dir_fails(cases[0], s, 6) for s in range(4)]
+    sc, A, B = cascade_case()
+    cascade = hit_args(sc, A, B, dev)
+    cases += [cascade, fail_cascade(cascade), dir_fail_past_k_case(dev)]
+    if mask == "global":
+        monkeypatch.setattr(kernels, "SMEM_MAX", 0)
+    before = kernel_launch_counts()["sw_hits"]
+    fails = []
+    for args in cases:
+        for k in (1, 2, 16, 10_000):
+            fails.append(_hits_and_int64(with_k(args, k))[2].min() < 0)
+    assert kernel_launch_counts()["sw_hits"] == before + 2 * len(fails)
+    assert any(fails) and not all(fails)
+    past = dir_fail_past_k_case(dev)
+    assert kernels.sw_hits(*with_k(past, 2))[2].tolist() == [2]
+    assert kernels.sw_hits(*with_k(past, 10_000))[2].tolist() == [-1]
+    one = kernels.sw_hits(*with_k(fail_cascade(cascade), 10_000))
+    assert one[2][0] == 1
+
+
+def test_sw_hits_on_slabs_int64_and_deep(dev):
+    """sw_hits over chunk slabs (the long path's codes), hint-less and
+    deep, int32 and int64 flats, against its plain version and against
+    the same candidates over the unchunked plane."""
+    sc = scoring_system_sw_default()
+    rng = np.random.default_rng(47)
+    B, la, lb, ca = 3, 500, 260, 96
+    A, Bs = _seqs(rng, B, 300, la), _seqs(rng, B, 100, lb)
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, la,
+                                    lb)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    nch = -(-la // ca)
+    slabs, _, ms, _ = _carry_run(kernels.sw_fill_dirs_carry, (*t, bp), nch,
+                                 ca, lb, B, dev, True, True)
+    parts = [sw_sorted_candidates(m, na, nb, 1, x_off=c * ca)
+             for c, m in enumerate(ms)]
+    flat, score, off = merge_candidates(parts, B)
+    d, _ = kernels.sw_fill_dirs(*t, bp, True)
+    for k in (16, 10_000):
+        args = (slabs, *t, flat, score, off[:-1], off[1:], bp, k)
+        got = _hits_and_int64(args)
+        plane = kernels.sw_hits(d, *args[1:])
+        assert all(torch.equal(g, w) for g, w in zip(got, plane))

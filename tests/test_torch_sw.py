@@ -373,7 +373,7 @@ def test_score_pairs_stream_sw_vs_jax(device_path):
     sw = SmithWaterman(sc, device="cpu")
     got = np.zeros(7, np.int64)
     for idx, out in port_aligners.score_pairs_stream(
-            sc, sw.params, iter(pairs), is_sw=True, flush_pairs=3):
+            sc, iter(pairs), is_sw=True, params=sw.params, flush_pairs=3):
         got[idx] = out
     want = np.zeros(7, np.int64)
     for idx, out in jax_aligners.score_pairs_stream(
