@@ -3,7 +3,8 @@
 
 Usage, from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab] [--fills]
+    python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab]
+                          [--fills [--tree DIR]] [--harvest-ab [--tree DIR]]
                           [--sass [OLD_TREE]]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
@@ -33,7 +34,10 @@ numpy from a fixed seed:
    uniform launches of its width buckets on every pair, kernel against
    kernel, and against the plain versions on 8 ragged pairs of up to
    300 bp, timed beside the bucket launches at two shared-memory lane
-   counts;
+   counts; and the same for SW (rows ``sw_fill_dirs[ragged]``,
+   ``sw_hits[ragged]``: codes and M in planes at each pair's widths, the
+   hit loop over them) on the first sub-batch ``align_batch`` cuts of SW
+   job 3's mix;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -106,9 +110,14 @@ card), host, device, device, host, and stops: the measurement behind the
 walk cutover ``_SW_DEVWALK_CANDS``.  ``--chunk-ab`` instead times the
 long path's NW and SW ``align_batch`` at several chunk widths (the
 measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
-the four default fill instantiations and ``sw_hits`` at phase 1's B = 256,
-L = 512 and stops; it uses only the kernel wrappers' API, so a copy of this script
-times an older tree of the package in the same call.  ``--profile DIR`` runs
+the four default fill instantiations, ``sw_hits``, and ``sw_fill_dirs``
+under BLOSUM62 and under the LCS flags at phase 1's B = 256, L = 512 and
+stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
+times the package of an older checkout in DIR in the same call.
+``--harvest-ab [--tree DIR]`` instead times SW job 3's and CLI job 2's
+alignments (walls; fills, harvests and hit loops by CUDA events) and
+stops: the measurement behind the ragged harvest's design and the hit
+masks' shared memory (``harvest_ab``).  ``--profile DIR`` runs
 each main-path job once more under ``torch.profiler``, prints its device
 time and busy share and writes the ``key_averages`` tables to DIR.
 ``--sass [OLD_TREE]`` instead compiles ``csrc/*.cu`` to SASS with the
@@ -175,9 +184,13 @@ KERNELS = {
     # the matrix dump: dp_fill's emit_gab planes (a lax.scan, not Pallas)
     "nw_fill_gab": ("nw_fill_gab", "nw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
     "sw_fill_gab": ("sw_fill_gab", "sw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
-    # one launch across widths (a fill schedule; NW codes in ragged planes)
-    "nw_fill_dirs[ragged]": ("nw_fill_dirs", "nw_dirs.cu", _B2),
-    "nw_scores[ragged]": ("nw_scores", "nw_scores.cu", _B1),
+    # one launch across widths (a fill schedule; codes and SW M in ragged
+    # planes, which sw_hits reads)
+    "nw_fill_dirs[ragged]": ("nw_fill_dirs[ragged]", "nw_dirs.cu", _B2),
+    "nw_scores[ragged]": ("nw_scores[ragged]", "nw_scores.cu", _B1),
+    "sw_scores[ragged]": ("sw_scores[ragged]", "sw_scores.cu", _B1),
+    "sw_fill_dirs[ragged]": ("sw_fill_dirs[ragged]", "sw_dirs.cu", _B2),
+    "sw_hits[ragged]": ("sw_hits[ragged]", "sw_hits.cu", _SWH),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
@@ -497,7 +510,7 @@ def hits_bound(args, out):
     (all of a pair's when they ran out, else up to the last hit found), 8
     bytes and about 6 int32 operations (``alu_s``) each, plus the hit records written.
     The cells its walks mark are left out: a lower bound."""
-    flat, lo, hi, k = args[5], args[7], args[8], args[-1]
+    flat, lo, hi, k = args[5], args[7], args[8], args[10]
     hit_flat, _, nhits = out
     n = hi - lo
     pair = torch.repeat_interleave(torch.arange(len(n), device=flat.device),
@@ -1107,6 +1120,8 @@ def phase1(scs, rng, dev):
     merge(err, e)
     merge(err, ragged_vs_buckets(nw_sc, params["nw"], rng, dev, times,
                                  bounds))
+    merge(err, sw_ragged_vs_buckets(sw_sc, params["sw"], dev, times,
+                                    bounds))
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
@@ -1114,6 +1129,8 @@ def phase1(scs, rng, dev):
         b, by = bounds[k]
         shape = ("4 pairs, one chunk of 2048" if "[carry]" in k else
                  "4 pairs' slabs" if "[chunked]" in k else
+                 f"SW job 3's first sub-batch (plain: 8 pairs of 0-300 bp)"
+                 if k.startswith("sw") and "[ragged]" in k else
                  f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: 8 pairs of "
                  f"0-300 bp)" if "[ragged]" in k else "B=256 L=512")
         log(f"phase 1: {k} at {shape}: kernel {t:.4f} ms, plain "
@@ -1220,6 +1237,200 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     bounds["nw_scores[ragged]"] = fill_bound(na_h, nb_h, False, False)
     torch.cuda.synchronize()
     log(f"phase 1: ragged rows vs bucket kernels and plain: max |diff| "
+        f"{err} ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def plane_valid(off, na, nb):
+    """The valid cells of the 1-d planes of a launch across widths at the
+    offsets ``off`` ((B+1,) int64), ``na``, ``nb`` (B,) on the card."""
+    offs = off.tolist()
+    v = torch.zeros(offs[-1], dtype=torch.bool, device=off.device)
+    for i in range(len(offs) - 1):
+        lanes = max(int(nb[i]), 1) + 1
+        v[offs[i]:offs[i + 1]] = valid_mask(
+            (offs[i + 1] - offs[i]) // lanes, lanes, na[i:i + 1],
+            nb[i:i + 1]).reshape(-1)
+    return v
+
+
+def sw_ragged_vs_plain(sc, params, A, B, m16, k, dev, plain=None):
+    """The SW launches across widths of ``A``, ``B`` against their plain
+    versions: ``sw_scores`` (against the max of the plain M of each pair),
+    the codes on the valid cells, the whole M (every other cell 0), and
+    ``sw_hits`` at each pair's best - 10 (``k`` hits).  With ``plain`` (a
+    dict) ``sw_scores_plain`` is run too, held to ``sw_scores``, and the
+    three plain versions' milliseconds go there.  Returns the max |diff| of
+    each kernel and the launch's schedule."""
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (sw_fill_dirs_plain,
+                                           sw_scores_plain,
+                                           sw_sorted_candidates)
+    from seqalign_tpu_torch.ops.pack import pack_batch
+    from seqalign_tpu_torch.ops.traceback import sw_hits_plain
+
+    g = pack_batch(sc, params, A, B, max(1, max(map(len, A))),
+                   max(1, max(map(len, B))))
+    t = [torch.from_numpy(v).to(dev) for v in g[:4]]
+    sched = kernels.fill_schedule(g[2], g[3], dev, planes=True)
+    fk, mk = kernels.sw_fill_dirs(*t, g[4], m16, sched)
+    best = kernels.sw_scores(*t, g[4], sched)
+    out = {}
+    ms = cuda_ms(lambda: out.setdefault(
+        "fill", sw_fill_dirs_plain(*t, g[4], m16, sched.off)), 1, warm=False)
+    fp, mp = out["fill"]
+    offs = sched.off.tolist()
+    best_p = torch.stack([mp[offs[i]:offs[i + 1]].max().int()
+                          for i in range(len(A))])
+    v = plane_valid(sched.off, t[2], t[3])
+    thr = np.maximum(best_p.cpu().numpy().astype(np.int64) - 10, 1)
+    cand = sw_sorted_candidates(mk, g[2], g[3], thr, off=sched.off)
+    args = (fk, *t, cand[0], cand[1], cand[2][:-1], cand[2][1:], g[4], k,
+            sched.off)
+    hits = kernels.sw_hits(*args)
+    hms = cuda_ms(lambda: out.setdefault("hits", sw_hits_plain(*args)), 1,
+                  warm=False)
+    pairs = [(best, best_p)]
+    if plain is not None:
+        sms = cuda_ms(lambda: out.setdefault(
+            "scores", sw_scores_plain(*t, g[4])), 1, warm=False)
+        pairs.append((best, out["scores"]))
+        plain.update(sw_fill_dirs=ms, sw_hits=hms, sw_scores=sms)
+    return {"sw_scores[ragged]": max_abs(*pairs),
+            "sw_fill_dirs[ragged]": max_abs((fk[v], fp[v]), (mk, mp)),
+            "sw_hits[ragged]": max_abs(*zip(hits, out["hits"]))}, sched
+
+
+def sw_ragged_vs_buckets(sc, params, dev, times, bounds):
+    """Rows ``sw_scores[ragged]``, ``sw_fill_dirs[ragged]`` and
+    ``sw_hits[ragged]``: the SW fills as one launch across widths and the
+    hit loop over its planes, on SW job 3's mix (``SW_JOB3`` pairs of 1-10
+    kb DNA with a planted segment, from a generator of its own so that the
+    paths' inputs stay as they were), min_score = best - 10, k =
+    ``_SW_PREWALK``: the first sub-batch the aligner cuts of them
+    (``_align_budget``, ``_sw_pair_bytes``), as ``align_batch`` launches
+    it.  Held to the uniform launches of its width buckets on every pair,
+    kernel against kernel (the best scores; codes and M on the valid cells
+    of each pair's planes; the hits of each pair from the bucket's
+    harvest); to the plain versions on 4 of its pairs at their sizes (the
+    widest side b, past the schedule's shared-memory lanes, the fewest
+    cells, the most, and one more; hit masks in shared and in global
+    memory) and on 8 ragged pairs of up to 300 bp with an empty side
+    (``sw_ragged_vs_plain``); timed beside the sum of the bucket launches.
+    Returns the max |diff| of each row."""
+    from seqalign_tpu_torch import aligners
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import sw_sorted_candidates
+    from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch, pad_width
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    A, B = planted(rng, DNA, SW_JOB3[1], 1000, 10000, (0.3, 0.5), 0.03)
+    mbytes = 2 if m16_safe(sc, max(map(len, A)), max(map(len, B))) else 4
+    budget = aligners._align_budget(dev)
+    subs = aligners._plane_subbatches(
+        range(len(A)), budget,
+        lambda i: aligners._sw_pair_bytes(len(A[i]), len(B[i]), mbytes,
+                                          False))
+    A, B = [A[i] for i in subs[0]], [B[i] for i in subs[0]]
+    ac, bc, na_h, nb_h, bp = pack_batch(sc, params, A, B, max(map(len, A)),
+                                        max(map(len, B)))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    sched = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
+    m16 = m16_safe(sc, int(na_h.max()), int(nb_h.max()))
+    best = kernels.sw_scores(*t, bp, sched)
+    mins = np.maximum(best.cpu().numpy().astype(np.int64) - 10, 1)
+    k = aligners._SW_PREWALK
+    flat, mflat = kernels.sw_fill_dirs(*t, bp, m16, sched)
+    cand = sw_sorted_candidates(mflat, na_h, nb_h, mins, off=sched.off)
+    hargs = (flat, *t, cand[0], cand[1], cand[2][:-1], cand[2][1:], bp, k,
+             sched.off)
+    hits = kernels.sw_hits(*hargs)
+    offs = sched.off.tolist()
+    groups = {}
+    for j, (a, b) in enumerate(zip(A, B)):
+        groups.setdefault((pad_width(len(a)), pad_width(len(b))),
+                          []).append(j)
+    rows = ("sw_scores[ragged]", "sw_fill_dirs[ragged]", "sw_hits[ragged]")
+    err = dict.fromkeys(rows, 0)
+    bucket_ms = dict.fromkeys(rows, 0.0)
+    for (wa, wb), idx in groups.items():
+        g = pack_batch(sc, params, [A[j] for j in idx], [B[j] for j in idx],
+                       wa, wb)
+        tb = [torch.from_numpy(v).to(dev) for v in g[:4]]
+        d, m = kernels.sw_fill_dirs(*tb, g[4], m16)
+        e = 0
+        for i, j in enumerate(idx):
+            lanes = max(int(nb_h[j]), 1) + 1
+            rows_j = (offs[j + 1] - offs[j]) // lanes
+            v = valid_mask(rows_j, lanes, t[2][j:j + 1], t[3][j:j + 1])[0]
+            for got, want in ((flat, d), (mflat, m)):
+                plane = got[offs[j]:offs[j + 1]].view(rows_j, lanes)
+                e = max(e, max_abs((plane[v], want[i, :rows_j, :lanes][v])))
+        bf, bs, bo = sw_sorted_candidates(m, g[2], g[3], mins[idx])
+        bargs = (d, *tb, bf, bs, bo[:-1], bo[1:], g[4], k)
+        jj = torch.tensor(idx, device=dev)
+        merge(err, {"sw_scores[ragged]": max_abs(
+                        (best[jj], kernels.sw_scores(*tb, g[4]))),
+                    "sw_fill_dirs[ragged]": e,
+                    "sw_hits[ragged]": max_abs(*zip(
+                        (h[jj] for h in hits), kernels.sw_hits(*bargs)))})
+        del m
+        bucket_ms["sw_scores[ragged]"] += cuda_ms(
+            lambda: kernels.sw_scores(*tb, g[4]), 1)
+        bucket_ms["sw_fill_dirs[ragged]"] += cuda_ms(
+            lambda: kernels.sw_fill_dirs(*tb, g[4], m16), 1)
+        bucket_ms["sw_hits[ragged]"] += cuda_ms(
+            lambda: kernels.sw_hits(*bargs), 1)
+        del d, bargs
+    del mflat
+    ms = (cuda_ms(lambda: kernels.sw_scores(*t, bp, sched), 3),
+          cuda_ms(lambda: kernels.sw_fill_dirs(*t, bp, m16, sched), 3),
+          cuda_ms(lambda: kernels.sw_hits(*hargs), 3))
+    cells = int((na_h.astype(np.int64) * nb_h).sum())
+    bounds["sw_scores[ragged]"] = fill_bound(na_h, nb_h, True, False)
+    bounds["sw_fill_dirs[ragged]"] = fill_bound(
+        na_h, nb_h, True, True, 2 if m16 else 4,
+        extra_bytes=(sched.total - cells) * (2 if m16 else 4))
+    bounds["sw_hits[ragged]"] = hits_bound(hargs, hits)
+    log(f"phase 1: SW ragged rows on job 3's first sub-batch: {len(A)} of "
+        f"{SW_JOB3[1]} pairs of 1-10 kb ({len(subs)} sub-batches of at most "
+        f"{budget} bytes, {'int16' if m16 else 'int32'} M) in "
+        f"{len(groups)} width buckets: one launch (sw_scores, sw_fill_dirs, "
+        f"sw_hits) " + ", ".join(f"{v:.3f}" for v in ms) + " ms; the "
+        f"{len(groups)} bucket launches "
+        + ", ".join(f"{bucket_ms[r]:.3f}" for r in rows) + " ms")
+    del flat, hargs
+    # the plain versions at the main path's sizes, on 4 of these pairs
+    cells_j = na_h.astype(np.int64) * nb_h
+    pick = list(dict.fromkeys([int(np.argmax(nb_h)), int(np.argmin(cells_j)),
+                               int(np.argmax(cells_j)), 0, 1, 2]))[:4]
+    P = [A[j] for j in pick], [B[j] for j in pick]
+    np4 = np.array([len(a) for a in P[0]], np.int32)
+    nb4 = np.array([len(b) for b in P[1]], np.int32)
+    _, moff = kernels.hits_masks(torch.from_numpy(np4).to(dev),
+                                 torch.from_numpy(nb4).to(dev),
+                                 kernels.SMEM_MAX)
+    spans = (moff[1:] - moff[:-1]).tolist()
+    if not (int(nb4.max()) + 1 > kernels.RAGGED_SMEM_LANES and any(spans)):
+        raise AssertionError(f"the 4 pairs {list(zip(np4, nb4))} miss a "
+                             f"scratch slice or a mask in global memory")
+    e4, _ = sw_ragged_vs_plain(sc, params, *P, m16, k, dev)
+    merge(err, e4)
+    log(f"phase 1: SW ragged rows vs plain on 4 pairs of "
+        f"{list(zip(np4.tolist(), nb4.tolist()))} (masks in shared memory "
+        f"{spans.count(0)}, in global {len(spans) - spans.count(0)}), "
+        f"best - 10: max |diff| {e4}")
+    # and on 8 ragged pairs of up to 300 bp, an empty side among them
+    As, Bs = dna(rng, 8, 1, 300), dna(rng, 8, 1, 300)
+    As[1], Bs[4] = "", ""
+    plain = {}
+    merge(err, sw_ragged_vs_plain(sc, params, As, Bs, True, k, dev,
+                                  plain)[0])
+    for r, v in zip(rows, ms):
+        times[r] = (v, plain[r.split("[")[0]])
+    torch.cuda.synchronize()
+    log(f"phase 1: SW ragged rows vs bucket kernels and plain: max |diff| "
         f"{err} ({time.perf_counter() - t0:.1f} s)")
     return err
 
@@ -1627,19 +1838,68 @@ def consume(sw, A, B, mins, k, stats=None):
     return [list(itertools.islice(it, k)) for it in its]
 
 
+def call_events(fn, *targets):
+    """``fn()`` with each call of the functions ``targets`` ((object, name)
+    pairs) between two CUDA events (recorded on the stream, no
+    synchronisation): returns fn's result and, by name, the milliseconds
+    of each call."""
+    marks = {name: [] for _, name in targets}
+
+    def wrap(real, name):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(*args, **kw)
+            ev[1].record()
+            marks[name].append(ev)
+            return out
+        return call
+
+    saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+    for obj, name, real in saved:
+        setattr(obj, name, wrap(real, name))
+    try:
+        out = fn()
+    finally:
+        for obj, name, real in saved:
+            setattr(obj, name, real)
+    torch.cuda.synchronize()
+    return out, {name: [a.elapsed_time(b) for a, b in ev]
+                 for name, ev in marks.items()}
+
+
+def fill_events(fn):
+    """``fn()`` with each ``sw_fill_dirs`` launch between two CUDA events:
+    returns fn's result and the milliseconds of each launch."""
+    from seqalign_tpu_torch.ops import kernels
+
+    out, ms = call_events(fn, (kernels, "sw_fill_dirs"))
+    return out, ms["sw_fill_dirs"]
+
+
 def sw_align_job(sw, table, rng, dev, gpu, jobs, job, A, B, mins, n_plain,
                  n_check):
+    import seqalign_tpu_torch as port
+
     name, n, k = job
     label = f"sw align_batch {name}: {n} pairs, first {k} hits"
     stats = {}
-    hits, secs = timed(lambda: consume(sw, A, B, mins, k, stats))
+    before = port.kernel_launch_counts()
+    (hits, secs), fill_ms = fill_events(
+        lambda: timed(lambda: consume(sw, A, B, mins, k, stats)))
+    after = port.kernel_launch_counts()
     rate(label, n, cells_of(A, B), secs, gpu)
     c = stats["cands"]
     log(f"{label}: candidates per pair min {c.min()} median "
         f"{int(np.median(c))} max {c.max()} (total {c.sum()}); hits found "
         f"on the card for {stats['device_walk']} pairs, host walk "
         f"{n - stats['device_walk']} pairs; live iterators hold "
-        f"{stats['held']} device bytes; {sum(map(len, hits))} hits")
+        f"{stats['held']} device bytes; {sum(map(len, hits))} hits; "
+        f"launches " + ", ".join(f"{kn} {after[kn] - before[kn]}" for kn in
+                                 ("sw_fill_dirs[ragged]", "sw_fill_dirs",
+                                  "sw_hits[ragged]", "sw_hits", "sw_walk"))
+        + f"; the fills {sum(fill_ms):.3f} ms (CUDA events: "
+        + ", ".join(f"{t:.3f}" for t in fill_ms) + ")")
     jobs[label] = (lambda: consume(sw, A, B, mins, k), secs)
     m = [1] * n if mins is None else mins
     for i in rng.choice(n, n_plain, replace=False):
@@ -2202,7 +2462,7 @@ def cli_job(label, tool, args, out_path, cells, n, need, gpu, env=None):
     counts = port.kernel_launch_counts()
     if rc != 0 or err:
         raise AssertionError(f"cli {label}: exit {rc}, stderr {err[:500]!r}")
-    missing = [k for k in need if counts[k] <= 0]
+    missing = [k for k in need if launched(counts, k) <= 0]
     if missing:
         raise AssertionError(f"cli {label}: {missing} not launched: {counts}")
     dev_ev = [e for e in prof.key_averages()
@@ -2587,23 +2847,33 @@ def walk_ab(sw, swp, rng, gpu):
 
 def fills_only(scs, rng, dev, gpu):
     """The four default fills on 256 DNA pairs of 512 bp (phase 1's timing
-    shape), and ``sw_hits`` on their hint-less SW candidates (k = 16, as
-    phase 1's row): five means of 10 launches each, after a warm-up."""
+    shape), ``sw_hits`` on their hint-less SW candidates (k = 16, as
+    phase 1's row), and ``sw_fill_dirs`` under BLOSUM62 on protein and
+    under the LCS flags (the ``MODES`` instantiation) at that shape: five
+    means of 10 launches each, after a warm-up.  Only uniform launches
+    through the wrappers' API, so that ``--tree`` can time an older tree's
+    package with this script."""
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
 
-    for key in ("nw", "sw"):
-        sc = scs[key]
+    for key in ("nw", "sw", "sw[table]", "sw[nga+ngb+nmm]"):
+        sc = (scs["table"] if key == "sw[table]" else
+              mode_scoring("nga+ngb+nmm", sw=True) if key.endswith("nmm]")
+              else scs[key])
+        alpha = AMINO if key == "sw[table]" else DNA
         (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
-            sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512),
-            seqs(rng, 256, 512, 512), dev)
+            sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512, alpha),
+            seqs(rng, 256, 512, 512, alpha), dev)
         fns = ({"nw_scores": lambda: kernels.nw_scores(ac, bc, na, nb, bp),
                 "nw_fill_dirs": lambda: kernels.nw_fill_dirs(ac, bc, na, nb,
                                                              bp)}
                if key == "nw" else
                {"sw_scores": lambda: kernels.sw_scores(ac, bc, na, nb, bp),
                 "sw_fill_dirs": lambda: kernels.sw_fill_dirs(ac, bc, na, nb,
-                                                             bp, True)})
+                                                             bp, True)}
+               if key == "sw" else
+               {"sw_fill_dirs" + key[2:]: lambda: kernels.sw_fill_dirs(
+                   ac, bc, na, nb, bp, True)})
         if key == "sw":
             d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
             args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
@@ -2613,6 +2883,69 @@ def fills_only(scs, rng, dev, gpu):
             ms = [cuda_ms(fn, 10) for _ in range(5)]
             log(f"fills: {name} at B=256 L=512: " +
                 ", ".join(f"{t:.4f}" for t in ms) + f" ms [{gpu}]")
+
+
+HARVEST_AB_CHUNK = 256  # the CLIs' pairs per align_batch call
+
+
+def harvest_ab(gpu):
+    """SW job 3's mix (``SW_JOB3``: DNA pairs of 1-10 kb with a planted
+    segment, best - 10, first 8 hits) and CLI job 2's (1,024 planted
+    protein pairs under BLOSUM62, min_score ``PROTEIN_MIN_SCORE``, first 8
+    hits, in ``align_batch`` calls of ``HARVEST_AB_CHUNK`` pairs as the CLI
+    makes them), each from a generator of its own, through
+    ``SmithWaterman.align_batch``: a warm-up, then runs that print the
+    wall and, by CUDA events, the milliseconds of the fills
+    (``kernels.sw_fill_dirs``, the zeroing of a ragged M included), the
+    harvests (the aligner's ``sw_sorted_candidates``) and the hit loops
+    (``kernels.sw_hits``).  Only those names and the public API, so that
+    ``--tree`` times an older tree's package (its harvest design) with
+    this script in the same call.  Where the package has
+    ``kernels._hits_smem`` (an older tree's shared memory for the hit
+    masks of a launch across widths, as much as keeps every block
+    resident) the runs alternate with ones whose blocks take up to
+    ``SMEM_MAX``, the rule of the uniform launch and now of every launch:
+    default, max, max, default."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import aligners
+    from seqalign_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 3)
+    dna_sw = port.SmithWaterman(device="cuda")
+    A3, B3 = planted(rng, DNA, SW_JOB3[1], 1000, 10000, (0.3, 0.5), 0.03)
+    mins3 = [max(1, int(v) - 10) for v in dna_sw.best_score_batch(A3, B3)]
+    rng = np.random.default_rng(SEED + 4)
+    prot_sw = port.SmithWaterman(port.presets.scoring_system_BLOSUM62(),
+                                 device="cuda")
+    A2, B2 = planted(rng, AMINO, SW_JOB2[1], 100, 1000, (0.1, 0.3), 0.25)
+    chunks = range(0, SW_JOB2[1], HARVEST_AB_CHUNK)
+    jobs = {
+        "SW job 3": lambda: consume(dna_sw, A3, B3, mins3, SW_JOB3[2]),
+        "CLI job 2": lambda: [consume(
+            prot_sw, A2[i:i + HARVEST_AB_CHUNK], B2[i:i + HARVEST_AB_CHUNK],
+            [PROTEIN_MIN_SCORE] * len(A2[i:i + HARVEST_AB_CHUNK]),
+            SW_JOB2[2]) for i in chunks]}
+    rule = getattr(kernels, "_hits_smem", None)
+    variants = (("default", "SMEM_MAX", "SMEM_MAX", "default") if rule
+                else ("default", "default"))
+    targets = ((kernels, "sw_fill_dirs"), (aligners, "sw_sorted_candidates"),
+               (kernels, "sw_hits"))
+    for label, job in jobs.items():
+        job()  # warm-up
+        for v in variants:
+            if v == "SMEM_MAX":
+                kernels._hits_smem = lambda B, dev: kernels.SMEM_MAX
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, ms = call_events(job, *targets)
+                secs = time.perf_counter() - t0
+            finally:
+                if rule:
+                    kernels._hits_smem = rule
+            log(f"harvest A/B {label}, hit masks {v}: wall {secs:.4f} s; "
+                + "; ".join(f"{n} x{len(t)} {sum(t):.3f} ms"
+                            for n, t in ms.items()) + f" [{gpu}]")
 
 
 CHUNK_AB = (2048, 4096, 8192, 16384, 32768)  # LONG_CHUNK candidates
@@ -2648,9 +2981,15 @@ def chunk_ab(rng, gpu):
         aligners.LONG_CHUNK = saved
 
 
+def launched(counts, k) -> int:
+    """Launches of kernel ``k`` in ``counts``: its own and those across
+    widths, which count under ``<k>[ragged]``."""
+    return counts[k] + counts.get(f"{k}[ragged]", 0)
+
+
 def counted(path, counts, label=None):
     for k in PATHS[path]:
-        if counts[k] <= 0:
+        if launched(counts, k) <= 0:
             raise AssertionError(f"path {label or path}: {k} was not "
                                  f"launched: {counts}")
     log(f"kernel launches in path {label or path}: {counts}")
@@ -2811,8 +3150,15 @@ def main() -> int:
                     help="profile each main-path job and write the tables "
                          "to DIR")
     ap.add_argument("--fills", action="store_true",
-                    help="only time the default fills and sw_hits at "
-                         "B=256, L=512")
+                    help="only time the default fills, sw_hits and two "
+                         "more SW fills at B=256, L=512")
+    ap.add_argument("--harvest-ab", action="store_true",
+                    help="only time SW job 3 and CLI job 2's alignments: "
+                         "walls, fills, harvests and hit loops")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="with --fills or --harvest-ab: import "
+                         "seqalign_tpu_torch from the checkout in DIR (an "
+                         "older tree, for an A/B)")
     ap.add_argument("--chunk-ab", action="store_true",
                     help="only time the long path at several chunk widths")
     ap.add_argument("--walk-ab", action="store_true",
@@ -2826,7 +3172,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.tree and not (args.fills or args.harvest_ab):
+        ap.error("--tree goes with --fills or --harvest-ab")
+    sys.path.insert(0, os.path.abspath(args.tree) if args.tree else
+                    os.path.dirname(os.path.abspath(__file__)))
     import seqalign_tpu_torch as port
     from seqalign_tpu_torch.ops import build
 
@@ -2857,7 +3206,11 @@ def main() -> int:
         chunk_ab(rng, gpu)
         return 0
     if args.fills:
-        fills_only({"nw": nw.scoring, "sw": sw.scoring}, rng, dev, gpu)
+        fills_only({"nw": nw.scoring, "sw": sw.scoring,
+                    "table": swp.scoring}, rng, dev, gpu)
+        return 0
+    if args.harvest_ab:
+        harvest_ab(gpu)
         return 0
     # the plain versions are bound by per-operation overhead on the host;
     # inference mode trims it (phase 1 only: the main paths run as a user
@@ -2884,7 +3237,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mode_launches = phase_modes(rng, dev, gpu, jobs)
     launches["modes"] = {k: sum(c[k] for c in mode_launches.values())
-                         for k in PATHS["modes"]}
+                         for k in port.kernel_launch_counts()}
     counted("modes", launches["modes"])
     log(f"path modes done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2913,19 +3266,20 @@ def main() -> int:
     for name, (counter, src, rep) in KERNELS.items():
         mode = name.partition("[")[2].rstrip("]")
         if name.startswith("vpu_chain"):
-            n = vpu_launches[name]
+            n = vpu_launches[name][counter]
         elif name.endswith("_fill_gab"):
-            n = launches["cli"]
+            n = launches["cli"][counter]
         elif mode in ("carry", "chunked"):
-            n = launches["long"]
-        elif mode == "ragged":  # CLI job 1's fills; path nw's score_batch
-            n = launches["cli" if counter == "nw_fill_dirs" else "nw"]
-        elif mode in ("", "table"):
-            n = launches[name.split("_")[0] + ("_table" if mode else "")]
+            n = launches["long"][counter]
+        elif mode in ("", "ragged"):  # the default flags: a row a shape
+            n = launches[name.split("_")[0]][counter]
+        elif mode == "table":  # the one row of its launches, both shapes
+            n = launched(launches[name.split("_")[0] + "_table"], counter)
         else:  # the LCS recipe runs in the modes path as nga+ngb+nmm
-            n = mode_launches["nga+ngb+nmm" if mode == "lcs" else mode]
+            n = launched(mode_launches["nga+ngb+nmm" if mode == "lcs"
+                                       else mode], counter)
         rows.append({"name": name, "route": "cuda", "source": _CSRC + src,
-                     "replaces": rep, "launches": n[counter],
+                     "replaces": rep, "launches": n,
                      "max_abs_err": err[name], "ms": times[name][0],
                      "plain_ms": times[name][1], "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1], "library_ms": None})

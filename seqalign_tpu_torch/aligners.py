@@ -10,11 +10,11 @@ JAX package (``_route``):
   regime;
 * **device**: the CUDA kernels of ``ops/kernels.py`` on the aligner's
   ``device`` (their plain PyTorch versions when that device is the CPU).
-  NW ``align_batch``, ``score_batch`` and SW ``best_score_batch`` fill a
-  batch of mixed widths in one launch (``kernels.fill_schedule``: the
-  pairs largest first, NW codes in planes at each pair's own widths,
-  ``pack.ragged_planes``); ``score_pairs_stream`` and SW ``align_batch``
-  bucket pairs by padded side widths.
+  NW and SW ``align_batch``, ``score_batch`` and ``best_score_batch`` fill
+  a batch of mixed widths in one launch (``kernels.fill_schedule``: the
+  pairs largest first, the codes and SW M in planes at each pair's own
+  widths, ``pack.ragged_planes``), an alignment sub-batch at a time;
+  ``score_pairs_stream`` buckets pairs by padded side widths.
 
 The aligners run on the GPU (``device="cuda"``) unless built with
 ``device="cpu"``; there is no fallback from one to the other.
@@ -66,9 +66,10 @@ from .scoring.presets import scoring_system_default, scoring_system_sw_default
 HOST_MAX_CELLS = int(os.environ.get("SEQALIGN_HOST_MAX_CELLS", 4_000_000))
 HOST_MAX_PAIRS = 32
 LONG_PAIR_CELLS = 112_000_000  # > 10240^2: 1-10 kb reads never go per-pair
-# device dirs (and SW M) bytes in flight per alignment sub-batch: SW's,
-# and NW's on the CPU or when SEQALIGN_ALIGN_DIRS_BUDGET is set; NW on the
-# card otherwise takes _BUDGET_SHARE of the card's memory (_align_budget)
+# device bytes in flight per NW and SW alignment sub-batch (the codes; SW
+# adds M, the harvest and the hit masks, _sw_pair_bytes) on the CPU or when
+# SEQALIGN_ALIGN_DIRS_BUDGET is set; on the card otherwise _BUDGET_SHARE of
+# the card's memory (_align_budget)
 ALIGN_DIRS_BUDGET = int(os.environ.get("SEQALIGN_ALIGN_DIRS_BUDGET",
                                        str(1_500_000_000)))
 _BUDGET_FROM_ENV = "SEQALIGN_ALIGN_DIRS_BUDGET" in os.environ
@@ -76,7 +77,7 @@ _BUDGET_FROM_ENV = "SEQALIGN_ALIGN_DIRS_BUDGET" in os.environ
 # candidate while it sorts.  Without a min_score hint every cell with
 # M >= 1 is a candidate: about a quarter of the cells on 4-letter DNA,
 # under the SW default and under the LCS recipe (a sequence against
-# itself) alike.  A hint-less sub-batch is sized by these bytes too.
+# itself) alike.  A hint-less pair is sized by these bytes too.
 _HARVEST_BYTES = 40
 _HARVEST_SHARE = 0.25
 # A long pair's hint-less harvest on the device branch holds every chunk's
@@ -207,22 +208,17 @@ def _swap_symmetric(sc: ScoringConfig) -> bool:
     return bool(np.array_equal(sub, sub.T))
 
 
-def _buckets(seqs_a, seqs_b):
-    """Group pair indices by padded side widths (pow2 up to 4096, then
-    1024-granular), floored at 64; pairs over LONG_PAIR_CELLS take the key
-    None."""
-    groups = {}
-    for i, (sa, sb) in enumerate(zip(seqs_a, seqs_b)):
-        if len(sa) * len(sb) > LONG_PAIR_CELLS:
-            key = None
-        else:
-            key = (max(64, pad_width(len(sa))), max(64, pad_width(len(sb))))
-        groups.setdefault(key, []).append(i)
-    return groups.items()
+def _split_long(seqs_a, seqs_b):
+    """The pair indices of a call: those of at most ``LONG_PAIR_CELLS``
+    cells, and the long pairs."""
+    short, long_ = [], []
+    for i, (a, b) in enumerate(zip(seqs_a, seqs_b)):
+        (short if len(a) * len(b) <= LONG_PAIR_CELLS else long_).append(i)
+    return short, long_
 
 
 def _align_budget(device: torch.device) -> int:
-    """Device bytes of codes an NW alignment sub-batch holds: on the card
+    """Device bytes an NW or SW alignment sub-batch holds: on the card
     _BUDGET_SHARE of its memory unless SEQALIGN_ALIGN_DIRS_BUDGET is set,
     else ALIGN_DIRS_BUDGET."""
     if device.type == "cuda" and not _BUDGET_FROM_ENV:
@@ -231,19 +227,36 @@ def _align_budget(device: torch.device) -> int:
     return ALIGN_DIRS_BUDGET
 
 
-def _plane_subbatches(idx, seqs_a, seqs_b, budget: int):
-    """The pairs ``idx`` in order, cut into sub-batches whose code planes
-    at each pair's own widths (``pack.ragged_planes``) hold at most
-    ``budget`` bytes together (one pair at least)."""
+def _plane_bytes(na: int, nb: int) -> int:
+    """Cells of a pair's plane at its own widths (``pack.ragged_planes``):
+    its code bytes."""
+    wa, wb = max(1, na), max(1, nb)
+    return (wa + wb - 1) * (wb + 1)
+
+
+def _sw_pair_bytes(na: int, nb: int, mbytes: int, hintless: bool) -> int:
+    """Device bytes one SW pair of an alignment sub-batch holds: its
+    plane's codes, M (``mbytes`` 2 or 4) and the harvest's candidate mask
+    (one byte a cell), the hit loop's mask (a bit a cell of (nb+1)(na+1)),
+    and without a hint the harvest of a quarter of its cells."""
+    held = _plane_bytes(na, nb) * (2 + mbytes) + (na + 1) * (nb + 1) // 8
+    if hintless:
+        held += int(_HARVEST_BYTES * _HARVEST_SHARE * na * nb)
+    return held
+
+
+def _plane_subbatches(idx, budget: int, size):
+    """The pairs ``idx`` in order, cut into sub-batches whose pairs hold
+    at most ``budget`` bytes together (one pair at least), pair i
+    ``size(i)`` bytes."""
     subs, cur, held = [], [], 0
     for i in idx:
-        wa, wb = max(1, len(seqs_a[i])), max(1, len(seqs_b[i]))
-        size = (wa + wb - 1) * (wb + 1)
-        if cur and held + size > budget:
+        size_i = size(i)
+        if cur and held + size_i > budget:
             subs.append(cur)
             cur, held = [], 0
         cur.append(i)
-        held += size
+        held += size_i
     if cur:
         subs.append(cur)
     return subs
@@ -431,13 +444,12 @@ class NeedlemanWunsch:
         sc = self.scoring
         fill = _check_slice("dirs")
         results: List[Optional[Alignment]] = [None] * len(seqs_a)
-        short, long_ = [], []
-        for i, (a, b) in enumerate(zip(seqs_a, seqs_b)):
-            (short if len(a) * len(b) <= LONG_PAIR_CELLS else long_).append(i)
+        short, long_ = _split_long(seqs_a, seqs_b)
         if long_:
             self._align_long(long_, seqs_a, seqs_b, results)
-        for sub in _plane_subbatches(short, seqs_a, seqs_b,
-                                     _align_budget(self.device)):
+        for sub in _plane_subbatches(
+                short, _align_budget(self.device),
+                lambda i: _plane_bytes(len(seqs_a[i]), len(seqs_b[i]))):
             ga = [seqs_a[i] for i in sub]
             gb = [seqs_b[i] for i in sub]
             for a, b in zip(ga, gb):
@@ -541,9 +553,12 @@ class NeedlemanWunsch:
 
 
 class _Hits:
-    """The hit rounds of one SW fill whose codes (``dirs``, a plane or
-    chunk slabs) and harvested candidates stay on the device for as long
-    as the object lives."""
+    """The hit rounds of one SW fill whose codes (``dirs``, a plane, chunk
+    slabs, or with ``off`` the planes of one launch across widths) and
+    harvested candidates stay on the device for as long as the object
+    lives."""
+
+    off = None
 
     def _harvested(self, flat, score, off):
         self.flat, self.score = flat, score
@@ -561,7 +576,7 @@ class _Hits:
                              lo)
         out = kernels.sw_hits(self.dirs, self.ac, self.bc, self.na_t,
                               self.nb_t, self.flat, self.score, lo, self.hi,
-                              self.params, k)
+                              self.params, k, self.off)
         hit_flat, hit_score, nhits = (t.cpu().numpy() for t in out)
         if (nhits < 0).any():
             raise RuntimeError("sw traceback fail")
@@ -578,7 +593,7 @@ class _Hits:
                 self.dirs, self.ac, self.bc, self.na_t, self.nb_t,
                 *_to(self.dirs.device, *(v.astype(np.int32)
                                          for v in (jw, x0, y0, s0))),
-                self.params, int((x0 + y0).max())).cpu().numpy()
+                self.params, int((x0 + y0).max()), self.off).cpu().numpy()
             for r, (j, f, s) in enumerate(zip(jw.tolist(), flats.tolist(),
                                               s0.tolist())):
                 recs[j].append((f, s, ops[r]))
@@ -595,14 +610,19 @@ class _Hits:
 class _SwFill(_Hits):
     """One SW fill on the device and its harvest: ``sw_fill_dirs`` with M,
     the candidates of every pair in hit order (``sw_sorted_candidates``),
-    then M is freed and only the codes stay.  With ``gab`` the fill is
-    ``sw_fill_gab`` and its (3, B, D, LB+1) M, Ga and Gb planes stay as
+    then M is freed and only the codes stay.  Without ``widths`` the fill
+    is one launch across widths (the codes and M in planes at each pair's
+    own widths, ``self.off`` their offsets); with ``widths`` = (la, lb) a
+    uniform fill at those widths.  With ``gab`` (and ``widths``) the fill
+    is ``sw_fill_gab`` and its (3, B, D, LB+1) M, Ga and Gb planes stay as
     ``self.gab`` for the matrix dump."""
 
     def __init__(self, sc: ScoringConfig, params: KernelParams, device, ga,
-                 gb, mins, la: int, lb: int, gab: bool = False):
+                 gb, mins, widths=None, gab: bool = False):
         for a, b in zip(ga, gb):
             check_valid_pairs(sc, a, b)
+        la, lb = widths or (max(1, max(map(len, ga))),
+                            max(1, max(map(len, gb))))
         ac, bc, self.na, self.nb, self.params = pack_batch(sc, params, ga, gb,
                                                            la, lb)
         self.ac, self.bc, self.na_t, self.nb_t = _to(device, ac, bc, self.na,
@@ -612,13 +632,25 @@ class _SwFill(_Hits):
             self.dirs, self.gab = _check_slice("gab", True)(*args)
             mmat = self.gab[0]
         else:
+            sched = (None if widths else
+                     kernels.fill_schedule(self.na, self.nb, device,
+                                           planes=True))
+            # int16 M when the launch's widest pair allows it
             self.dirs, mmat = _check_slice("dirs", True)(
-                *args, m16_safe(sc, la, lb))
-        self._harvested(*sw_sorted_candidates(mmat, self.na, self.nb, mins))
+                *args, m16_safe(sc, la, lb), sched)
+            if sched is not None:
+                self.off = sched.off
+        self._harvested(*sw_sorted_candidates(mmat, self.na, self.nb, mins,
+                                              off=self.off))
 
     def host_codes(self, j: int) -> np.ndarray:
-        """A host copy of pair j's code plane."""
-        return self.dirs[j].cpu().numpy()
+        """A host copy of pair j's code plane: (wa+wb-1, wb+1), wa and wb
+        its widths floored at 1, for a launch across widths."""
+        if self.off is None:
+            return self.dirs[j].cpu().numpy()
+        wb = max(1, int(self.nb[j]))
+        s, e = self.off[j:j + 2].tolist()
+        return self.dirs[s:e].view(-1, wb + 1).cpu().numpy()
 
 
 class _LongFill(_Hits):
@@ -729,43 +761,40 @@ class SmithWaterman:
         return self._align_batch_device(seqs_a, seqs_b, min_scores)
 
     def _align_batch_device(self, seqs_a, seqs_b, min_scores) -> List:
-        """Per width bucket and dirs-budget sub-batch: one ``sw_fill_dirs``
-        launch and the candidate harvest on M (then M is freed); then one
-        ``sw_hits`` launch finds the first ``_SW_PREWALK`` hits of every
-        pair with the overlap mask on the device and one ``sw_walk`` launch
-        traces them, and the sub-batch's fill is freed before the next
-        one.  A pair with more than ``_SW_DEVWALK_CANDS`` candidates, and
-        every pair under ``ref_mask_compat`` (its mask is shared across
-        pairs in consumption order), walks on the host over its own copy of
-        its codes instead."""
+        """The pairs over ``LONG_PAIR_CELLS`` on the long-pair path; the
+        others in sub-batches of at most ``_align_budget`` bytes
+        (:func:`_sw_pair_bytes` at each pair's own widths), each one
+        ``sw_fill_dirs`` launch across widths (codes and M in planes at the
+        pairs' own widths) and the candidate harvest on M (then M is
+        freed); then one ``sw_hits`` launch finds the first
+        ``_SW_PREWALK`` hits of every pair with the overlap mask on the
+        device and one ``sw_walk`` launch traces them, and the sub-batch's
+        fill is freed before the next one.  A pair with more than
+        ``_SW_DEVWALK_CANDS`` candidates, and every pair under
+        ``ref_mask_compat`` (its mask is shared across pairs in
+        consumption order), walks on the host over its own copy of its
+        codes instead."""
         sc = self.scoring
         results: List = [None] * len(seqs_a)
-        for key, idx in _buckets(seqs_a, seqs_b):
-            if key is None:
-                self._align_long(idx, seqs_a, seqs_b, min_scores, results)
-                continue
-            la, lb = key
-            # sub-batch by the bytes the fill really holds per pair: codes
-            # plus the int16 or int32 M plane, and without a hint the
-            # harvest of about a quarter of the pair's cells
-            per_pair = ((la + lb - 1) * (lb + 1)
-                        * (1 + (2 if m16_safe(sc, la, lb) else 4)))
-            if any(min_scores[i] <= 1 for i in idx):
-                per_pair += int(_HARVEST_BYTES * _HARVEST_SHARE * la * lb)
-            step = max(1, ALIGN_DIRS_BUDGET // per_pair)
-            for s in range(0, len(idx), step):
-                self._align_sub_batch(idx[s:s + step], seqs_a, seqs_b,
-                                      min_scores, la, lb, results)
+        short, long_ = _split_long(seqs_a, seqs_b)
+        if long_:
+            self._align_long(long_, seqs_a, seqs_b, min_scores, results)
+        if not short:
+            return results
+        # M bytes of the call's widest pair bound every sub-batch's
+        mbytes = 2 if m16_safe(sc, max(len(seqs_a[i]) for i in short),
+                               max(len(seqs_b[i]) for i in short)) else 4
+        for sub in _plane_subbatches(
+                short, _align_budget(self.device),
+                lambda i: _sw_pair_bytes(len(seqs_a[i]), len(seqs_b[i]),
+                                         mbytes, min_scores[i] <= 1)):
+            ga = [seqs_a[i] for i in sub]
+            gb = [seqs_b[i] for i in sub]
+            mins = [min_scores[i] for i in sub]
+            fill = _SwFill(sc, self.params, self.device, ga, gb, mins)
+            self._streams(fill, sub, ga, gb, mins, None, results)
+            del fill  # free the sub-batch's codes before the next fills
         return results
-
-    def _align_sub_batch(self, sub, seqs_a, seqs_b, min_scores, la, lb,
-                         results):
-        ga = [seqs_a[i] for i in sub]
-        gb = [seqs_b[i] for i in sub]
-        mins = [min_scores[i] for i in sub]
-        fill = _SwFill(self.scoring, self.params, self.device, ga, gb, mins,
-                       la, lb)
-        self._streams(fill, sub, ga, gb, mins, None, results)
 
     def _align_long(self, idx, seqs_a, seqs_b, min_scores, results,
                     chunk=None):
@@ -820,8 +849,8 @@ class SmithWaterman:
         :class:`SwDeviceHits`)."""
         if ca is None:
             fill = _SwFill(self.scoring, self.params, self.device, [a], [b],
-                           [min_score], max(64, pad_width(len(a))),
-                           max(64, pad_width(len(b))))
+                           [min_score], (max(64, pad_width(len(a))),
+                                         max(64, pad_width(len(b)))))
         else:
             fill = _LongFill(self.scoring, self.params, self.device, [a],
                              [b], ca, is_sw=True, mins=[min_score])
@@ -861,7 +890,7 @@ class SmithWaterman:
             return host_dp.HostSwHits(sc, seq_a, seq_b, matrices=mats,
                                       history=self.history), mats
         fill = _SwFill(sc, self.params, self.device, [seq_a], [seq_b], [1],
-                       max(1, len(seq_a)), max(1, len(seq_b)), gab=True)
+                       (max(1, len(seq_a)), max(1, len(seq_b))), gab=True)
         mats = _deskew_all(sc, fill.gab, int(fill.na[0]), int(fill.nb[0]),
                            is_sw=True)
         del fill.gab

@@ -33,8 +33,10 @@
 // A launch without a schedule is the uniform case: block i fills pair i,
 // and every pair keeps its diagonals, at LB+1 lanes, in shared memory or
 // in scratch slice j.  The schedule is a template flag (SCHED), so that
-// the uniform instantiations compile to the code they had before it; only
-// the scores fills and the NW codes fill (MBYTES == 0) take one.
+// the uniform instantiations compile to the code they had before it; the
+// scores fills, the NW codes fill and the SW codes-and-M fill (MBYTES 0,
+// 2 and 4) take one, the SW fill then writing pair j's M, int16 or int32,
+// at mout + off[j] elements in the plane of its codes' shape.
 //
 // Template flags: DIRS stores the packed direction codes; SW floors every
 // cell at 0 with an all-zero boundary and reduces the best M (per thread,
@@ -558,8 +560,8 @@ int launch(const void* ac, const void* bc, const void* na, const void* nb,
                  stream, ac_, bc_, na_, nb_, scal_, sub_, im_, modes, Kb,
                  sub_n, table_smem, LA, LB, scores_, corner_, dirs_, mout,
                  scratch_, cr);
-  } else if (MBYTES == 0 && sc.order) {  // a launch across widths
-    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES, MBYTES == 0>,
+  } else if (MBYTES != 12 && sc.order) {  // a launch across widths
+    return start(fill_kernel<DIRS, SW, TABLE, MBYTES, MODES, MBYTES != 12>,
                  smem, B, LB, stream, ac_, bc_, na_, nb_, scal_, sub_, im_,
                  modes, Kb, sub_n, table_smem, LA, LB, scores_, corner_,
                  dirs_, mout, scratch_, sc);

@@ -11,6 +11,10 @@
 // when the wrapper's m16_safe gate (pallas_dp2.py:94-101) holds, else
 // int32.  The candidate harvest reads M in place on the card; the codes
 // stay there for the hit loop (sw_hits.cu) and the hit walks (sw_walk.cu).
+// Under a fill schedule with planes (one launch across widths, the SCHED
+// instantiations of fill_common.cuh) pair j's codes and M go to planes at
+// its own widths, from dirs + off[j] and mout + off[j] (in elements), as
+// ops/pack.py:ragged_planes lays them out.
 //
 // Bound on the card: the stores, 3 or 5 bytes per valid cell (the codes
 // coalesce per warp, the M values too), and the barrier per diagonal.

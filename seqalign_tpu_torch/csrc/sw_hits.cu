@@ -28,6 +28,13 @@
 // (pairs up to ~1,360^2 cells), zeroed by the warp, else in a zeroed global
 // buffer.
 //
+// With `off`, the codes are the planes of one fill launch across widths
+// (fill_common.cuh, ops/pack.py:ragged_planes): pair j's at dirs + off[j],
+// rows of max(nb, 1) + 1 lanes, cell (y, x) at row x + y - 2, the address
+// rule of one plane.  Each pair's mask then has its own (nb+1)(na+1) bits:
+// in the block's dynamic shared memory (MW words, the launch's) when they
+// fit there, else at word moff[j] of the zeroed global buffer.
+//
 // The design: the path a walk takes from a cell depends only on the codes,
 // never on the mask; the mask only decides where the walk stops.  So the
 // warp takes the candidates 32 at a time, lane i holding candidate c + i
@@ -154,20 +161,32 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
                                uint32_t* __restrict__ gmask, int use_smem,
                                F* __restrict__ hit_flat,
                                int* __restrict__ hit_score,
-                               int* __restrict__ nhits) {
+                               int* __restrict__ nhits,
+                               const long long* __restrict__ off,
+                               const long long* __restrict__ moff) {
   extern __shared__ uint32_t smask[];
   const int j = blockIdx.x;
   const int lane = threadIdx.x;  // one warp a block
-  uint32_t* mask;
-  if (use_smem) {
-    for (int i = lane; i < MW; i += 32) smask[i] = 0;
-    __syncwarp();
-    mask = smask;
-  } else {
-    mask = gmask + static_cast<size_t>(j) * MW;
-  }
   Pair p;
-  p.dj = dirs + j * g.pair_bytes();
+  p.na = na[j];
+  p.nb = nb[j];
+  p.g = g;
+  size_t words = MW;
+  uint32_t* mask = smask;
+  if (off) {  // the pair's own plane and mask
+    p.g.LBp = max(p.nb, 1) + 1;
+    p.dj = dirs + off[j];
+    words = (static_cast<size_t>(p.nb + 1) * (p.na + 1) + 31) / 32;
+    use_smem = use_smem && words <= static_cast<size_t>(MW);
+    if (!use_smem) mask = gmask + moff[j];
+  } else {
+    p.dj = dirs + j * g.pair_bytes();
+    if (!use_smem) mask = gmask + static_cast<size_t>(j) * MW;
+  }
+  if (use_smem) {
+    for (size_t i = lane; i < words; i += 32) smask[i] = 0;
+    __syncwarp();
+  }
   p.aj = ac + static_cast<size_t>(j) * LA;
   p.bj = bc + static_cast<size_t>(j) * LB;
   p.sub = sub;
@@ -177,10 +196,7 @@ __global__ void sw_hits_kernel(const uint8_t* __restrict__ dirs,
   p.ge = scal[3];
   p.gop = static_cast<int>(static_cast<unsigned>(scal[2]) +
                            static_cast<unsigned>(p.ge));
-  p.na = na[j];
-  p.nb = nb[j];
   p.neg = neg;
-  p.g = g;
   F* hf = hit_flat + static_cast<size_t>(j) * k;
   int* hs = hit_score + static_cast<size_t>(j) * k;
   const F w = p.na + 1;
@@ -267,7 +283,7 @@ int start(const uint8_t* dirs, const uint8_t* ac, const uint8_t* bc,
           const int* cand_score, const int64_t* lo, const int64_t* hi, int B,
           int LA, int LB, slab::Geometry g, int k, int MW, uint32_t* gmask,
           int use_smem, void* hit_flat, int* hit_score, int* nhits,
-          cudaStream_t stream) {
+          const long long* off, const long long* moff, cudaStream_t stream) {
   const size_t smem = use_smem ? static_cast<size_t>(MW) * 4 : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -279,7 +295,8 @@ int start(const uint8_t* dirs, const uint8_t* ac, const uint8_t* bc,
   sw_hits_kernel<F, SLABS><<<B, 32, smem, stream>>>(
       dirs, ac, bc, scal, sub, Kb, na, nb, neg,
       static_cast<const F*>(cand_flat), cand_score, lo, hi, LA, LB, g, k, MW,
-      gmask, use_smem, static_cast<F*>(hit_flat), hit_score, nhits);
+      gmask, use_smem, static_cast<F*>(hit_flat), hit_score, nhits, off,
+      moff);
   return cudaGetLastError();
 }
 
@@ -288,8 +305,11 @@ int start(const uint8_t* dirs, const uint8_t* ac, const uint8_t* bc,
 // dirs, ac, bc, scal, sub (or null), Kb, na, nb, neg, cand_flat (int32, or
 // int64 with flat64), cand_score, lo, hi, B, LA, LB, nch, Dc, k, MW, gmask
 // (null with use_smem), use_smem, hit_flat (of cand_flat's type),
-// hit_score, nhits, flat64, stream: dirs holds nch slabs of Dc rows a pair
-// (one slab: Dc = LA + LB - 1)
+// hit_score, nhits, flat64, stream, off, moff: dirs holds nch slabs of Dc
+// rows a pair (one slab: Dc = LA + LB - 1), or with off (int64, null
+// otherwise) each pair's plane at its own widths; then MW is the words of
+// shared memory a block has (use_smem set) and moff (int64) each pair's
+// first word in gmask, read for the pairs whose mask passes MW
 extern "C" int sw_hits_launch(const void* dirs, const void* ac,
                               const void* bc, const void* scal,
                               const void* sub, int Kb, const void* na,
@@ -299,7 +319,8 @@ extern "C" int sw_hits_launch(const void* dirs, const void* ac,
                               int LB, int nch, int Dc, int k, int MW,
                               void* gmask, int use_smem, void* hit_flat,
                               void* hit_score, void* nhits, int flat64,
-                              void* stream) {
+                              void* stream, const void* off,
+                              const void* moff) {
   const slab::Geometry g{Dc - LB + 1, Dc, LB + 1, nch};
   auto run = nch > 1 ? (flat64 ? start<int64_t, true> : start<int, true>)
                      : (flat64 ? start<int64_t, false> : start<int, false>);
@@ -312,5 +333,7 @@ extern "C" int sw_hits_launch(const void* dirs, const void* ac,
              static_cast<const int64_t*>(lo), static_cast<const int64_t*>(hi),
              B, LA, LB, g, k, MW, static_cast<uint32_t*>(gmask), use_smem,
              hit_flat, static_cast<int*>(hit_score),
-             static_cast<int*>(nhits), static_cast<cudaStream_t>(stream));
+             static_cast<int*>(nhits), static_cast<const long long*>(off),
+             static_cast<const long long*>(moff),
+             static_cast<cudaStream_t>(stream));
 }

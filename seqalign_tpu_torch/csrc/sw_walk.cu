@@ -21,6 +21,10 @@
 // address needs the previous code), so one walk is latency bound; a batch
 // of walks hides latency only across walks.  Only the int8 trace, padded
 // with -1 to `cap` steps, leaves the card.
+//
+// With `off`, the codes are the planes of one fill launch across widths
+// (fill_common.cuh, ops/pack.py:ragged_planes): pair j's at dirs + off[j],
+// rows of max(nb, 1) + 1 lanes, cell (y, x) at row x + y - 2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,7 +47,8 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
                                const int* __restrict__ y0,
                                const int* __restrict__ s0, int W, int B,
                                int LA, int LB, slab::Geometry g, int cap,
-                               int8_t* __restrict__ ops) {
+                               int8_t* __restrict__ ops,
+                               const long long* __restrict__ off) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   int8_t* ow = ops + static_cast<size_t>(w) * cap;
@@ -53,14 +58,22 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
     const int match = scal[0], mismatch = scal[1], ge = scal[3];
     const int gop = static_cast<int>(static_cast<unsigned>(scal[2]) +
                                      static_cast<unsigned>(ge));
-    const uint8_t* dj = dirs + j * g.pair_bytes();
+    const int naj = na[j], nbj = nb[j];
+    slab::Geometry gj = g;
+    const uint8_t* dj;
+    if (off) {  // the pair's own plane: one slab of its widths
+      gj.LBp = max(nbj, 1) + 1;
+      gj.nch = 1;
+      dj = dirs + off[j];
+    } else {
+      dj = dirs + j * g.pair_bytes();
+    }
     const uint8_t* aj = ac + static_cast<size_t>(j) * LA;
     const uint8_t* bj = bc + static_cast<size_t>(j) * LB;
-    const int naj = na[j], nbj = nb[j];
     int X = min(x0[w], LA), Y = min(y0[w], LB), cs = s0[w], curr = MATCH;
     for (; step < cap && cs > 0; ++step) {
       const int Xc = max(X, 1), Yc = max(Y, 1);
-      const int code = dj[g.at(Xc, Yc)];
+      const int code = dj[gj.at(Xc, Yc)];
       const int nxt = (code >> (2 * curr)) & 3;
       int pen;
       if (curr == MATCH) {
@@ -85,15 +98,17 @@ __global__ void sw_walk_kernel(const uint8_t* __restrict__ dirs,
 }  // namespace
 
 // dirs, ac, bc, scal, sub (or null), Kb, na, nb, neg, jw, x0, y0, s0, W, B,
-// LA, LB, nch, Dc, cap, ops, stream: dirs holds nch slabs of Dc rows a
-// pair (one slab: Dc = LA + LB - 1)
+// LA, LB, nch, Dc, cap, ops, stream, off: dirs holds nch slabs of Dc rows
+// a pair (one slab: Dc = LA + LB - 1), or with off (int64, null
+// otherwise) each pair's plane at its own widths
 extern "C" int sw_walk_launch(const void* dirs, const void* ac,
                               const void* bc, const void* scal,
                               const void* sub, int Kb, const void* na,
                               const void* nb, int neg, const void* jw,
                               const void* x0, const void* y0, const void* s0,
                               int W, int B, int LA, int LB, int nch, int Dc,
-                              int cap, void* ops, void* stream) {
+                              int cap, void* ops, void* stream,
+                              const void* off) {
   const int threads = 128;
   const slab::Geometry g{Dc - LB + 1, Dc, LB + 1, nch};
   sw_walk_kernel<<<(W + threads - 1) / threads, threads, 0,
@@ -104,6 +119,6 @@ extern "C" int sw_walk_launch(const void* dirs, const void* ac,
       static_cast<const int*>(nb), neg, static_cast<const int*>(jw),
       static_cast<const int*>(x0), static_cast<const int*>(y0),
       static_cast<const int*>(s0), W, B, LA, LB, g, cap,
-      static_cast<int8_t*>(ops));
+      static_cast<int8_t*>(ops), static_cast<const long long*>(off));
   return cudaGetLastError();
 }

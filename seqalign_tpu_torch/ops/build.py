@@ -48,15 +48,15 @@ _SIGNATURES = {
     # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, off, stream
     "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, jw, x0, y0, s0, W, B, LA,
-    # LB, nch, Dc, cap, ops, stream
+    # LB, nch, Dc, cap, ops, stream, off
     "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _P, _P),
+                       _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, cand_flat, cand_score, lo,
     # hi, B, LA, LB, nch, Dc, k, MW, gmask, use_smem, hit_flat, hit_score,
-    # nhits, flat64, stream
+    # nhits, flat64, stream, off, moff
     "sw_hits_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
-                       _P),
+                       _P, _P, _P),
     # x, o, R, L, S, op, i16, stream
     "vpu_chain_launch": (_P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -15,13 +15,15 @@ column's GAP_A and the last row's GAP_B without penalty or floor, the
 no-gaps flags pin GAP_A / GAP_B to the floor off the last column / row and
 guard their direction codes, and no-mismatches pins M to the floor where
 the pair is not an is-match.  ``sw_sorted_candidates`` harvests SW hit
-candidates from an M plane (or one chunk's) where it lies and puts them in
-the hit order, and ``merge_candidates`` joins the chunks' harvests.
+candidates from an M plane (one chunk's, or the ragged planes of one launch
+across widths) where it lies and puts them in the hit order, and
+``merge_candidates`` joins the chunks' harvests.
 ``nw_fill_gab_plain`` / ``sw_fill_gab_plain`` add the M, Ga and Gb planes
 of the matrix dump (``dp_fill(emit_gab=True)``), and ``deskew`` turns one
 pair's plane into the row-major matrix the CLI prints.
-``nw_fill_dirs_plain`` also writes the codes as planes at each pair's own
-widths (``pack.ragged_planes``), as one fill launch across widths does.
+``nw_fill_dirs_plain`` and ``sw_fill_dirs_plain`` also write the codes
+(and SW M) as planes at each pair's own widths (``pack.ragged_planes``), as
+one fill launch across widths does.
 
 The chunked fill (``bin`` given) is one chunk of a long pair: the columns
 x_off+1 .. x_off+CA, with the column x = x_off carried in and the column
@@ -255,14 +257,22 @@ def nw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams, off=None):
     dirs is instead 1-d, each pair's plane at its own widths from
     ``off[j]``: the padded fill's planes cut to those widths."""
     dirs, corner = _fill(ac, bc, na, nb, params, emit_dirs=True)[:2]
+    return _planes(dirs, na, nb, off), corner
+
+
+def _planes(t, na, nb, off):
+    """The uniform (B, LA+LB-1, LB+1) planes ``t`` cut to each pair's own
+    widths and laid end to end from ``off[j]`` (``pack.ragged_planes``), a
+    1-d tensor; ``t`` itself when ``off`` is None.  Pad cells are copied
+    as they are: only the valid cells are defined."""
     if off is None:
-        return dirs, corner
+        return t
     off = off.tolist()
-    flat = torch.empty(off[-1], dtype=torch.uint8, device=dirs.device)
+    flat = torch.empty(off[-1], dtype=t.dtype, device=t.device)
     for j, (n_a, n_b) in enumerate(zip(na.tolist(), nb.tolist())):
         wa, wb = max(n_a, 1), max(n_b, 1)
-        flat[off[j]:off[j + 1]] = dirs[j, :wa + wb - 1, :wb + 1].reshape(-1)
-    return flat, corner
+        flat[off[j]:off[j + 1]] = t[j, :wa + wb - 1, :wb + 1].reshape(-1)
+    return flat
 
 
 def sw_scores_plain(ac, bc, na, nb, params: KernelParams):
@@ -272,16 +282,26 @@ def sw_scores_plain(ac, bc, na, nb, params: KernelParams):
 
 
 def sw_fill_dirs_plain(ac, bc, na, nb, params: KernelParams,
-                       m16: bool = False):
+                       m16: bool = False, off=None):
     """The SW fill with direction codes and the M matrix: returns
     ``(dirs, M)``, both (B, LA+LB-1, LB+1) in the skewed layout of
     ``nw_fill_dirs_plain``; M is int16 when ``m16`` (callers check
     ``pack.m16_safe``), else int32.  Only cells 1 <= y <= nb,
-    1 <= x <= na are defined."""
+    1 <= x <= na are defined.  With ``off`` both are 1-d, each pair's
+    planes at its own widths from ``off[j]``, as ``nw_fill_dirs_plain``
+    lays out the codes, and every other cell of M holds 0, as the
+    kernel's zeroed M does."""
     dirs, _, _, mout, _ = _fill(ac, bc, na, nb, params, is_sw=True,
                                 emit_dirs=True,
                                 m_dtype=torch.int16 if m16 else torch.int32)
-    return dirs, mout
+    if off is not None:
+        B, D, LBp = mout.shape
+        r = torch.arange(D, device=mout.device)[None, :, None]
+        y = torch.arange(LBp, device=mout.device)[None, None, :]
+        na_c, nb_c = (v.long()[:, None, None] for v in (na, nb))
+        mout = mout.masked_fill(~((y >= 1) & (y <= nb_c) & (r >= y - 1)
+                                  & (r <= y - 2 + na_c)), 0)
+    return _planes(dirs, na, nb, off), _planes(mout, na, nb, off)
 
 
 def nw_fill_gab_plain(ac, bc, na, nb, params: KernelParams):
@@ -443,7 +463,8 @@ def fill_chunked(ac, bc, na, nb, params: KernelParams, *, is_sw: bool,
     return corner, best, dirs_chunks, m_chunks, na, nb
 
 
-def sw_sorted_candidates(mmat, na, nb, min_scores, x_off: int = 0):
+def sw_sorted_candidates(mmat, na, nb, min_scores, x_off: int = 0,
+                         off=None):
     """SW hit candidates of a skewed M batch (B, D, LB+1), harvested and
     ordered where M lies (dp.sw_extract_candidates plus the hit iterator's
     sort): the cells 1 <= y <= nb, 1 <= x <= na with M >= max(min_score,
@@ -454,11 +475,16 @@ def sw_sorted_candidates(mmat, na, nb, min_scores, x_off: int = 0):
     ``min_scores`` may be a scalar.  A chunk's M slab takes its ``x_off``:
     its width is CA = D - LB + 1, its cell (y, x) sits at row
     x - x_off + y - 2, and only its own columns x_off+1 .. x_off+CA pass
-    (the skew pad past them holds no cell of the chunk).  Returns, on M's
+    (the skew pad past them holds no cell of the chunk).  With ``off``
+    ((B+1,) int64 tensor, ``pack.ragged_planes``) M is instead the 1-d
+    planes of one launch across widths, every cell but the valid ones 0
+    (:func:`_sorted_ragged`).  Returns, on M's
     device, ``(flat (N,), score int32 (N,), offsets int64 (B+1,))``: pair
     j's candidates are ``[offsets[j], offsets[j+1])``, flat = y * (na+1) + x
     with global x, int32 when every pair has (na+1)(nb+1) < 2^31 cells, else
     int64 so that a long pair's flats do not wrap."""
+    if off is not None:
+        return _sorted_ragged(mmat, na, nb, min_scores, off)
     B, D, LBp = mmat.shape
     ca = D - LBp + 2
     dev = mmat.device
@@ -486,17 +512,65 @@ def sw_sorted_candidates(mmat, na, nb, min_scores, x_off: int = 0):
     xx = pos.div(LBp, rounding_mode="floor") + 2 - yy  # local x
     del pos
     # (-score, x, y) within a pair is (-score, x, flat): one int64 key
-    key = -score.long() * ((D + 2) * LBp) + xx * LBp + yy
+    return _in_hit_order(-score.long() * ((D + 2) * LBp) + xx * LBp + yy,
+                         pair, xx + x_off, yy, score, na_t, na, nb)
+
+
+def _in_hit_order(key, pair, xx, yy, score, na_t, na, nb):
+    """The harvested candidates (their pair, global x, y and score) in the
+    hit order: by ``key``, (-score, x, y) within a pair, then by pair, both
+    sorts stable.  ``na_t``: the pairs' lengths on the candidates' device.
+    Returns ``(flat, score, offsets)`` as :func:`sw_sorted_candidates`."""
     order = torch.sort(key, stable=True).indices
     del key
     order = order[torch.sort(pair[order], stable=True).indices]
     pair, xx, yy, score = pair[order], xx[order], yy[order], score[order]
-    flat = yy * (na_t.long()[pair] + 1) + xx + x_off
+    flat = yy * (na_t.long()[pair] + 1) + xx
     if _flats_fit_int32(na, nb):
         flat = flat.int()
-    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.bincount(pair, minlength=B).cumsum(0)
+    offsets = torch.zeros(len(na) + 1, dtype=torch.int64,
+                          device=score.device)
+    offsets[1:] = torch.bincount(pair, minlength=len(na)).cumsum(0)
     return flat, score, offsets
+
+
+def _sorted_ragged(mflat, na, nb, min_scores, off):
+    """:func:`sw_sorted_candidates` on the 1-d M planes of one launch
+    across widths, whose cells that are no valid cell of their pair hold 0
+    (``sw_fill_dirs`` and its plain version under a schedule leave them
+    so): one ``ge`` for each run of pairs that share a threshold (>= 1, so
+    that no such cell passes), one ``nonzero``, each index's pair by its
+    plane's offsets, then the two stable sorts."""
+    dev = mflat.device
+    na = np.asarray(na, np.int64)
+    nb = np.asarray(nb, np.int64)
+    B = len(na)
+    offs = off.tolist()
+    thr = np.minimum(np.maximum(np.broadcast_to(
+        np.asarray(min_scores, np.int64), (B,)), 1),
+        torch.iinfo(mflat.dtype).max)
+    mask = torch.empty(mflat.shape[0], dtype=torch.bool, device=dev)
+    starts = np.flatnonzero(np.diff(thr, prepend=0)).tolist()
+    for s, e in zip(starts, starts[1:] + [B]):
+        torch.ge(mflat[offs[s]:offs[e]], int(thr[s]),
+                 out=mask[offs[s]:offs[e]])
+    idx = mask.nonzero()[:, 0]
+    del mask
+    score = mflat[idx].to(torch.int32)
+    off_t = off.to(dev)
+    pair = torch.searchsorted(off_t, idx, right=True) - 1
+    pos = idx - off_t[pair]
+    del idx
+    na_t = torch.from_numpy(na).to(dev)
+    lanes = torch.from_numpy(np.maximum(nb, 1) + 1).to(dev)[pair]
+    yy = pos % lanes
+    xx = pos.div(lanes, rounding_mode="floor") + 2 - yy
+    del pos
+    # (-score, x, y) within a pair is (-score, x, flat): one int64 key of
+    # the pair's own span
+    return _in_hit_order(-score.long() * ((na_t[pair] + 1) * lanes)
+                         + xx * lanes + yy, pair, xx, yy, score, na_t, na,
+                         nb)
 
 
 def _flats_fit_int32(na, nb) -> bool:

@@ -1,23 +1,26 @@
 """Wrappers of the port's CUDA kernels: the fills ``nw_scores``,
 ``nw_fill_dirs``, ``sw_scores`` and ``sw_fill_dirs`` (equality or
 substitution-table scoring, the latter when ``params.sub`` is set; the
-scoring flags of ``params.modes``; the first three also as one launch
-across widths under a :class:`FillSchedule`, ``nw_fill_dirs`` then writing
-each pair's codes at its own widths), the matrix-dump fills ``nw_fill_gab``
-and ``sw_fill_gab``, the long-pair chunk fills ``nw_fill_dirs_carry`` and
-``sw_fill_dirs_carry``, the walks ``nw_walk`` and ``sw_walk``, the SW hit
-loop ``sw_hits`` (the walks and the hit loop over a code plane or a long
-pair's chunk slabs), and the ALU probe ``vpu_chain``.
+scoring flags of ``params.modes``; each also as one launch across widths
+under a :class:`FillSchedule`, ``nw_fill_dirs`` and ``sw_fill_dirs`` then
+writing each pair's codes, and SW M, at its own widths), the matrix-dump
+fills ``nw_fill_gab`` and ``sw_fill_gab``, the long-pair chunk fills
+``nw_fill_dirs_carry`` and ``sw_fill_dirs_carry``, the walks ``nw_walk`` and
+``sw_walk``, the SW hit loop ``sw_hits`` (the walks and the hit loop over a
+code plane, a long pair's chunk slabs, or the planes of one launch across
+widths), and the ALU probe ``vpu_chain``.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
 PyTorch version; a tensor on a CUDA device goes to the kernel, and a
 failed build or launch raises — nothing falls back.  Kernels launch on the
 current stream and neither synchronise nor allocate: outputs and scratch
-come from ``torch.empty`` here.  Every launch adds one to its kernel's
-count in :func:`kernel_launch_counts` (the port's counterpart of
+come from ``torch.empty`` here (the ragged SW M from ``torch.zeros``).
+Every launch adds one to its kernel's count in
+:func:`kernel_launch_counts` (the port's counterpart of
 ``seqalign_tpu.aligners.pallas_dispatch_counts``); the table mode counts
-under its kernel's name.
+under its kernel's name, a launch across widths (a fill under a schedule,
+``sw_hits`` over its planes) under ``<kernel>[ragged]``.
 """
 
 from __future__ import annotations
@@ -57,8 +60,9 @@ class FillSchedule(NamedTuple):
     nslots: slices of scratch the launch allocates.
     smem_lanes: lanes of rolling diagonals in shared memory per block.
     off: with planes, (B+1,) int64 on the device, ``pack.ragged_planes``:
-      ``nw_fill_dirs`` writes pair j's codes at its own widths from
-      ``off[j]`` into a 1-d tensor of ``total`` bytes.
+      ``nw_fill_dirs`` and ``sw_fill_dirs`` write pair j's codes (and M)
+      at its own widths from ``off[j]`` into 1-d tensors of ``total``
+      elements.
     """
 
     order: torch.Tensor
@@ -74,7 +78,7 @@ def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
     """The schedule of one fill launch over pairs of lengths ``na``,
     ``nb`` (host arrays), on ``device``: ``smem_lanes`` (default
     ``RAGGED_SMEM_LANES``) lanes of shared memory a block, and with
-    ``planes`` the ragged code planes of ``nw_fill_dirs``."""
+    ``planes`` the ragged planes of ``nw_fill_dirs`` / ``sw_fill_dirs``."""
     lanes = RAGGED_SMEM_LANES if smem_lanes is None else int(smem_lanes)
     if not 0 <= 36 * lanes <= SMEM_MAX:
         raise ValueError(f"{lanes} lanes of diagonals do not fit shared "
@@ -94,10 +98,16 @@ def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
                         None if off is None else dev(off, np.int64),
                         0 if off is None else int(off[-1]))
 
-_COUNTS = {"nw_scores": 0, "nw_fill_dirs": 0, "nw_fill_gab": 0,
+
+# a launch across widths (a fill under a schedule, sw_hits over its
+# planes) counts under "<kernel>[ragged]", every other under "<kernel>"
+_COUNTS = {"nw_scores": 0, "nw_scores[ragged]": 0, "nw_fill_dirs": 0,
+           "nw_fill_dirs[ragged]": 0, "nw_fill_gab": 0,
            "nw_fill_dirs_carry": 0, "nw_walk": 0, "sw_scores": 0,
-           "sw_fill_dirs": 0, "sw_fill_gab": 0, "sw_fill_dirs_carry": 0,
-           "sw_walk": 0, "sw_hits": 0, "vpu_chain": 0}
+           "sw_scores[ragged]": 0, "sw_fill_dirs": 0,
+           "sw_fill_dirs[ragged]": 0, "sw_fill_gab": 0,
+           "sw_fill_dirs_carry": 0, "sw_walk": 0, "sw_hits": 0,
+           "sw_hits[ragged]": 0, "vpu_chain": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -222,7 +232,7 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
         _ptr(scores), _ptr(corner),
         _ptr(dirs), _ptr(mout), int(m16), _ptr(scratch), _stream(dev),
         *tail)
-    _launched(name, lib, rc)
+    _launched(name if sched is None else f"{name}[ragged]", lib, rc)
 
 
 def nw_scores(ac, bc, na, nb, params: KernelParams,
@@ -279,22 +289,31 @@ def sw_scores(ac, bc, na, nb, params: KernelParams,
     return scores
 
 
-def sw_fill_dirs(ac, bc, na, nb, params: KernelParams, m16: bool = False):
+def sw_fill_dirs(ac, bc, na, nb, params: KernelParams, m16: bool = False,
+                 sched: Optional[FillSchedule] = None):
     """The SW fill with direction codes and M (see ``sw_fill_dirs_plain``):
     returns ``(dirs uint8, M int16 if m16 else int32)``, both
     (B, LA+LB-1, LB+1); only cells 1 <= y <= nb, 1 <= x <= na are
-    defined."""
+    defined.  ``m16``: the caller's ``pack.m16_safe`` for the launch's
+    widest pair.  Under a schedule with planes (:func:`fill_schedule`), one
+    launch across widths: dirs and M are 1-d, ``sched.total`` elements
+    each, pair j's planes at its own widths from ``sched.off[j]``
+    (``pack.ragged_planes``); M is zeroed before the launch, so that its
+    cells the fill does not write (the planes' skew pad, lane 0, a pair
+    with an empty side) hold 0, below every harvest threshold."""
     B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    _check_sched(sched, B)
+    off = None if sched is None else sched.off
     if ac.device.type == "cpu":
-        return sw_fill_dirs_plain(ac, bc, na, nb, params, m16)
+        return sw_fill_dirs_plain(ac, bc, na, nb, params, m16, off)
     dev = ac.device
-    shape = (B, LA + LB - 1, LB + 1)
+    shape = (B, LA + LB - 1, LB + 1) if off is None else (sched.total,)
     dirs = torch.empty(shape, dtype=torch.uint8, device=dev)
-    mout = torch.empty(shape, dtype=torch.int16 if m16 else torch.int32,
-                       device=dev)
+    mout = (torch.empty if off is None else torch.zeros)(
+        shape, dtype=torch.int16 if m16 else torch.int32, device=dev)
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     _fill("sw_fill_dirs", "sw_dirs_launch", ac, bc, na, nb, params, scores,
-          dirs=dirs, mout=mout, m16=m16)
+          dirs=dirs, mout=mout, m16=m16, sched=sched)
     return dirs, mout
 
 
@@ -411,13 +430,29 @@ def sw_fill_dirs_carry(ac, bc, na, nb, params: KernelParams, x_off: int,
     return mout
 
 
-def _check_codes(dirs, ac, bc):
+def _check_codes(dirs, ac, bc, na, nb, off=None):
     """A walk's codes: a (B, LA+LB-1, LB+1) plane or (B, nch, D_c, LB+1)
     chunk slabs of CA = D_c - LB + 1 columns that cover the LA columns of
-    ``ac`` (nch = ceil(LA / CA)).  Returns (nch, D_c)."""
+    ``ac`` (nch = ceil(LA / CA)), or with ``off`` ((B+1,) int64, a
+    schedule's) the 1-d planes at each pair's own widths of one launch
+    across widths, each at least as large as ``na``, ``nb`` make it.
+    Returns (B, nch, D_c)."""
+    dev = dirs.device
+    if off is not None:
+        _expect(dirs, "dirs", torch.uint8, 1, dev)
+        _expect(off, "off", torch.int64, 1, dev)
+        B = off.shape[0] - 1
+        if B < 0 or ac.shape[0] != B or bc.shape[0] != B or \
+                na.shape[0] != B or nb.shape[0] != B:
+            raise ValueError("dirs, off, ac and bc must come from one fill")
+        wa, wb = na.long().clamp(min=1), nb.long().clamp(min=1)
+        if B and (int(off[0]) < 0 or int(off[-1]) > dirs.shape[0] or not bool(
+                (off[1:] - off[:-1] >= (wa + wb - 1) * (wb + 1)).all())):
+            raise ValueError("off must hold each pair's plane within dirs")
+        return B, 1, 1  # each pair's widths are its own
     if dirs.dim() not in (3, 4):
         raise ValueError("dirs must be a code plane or chunk slabs")
-    _expect(dirs, "dirs", torch.uint8, dirs.dim(), dirs.device)
+    _expect(dirs, "dirs", torch.uint8, dirs.dim(), dev)
     nch, dc, LBp, ca = slab_geometry(dirs)
     B = dirs.shape[0]
     LA, LB = ac.shape[1], bc.shape[1]
@@ -425,7 +460,7 @@ def _check_codes(dirs, ac, bc):
             not (nch - 1) * ca < LA <= nch * ca or \
             (dirs.dim() == 3 and ca != LA):
         raise ValueError("dirs, ac and bc must come from one fill")
-    return nch, dc
+    return B, nch, dc
 
 
 def nw_walk(dirs, corner, na, nb, cap: int, off=None):
@@ -472,10 +507,11 @@ def nw_walk(dirs, corner, na, nb, cap: int, off=None):
 
 
 def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
-            cap: int):
+            cap: int, off=None):
     """Device SW candidate walks (see ``sw_walk_plain``) over one fill's
-    ``dirs`` (a plane or chunk slabs), codes and lengths: returns the op
-    traces (W, walk_cap(cap)) int8."""
+    ``dirs`` (a plane or chunk slabs, or with ``off`` the 1-d planes of
+    one launch across widths), codes and lengths: returns the op traces
+    (W, walk_cap(cap)) int8."""
     dev = dirs.device
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
@@ -483,8 +519,7 @@ def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
                  (s0, "s0")):
         _expect(t, n, torch.int32, 1, dev)
     _check_params(params, dev)
-    nch, dc = _check_codes(dirs, ac, bc)
-    B = dirs.shape[0]
+    B, nch, dc = _check_codes(dirs, ac, bc, na, nb, off)
     LA, LB = ac.shape[1], bc.shape[1]
     W = jw.shape[0]
     if not na.shape[0] == nb.shape[0] == B:
@@ -493,7 +528,7 @@ def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
         raise ValueError("jw, x0, y0 and s0 must hold the same walk count")
     if dev.type == "cpu":
         return sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0, params,
-                             cap)
+                             cap, off)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     capr = walk_cap(cap)
@@ -506,21 +541,39 @@ def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
         0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
         int(bool(params.modes & NEG)), _ptr(jw), _ptr(x0), _ptr(y0),
-        _ptr(s0), W, B, LA, LB, nch, dc, capr, _ptr(ops), _stream(dev))
+        _ptr(s0), W, B, LA, LB, nch, dc, capr, _ptr(ops), _stream(dev),
+        _ptr(off))
     _launched("sw_walk", lib, rc)
     return ops
 
 
+def hits_masks(na, nb, smem: int):
+    """Where the masks of a ``sw_hits`` launch across widths live: pair j
+    has (nb+1)(na+1) bits, ``words[j]`` 32-bit words; the launch gives
+    each block the words of the largest mask that fits ``smem`` bytes, and
+    a pair whose mask passes them takes words ``moff[j] ..`` of a global
+    buffer of ``moff[-1]`` words.  ``na``, ``nb`` (B,) int32 tensors.
+    Returns ``(shared words a block, moff (B+1,) int64)``."""
+    words = ((na.long() + 1) * (nb.long() + 1) + 31) // 32
+    fits = words * 4 <= smem
+    block = int(words[fits].max()) if bool(fits.any()) else 0
+    moff = torch.zeros(len(words) + 1, dtype=torch.int64, device=na.device)
+    moff[1:] = torch.where(words <= block, 0, words).cumsum(0)
+    return block, moff
+
+
 def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
-            params: KernelParams, k: int):
-    """The first ``k`` hits of every pair of one SW fill (a code plane or a
-    long pair's chunk slabs), found on the device with the reference's
-    overlap mask (see ``sw_hits_plain``): returns ``(hit_flat (B, k),
-    hit_score (B, k) int32, nhits (B,) int32)``.  Flats are int32, or
-    int64 where a pair has 2^31 cells or more (``sw_sorted_candidates``
-    picks); ``hit_flat`` takes ``cand_flat``'s type.  The mask takes
-    ``(LB+1) * (LA+1)`` bits a pair, LA the pairs' global width: shared
-    memory when that fits, else a zeroed global buffer."""
+            params: KernelParams, k: int, off=None):
+    """The first ``k`` hits of every pair of one SW fill (a code plane, a
+    long pair's chunk slabs, or with ``off`` the 1-d planes of one launch
+    across widths), found on the device with the reference's overlap mask
+    (see ``sw_hits_plain``): returns ``(hit_flat (B, k), hit_score (B, k)
+    int32, nhits (B,) int32)``.  Flats are int32, or int64 where a pair
+    has 2^31 cells or more (``sw_sorted_candidates`` picks); ``hit_flat``
+    takes ``cand_flat``'s type.  The mask takes ``(LB+1) * (LA+1)`` bits a
+    pair, LA the pairs' global width (with ``off``, the pair's own
+    ``(nb+1) * (na+1)``, :func:`hits_masks`): shared memory when that
+    fits, else a zeroed global buffer."""
     dev = dirs.device
     _expect(ac, "ac", torch.uint8, 2, dev)
     _expect(bc, "bc", torch.uint8, 2, dev)
@@ -533,8 +586,7 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
     _expect(lo, "lo", torch.int64, 1, dev)
     _expect(hi, "hi", torch.int64, 1, dev)
     _check_params(params, dev)
-    nch, dc = _check_codes(dirs, ac, bc)
-    B = dirs.shape[0]
+    B, nch, dc = _check_codes(dirs, ac, bc, na, nb, off)
     LA, LB = ac.shape[1], bc.shape[1]
     LBp = LB + 1
     if not na.shape[0] == nb.shape[0] == lo.shape[0] == hi.shape[0] == B:
@@ -545,7 +597,7 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
         raise ValueError("k must be >= 1")
     if dev.type == "cpu":
         return sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo,
-                             hi, params, k)
+                             hi, params, k, off)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     hit_flat = torch.zeros((B, k), dtype=cand_flat.dtype, device=dev)
@@ -553,10 +605,17 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
     nhits = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0:
         return hit_flat, hit_score, nhits
-    MW = -(-LBp * (LA + 1) // 32)
-    smem = 4 * MW <= SMEM_MAX
-    gmask = (None if smem else
-             torch.zeros((B, MW), dtype=torch.int32, device=dev))
+    moff = None
+    if off is None:
+        MW = -(-LBp * (LA + 1) // 32)
+        smem = 4 * MW <= SMEM_MAX
+        gwords = 0 if smem else B * MW
+    else:
+        MW, moff = hits_masks(na, nb, SMEM_MAX)
+        smem = MW > 0
+        gwords = int(moff[-1])
+    gmask = (torch.zeros(gwords, dtype=torch.int32, device=dev) if gwords
+             else None)
     lib = library()
     sub = params.sub
     rc = lib.sw_hits_launch(
@@ -565,8 +624,8 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
         int(bool(params.modes & NEG)), _ptr(cand_flat), _ptr(cand_score),
         _ptr(lo), _ptr(hi), B, LA, LB, nch, dc, k, MW, _ptr(gmask),
         int(smem), _ptr(hit_flat), _ptr(hit_score), _ptr(nhits),
-        int(flat64), _stream(dev))
-    _launched("sw_hits", lib, rc)
+        int(flat64), _stream(dev), _ptr(off), _ptr(moff))
+    _launched("sw_hits" if off is None else "sw_hits[ragged]", lib, rc)
     return hit_flat, hit_score, nhits
 
 

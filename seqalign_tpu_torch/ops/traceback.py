@@ -19,7 +19,10 @@ Skewed addressing: cell (y, x) of pair j lives at ``dirs[j, x+y-2, y]``.
 A long pair's codes are chunk slabs instead, ``dirs`` (B, nch, D_c, LB+1)
 with D_c = CA + LB - 1: cell (y, x) is in slab c = (x-1) // CA at row
 (x - c*CA) + y - 2 (:func:`slab_index`, the rule of ``csrc/slab.cuh``).
-A (B, D, LB+1) plane is the one-slab case, CA = D - LB + 1.
+A (B, D, LB+1) plane is the one-slab case, CA = D - LB + 1.  The planes of
+one fill launch across widths are 1-d with their offsets ``off`` (B+1,)
+(``pack.ragged_planes``): pair j's is one slab of its own widths, CA =
+max(na, 1), rows of max(nb, 1) + 1 lanes, from ``off[j]``.
 """
 
 from __future__ import annotations
@@ -227,13 +230,27 @@ def nw_strings_from_ops(seqs_a, seqs_b, na, nb, ops, score):
     return out
 
 
+def _pair_slabs(dirs, na, nb, off):
+    """Each pair's codes as (base, CA, D_c, LB+1) of :func:`slab_index`:
+    (B,) int64 tensors for the 1-d planes of one launch across widths
+    (``off``), else one shared slab geometry with base j * plane."""
+    if off is None:
+        nch, dc, lbp, ca = slab_geometry(dirs)
+        base = torch.arange(dirs.shape[0], device=dirs.device) * (nch * dc
+                                                                  * lbp)
+        return base, ca, dc, lbp
+    wa, wb = na.long().clamp(min=1), nb.long().clamp(min=1)
+    return off[:-1].long(), wa, wa + wb - 1, wb + 1
+
+
 def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
-                  params: KernelParams, cap: int):
+                  params: KernelParams, cap: int, off=None):
     """Walk SW candidates back from their end cells, without the overlap
     mask (paths depend only on the codes and the per-step penalties).
 
     ``dirs`` (B, D, LB+1) uint8 codes (or chunk slabs,
-    :func:`slab_geometry`) and ``ac``/``bc`` (B, LA)/(B, LB) uint8 codes
+    :func:`slab_geometry`, or with ``off`` the 1-d planes of one launch
+    across widths) and ``ac``/``bc`` (B, LA)/(B, LB) uint8 codes
     of the fill, ``na``/``nb`` (B,) int32 its true lengths; walk ``w``
     starts in pair ``jw[w]`` at cell
     (``y0[w]``, ``x0[w]``) with score ``s0[w]`` and stops once its score
@@ -246,13 +263,16 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
     done; a DIR_FAIL shows as a 3 in the step after it."""
     cap = walk_cap(cap)
     W = jw.shape[0]
-    _, dc, LBp, ca = slab_geometry(dirs)
     dev = dirs.device
     match, mismatch, gap_open, gap_extend = params.scal[:4].unbind()
     gop = gap_open + gap_extend
     neg = bool(params.modes & NEG)
-    flat = dirs.reshape(dirs.shape[0], -1)
+    flat = dirs.reshape(-1)
     j = jw.long()
+    base, ca, dc, LBp = _pair_slabs(dirs, na, nb, off)
+    base = base[j]
+    if off is not None:
+        ca, dc, LBp = ca[j], dc[j], LBp[j]
     na_w, nb_w = na.long()[j], nb.long()[j]
     X = x0.long()
     Y = y0.long()
@@ -265,7 +285,7 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
             break
         Xc = X.clamp(min=1)
         Yc = Y.clamp(min=1)
-        code = flat[j, slab_index(Xc, Yc, ca, dc, LBp)].long()
+        code = flat[base + slab_index(Xc, Yc, ca, dc, LBp)].long()
         nxt = (code >> (2 * curr)) & 3
         ai = ac[j, Xc - 1].long()
         bi = bc[j, Yc - 1].long()
@@ -288,13 +308,14 @@ def sw_walk_plain(dirs, ac, bc, na, nb, jw, x0, y0, s0,
 
 
 def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
-                  params: KernelParams, k: int):
+                  params: KernelParams, k: int, off=None):
     """The first ``k`` hits of every pair of one SW fill, found with the
     reference's overlap mask and abort (smith_waterman.c:165-258; the
     loop of :meth:`SwHitIterator.fetch`).
 
-    ``dirs``, ``ac``, ``bc``, ``na``, ``nb`` and the step penalties as in
-    :func:`sw_walk_plain`; pair j's candidates are ``cand_flat`` (int32
+    ``dirs``, ``ac``, ``bc``, ``na``, ``nb``, ``off`` and the step
+    penalties as in :func:`sw_walk_plain`; pair j's candidates are
+    ``cand_flat`` (int32
     or int64) / ``cand_score`` (int32) ``[lo[j], hi[j])`` (int64), in the
     hit order of ``dp.sw_sorted_candidates``.  Returns ``hit_flat`` (B, k)
     of ``cand_flat``'s type and
@@ -303,10 +324,10 @@ def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
     ``nhits`` (B,) int32, fewer than ``k`` once a pair's candidates ran
     out and -1 after a DIR_FAIL.  A Python loop over host copies of the
     inputs; the outputs go to ``dirs``' device."""
-    B = dirs.shape[0]
-    nch, dc, LBp, ca = slab_geometry(dirs)
+    B = ac.shape[0]
     LA = ac.shape[1]
-    plane = nch * dc * LBp
+    geo = [v.tolist() if isinstance(v, torch.Tensor) else [v] * B
+           for v in _pair_slabs(dirs, na, nb, off)]
     codes = memoryview(dirs.cpu().numpy().reshape(-1))
     av = ac.cpu().numpy()
     bv = bc.cpu().numpy()
@@ -327,9 +348,10 @@ def sw_hits_plain(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
 
     def pair(j, lo_j, hi_j, n_a, n_b):
         w = n_a + 1
-        mask = bytearray(LBp * (LA + 1))
+        base, ca, dc, LBp = (v[j] for v in geo)
+        mask = bytearray((n_b + 1) * w if off is not None
+                         else LBp * (LA + 1))
         aj, bj = memoryview(av[j]), memoryview(bv[j])
-        base = j * plane
         n = 0
         for c in range(lo_j, hi_j):
             if n == k:

@@ -35,6 +35,11 @@ pytestmark = pytest.mark.cuda
 NW_KERNELS = ("nw_scores", "nw_fill_dirs", "nw_walk")
 
 
+def _launches(counts, k):
+    """Launches of kernel ``k`` in ``counts``, across widths or not."""
+    return counts[k] + counts.get(f"{k}[ragged]", 0)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -104,7 +109,8 @@ def test_aligner_on_cuda_matches_host(dev, monkeypatch):
     alns = nw.align_batch(A, B)
     scores = nw.score_batch(A, B)
     after = kernel_launch_counts()
-    assert all(after[k] > before[k] for k in NW_KERNELS)
+    assert all(_launches(after, k) > _launches(before, k)
+               for k in NW_KERNELS)
     for a, b, got, s in zip(A, B, alns, scores):
         want = host_dp.nw_align(sc, a, b)
         assert (got.result_a, got.result_b, got.score) == (
@@ -211,7 +217,10 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
         "nw_scores": 1, "nw_fill_dirs": 1, "nw_fill_dirs_carry": 0,
         "nw_walk": 0, "sw_scores": 1, "sw_fill_dirs": 2,
         "sw_fill_dirs_carry": 0, "sw_walk": 1, "sw_hits": 2,
-        "nw_fill_gab": 0, "sw_fill_gab": 0, "vpu_chain": 0}
+        "nw_fill_gab": 0, "sw_fill_gab": 0, "vpu_chain": 0,
+        "nw_scores[ragged]": 0, "nw_fill_dirs[ragged]": 0,
+        "sw_scores[ragged]": 0, "sw_fill_dirs[ragged]": 0,
+        "sw_hits[ragged]": 0}
 
 
 def test_sw_scores_in_global_scratch(dev):
@@ -245,9 +254,9 @@ def test_smith_waterman_on_cuda_matches_host(dev, monkeypatch):
         got = [[h for _, h in zip(range(40), it)] for it in its]
         after = kernel_launch_counts()
         for k in ("sw_scores", "sw_fill_dirs"):
-            assert after[k] > before[k], k
+            assert _launches(after, k) > _launches(before, k), k
         for k in ("sw_walk", "sw_hits"):
-            assert (after[k] > before[k]) == walks, k
+            assert (_launches(after, k) > _launches(before, k)) == walks, k
         assert all(isinstance(it, SwDeviceHits) == walks for it in its)
         assert [[dataclasses.astuple(h) for h in g] for g in got] == \
             [[dataclasses.astuple(h) for h in w] for w in want]
@@ -362,7 +371,8 @@ def test_modes_on_cuda_match_host(dev, monkeypatch):
     got = nw.align_batch(A, B)
     scores = nw.score_batch(A, B)
     after = kernel_launch_counts()
-    assert all(after[k] > before[k] for k in NW_KERNELS)
+    assert all(_launches(after, k) > _launches(before, k)
+               for k in NW_KERNELS)
     want = [host_dp.nw_align(sc, a, b) for a, b in zip(A, B)]
     assert [dataclasses.astuple(g) for g in got] == \
         [dataclasses.astuple(w) for w in want]
@@ -678,7 +688,8 @@ def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
         got = kernels.nw_walk(flat, corner, t[2], t[3], cap, off)
         assert all(torch.equal(g, w) for g, w in zip(got, walk))
     after = kernel_launch_counts()
-    assert after["nw_fill_dirs"] == before["nw_fill_dirs"] + 3
+    assert after["nw_fill_dirs[ragged]"] == \
+        before["nw_fill_dirs[ragged]"] + 3
     assert after["nw_walk"] == before["nw_walk"] + 3
     offs = off.tolist()
     buckets = {}
@@ -740,8 +751,10 @@ def test_aligners_across_widths_on_cuda_match_host(dev, monkeypatch):
     best = sw.best_score_batch(A, B)
     after = kernel_launch_counts()
     assert {k: after[k] - before[k] for k in
-            ("nw_fill_dirs", "nw_walk", "nw_scores", "sw_scores")} == {
-        "nw_fill_dirs": 1, "nw_walk": 1, "nw_scores": 1, "sw_scores": 1}
+            ("nw_fill_dirs[ragged]", "nw_walk", "nw_scores[ragged]",
+             "sw_scores[ragged]")} == {
+        "nw_fill_dirs[ragged]": 1, "nw_walk": 1, "nw_scores[ragged]": 1,
+        "sw_scores[ragged]": 1}
     for a, b, got, s, bs in zip(A, B, alns, scores, best):
         want = host_dp.nw_align(nw.scoring, a, b)
         assert dataclasses.astuple(got) == dataclasses.astuple(want)
@@ -820,3 +833,187 @@ def test_sw_hits_on_slabs_int64_and_deep(dev):
         got = _hits_and_int64(args)
         plane = kernels.sw_hits(d, *args[1:])
         assert all(torch.equal(g, w) for g, w in zip(got, plane))
+
+
+def _plane_valid(off, na, nb, dev):
+    """The valid cells of the 1-d planes of a launch across widths."""
+    offs = off.tolist()
+    v = torch.zeros(offs[-1], dtype=torch.bool, device=dev)
+    for j, (n_a, n_b) in enumerate(zip(na.tolist(), nb.tolist())):
+        lanes = max(n_b, 1) + 1
+        rows = (offs[j + 1] - offs[j]) // lanes
+        y = torch.arange(lanes, device=dev)[None, :]
+        x = torch.arange(rows, device=dev)[:, None] + 2 - y
+        v[offs[j]:offs[j + 1]] = ((y >= 1) & (y <= n_b) & (x >= 1)
+                                  & (x <= n_a)).reshape(-1)
+    return v
+
+
+@pytest.mark.parametrize("m16", [True, False], ids=["int16", "int32"])
+@pytest.mark.parametrize("case", ["default", "lcs", "nsg_neg", "table"])
+def test_ragged_sw_fill_equals_bucket_kernels_and_plain(dev, case, m16):
+    """The SW codes-and-M fill as one launch across widths (the SCHED
+    instantiations with MBYTES 2 and 4, with and without MODES and TABLE)
+    against the uniform launch of each width bucket, kernel against
+    kernel, codes and M on every pair's valid cells (a pair of 6,600
+    lanes takes scratch), and against the plain ragged fill on 8 pairs of
+    up to 300 bp with an empty side, M's cells off the valid ones at 0
+    there; the best scores equal sw_scores'."""
+    from seqalign_tpu_torch.ops.pack import pad_width
+
+    if case == "table":
+        sc, alpha = scoring_system_BLOSUM62(), PROTEIN
+    elif case == "lcs":
+        sc, alpha = lcs_aligner(device=dev).scoring, "acgtACGT"
+    else:
+        sc = ScoringConfig(2, -2, -2, -1, no_start_gap_penalty=True,
+                           no_end_gap_penalty=case == "nsg_neg")
+        alpha = "acgtACGT"
+    rng = np.random.default_rng(len(case) + m16)
+    A, Bs = _text(rng, alpha, 23, 1, 2000), _text(rng, alpha, 23, 1, 1500)
+    A[2], Bs[5] = "", ""
+    A.append(_text(rng, alpha, 1, 3000, 3000)[0])
+    Bs.append(_text(rng, alpha, 1, 6600, 6600)[0])
+    p = kernel_params(sc, dev)
+    ac, bc, na, nb, bp = pack_batch(sc, p, A, Bs, max(map(len, A)),
+                                    max(map(len, Bs)))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    sched = kernels.fill_schedule(na, nb, dev, planes=True)
+    before = kernel_launch_counts()
+    flat, mflat = kernels.sw_fill_dirs(*t, bp, m16, sched)
+    after = kernel_launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"sw_fill_dirs[ragged]": 1}
+    assert flat.shape == mflat.shape == (sched.total,)
+    assert mflat.dtype == (torch.int16 if m16 else torch.int32)
+    offs = sched.off.tolist()
+    buckets = {}
+    for j, (a, b) in enumerate(zip(A, Bs)):
+        buckets.setdefault((pad_width(max(1, len(a))),
+                            pad_width(max(1, len(b)))), []).append(j)
+    for (wa, wb), idx in buckets.items():
+        g = pack_batch(sc, p, [A[j] for j in idx], [Bs[j] for j in idx], wa,
+                       wb)
+        tb = [torch.from_numpy(v).to(dev) for v in g[:4]]
+        d, m = kernels.sw_fill_dirs(*tb, g[4], m16)
+        for i, j in enumerate(idx):
+            lanes = max(int(nb[j]), 1) + 1
+            v = _valid(dev, tb[2][i:i + 1], tb[3][i:i + 1], wa,
+                       wb)[0][:, :lanes]
+            for got, want in ((flat, d), (mflat, m)):
+                plane = got[offs[j]:offs[j + 1]].view(-1, lanes)
+                rows = plane.shape[0]
+                assert torch.equal(plane[v[:rows]],
+                                   want[i, :rows, :lanes][v[:rows]])
+    # the plain ragged fill, on 8 pairs of up to 300 bp
+    As, Bss = _text(rng, alpha, 8, 0, 300), _text(rng, alpha, 8, 0, 300)
+    As[1], Bss[4] = "", ""
+    g = pack_batch(sc, p, As, Bss, 300, 300)
+    ts = [torch.from_numpy(v).to(dev) for v in g[:4]]
+    small = kernels.fill_schedule(g[2], g[3], dev, 200, planes=True)
+    fk, mk = kernels.sw_fill_dirs(*ts, g[4], m16, small)
+    fp, mp = sw_fill_dirs_plain(*ts, g[4], m16, small.off)
+    v = _plane_valid(small.off, g[2], g[3], dev)
+    assert torch.equal(fk[v], fp[v]) and torch.equal(mk[v], mp[v])
+    # M's every other cell holds 0, as the harvest needs
+    assert torch.equal(mk, mp) and not mk[~v].any()
+
+
+def _ragged_hits_case(dev, seed):
+    """A launch across widths of SW pairs whose hit masks fit shared memory
+    (up to 600 bp) and of two that do not (2,000 x 1,000 bp): the fill,
+    and its candidates hint-less and within 15 of each pair's best."""
+    sc = scoring_system_sw_default()
+    rng = np.random.default_rng(seed)
+    A, Bs = _seqs(rng, 14, 0, 600), _seqs(rng, 14, 0, 600)
+    A[3] = ""
+    A += _seqs(rng, 2, 2000, 2000)
+    Bs += _seqs(rng, 2, 1000, 1000)
+    p = kernel_params(sc, dev)
+    ac, bc, na, nb, bp = pack_batch(sc, p, A, Bs, max(map(len, A)),
+                                    max(map(len, Bs)))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    sched = kernels.fill_schedule(na, nb, dev, planes=True)
+    d, m = kernels.sw_fill_dirs(*t, bp, True, sched)
+    best = kernels.sw_scores(*t, bp).cpu().numpy()
+    cands = [sw_sorted_candidates(m, na, nb, thr, off=sched.off)
+             for thr in (1, np.maximum(best.astype(np.int64) - 15, 1))]
+    return d, t, bp, sched.off, cands
+
+
+@pytest.mark.parametrize("mask", ["mixed", "global"])
+def test_sw_hits_and_walk_on_ragged_planes_equal_plain(dev, monkeypatch,
+                                                       mask):
+    """sw_hits over the planes of one launch across widths against its
+    plain version, each pair's mask in shared memory when it fits the
+    launch's, else in the global buffer ("global": no shared memory), int32
+    and int64 flats, hint-less (k = 16) and near the best (k past every
+    candidate); sw_walk over the planes against its plain version on the
+    hits found."""
+    d, t, bp, off, cands = _ragged_hits_case(dev, 5)
+    if mask == "global":
+        monkeypatch.setattr(kernels, "SMEM_MAX", 0)
+    else:
+        block, moff = kernels.hits_masks(t[2], t[3], kernels.SMEM_MAX)
+        assert block > 0 and 0 < int(moff[-1])
+    before = kernel_launch_counts()
+    for (flat, score, o), k in zip(cands, (16, 10_000)):
+        args = (d, *t, flat, score, o[:-1], o[1:], bp, k, off)
+        got = _hits_and_int64(args)
+        assert (got[2] > 0).sum() >= 14
+    hit_flat, hit_score, nhits = got
+    keep = np.arange(hit_flat.shape[1])[None, :] < nhits.cpu().numpy()[:,
+                                                                      None]
+    jw, slot = np.nonzero(keep)
+    flats = hit_flat.cpu().numpy()[jw, slot].astype(np.int64)
+    w = t[2].cpu().numpy()[jw].astype(np.int64) + 1
+    starts = [torch.from_numpy(v.astype(np.int32)).to(dev) for v in
+              (jw, flats % w, flats // w, hit_score.cpu().numpy()[jw, slot])]
+    cap = int((t[2] + t[3]).max())
+    ops = kernels.sw_walk(d, *t, *starts, bp, cap, off)
+    assert torch.equal(ops, sw_walk_plain(d, *t, *starts, bp, cap, off))
+    after = kernel_launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"sw_hits[ragged]": 4, "sw_walk": 1}
+
+
+def test_sw_align_batch_across_widths_on_cuda_matches_host(dev,
+                                                           monkeypatch):
+    """SW align_batch and the LCS recipe on batches of mixed widths: one
+    sw_fill_dirs, one sw_hits and one sw_walk launch a budget sub-batch
+    (three or four sub-batches under a budget cut to a third), the streams
+    equal to the int64 host path's, past the first round of 16 hits."""
+    monkeypatch.setenv("SEQALIGN_FORCE", "device")
+    rng = np.random.default_rng(53)
+    A, B = _seqs(rng, 40, 1, 1500), _seqs(rng, 40, 1, 1500)
+    sw = SmithWaterman(device=dev)
+    want = [[dataclasses.astuple(h) for _, h in
+             zip(range(24), host_dp.HostSwHits(sw.scoring, a, b))]
+            for a, b in zip(A, B)]
+    held = [aligners._sw_pair_bytes(len(a), len(b), 2, True)
+            for a, b in zip(A, B)]
+    cut = sum(held) // 3 + 1
+    for budget, fills in ((None, 1), (cut, len(aligners._plane_subbatches(
+            range(40), cut, held.__getitem__)))):
+        if budget is not None:
+            monkeypatch.setattr(aligners, "_align_budget",
+                                lambda device: budget)
+        before = kernel_launch_counts()
+        its = sw.align_batch(A, B)
+        after = kernel_launch_counts()
+        assert {k: after[k] - before[k] for k in
+                ("sw_fill_dirs[ragged]", "sw_hits[ragged]", "sw_walk")} == {
+            "sw_fill_dirs[ragged]": fills, "sw_hits[ragged]": fills,
+            "sw_walk": fills}
+        got = [[dataclasses.astuple(h) for _, h in zip(range(24), it)]
+               for it in its]
+        assert got == want
+    lcs = lcs_aligner(device=dev)
+    seqs = _seqs(rng, 12, 0, 800)
+    before = kernel_launch_counts()["sw_fill_dirs[ragged]"]
+    its = lcs.align_batch(seqs, seqs)
+    assert kernel_launch_counts()["sw_fill_dirs[ragged]"] == before + 1
+    for s, it in zip(seqs, its):
+        assert [dataclasses.astuple(h) for _, h in zip(range(12), it)] == \
+            [dataclasses.astuple(h) for _, h in zip(
+                range(12), host_dp.HostSwHits(lcs.scoring, s, s))]

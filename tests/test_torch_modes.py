@@ -354,12 +354,25 @@ def test_hintless_sw_sub_batches_count_the_harvest(monkeypatch):
     """Without a hint a sub-batch is sized by the harvest's bytes too."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     sc = lcs_aligner(device="cpu").scoring
-    fill = (64 + 64 - 1) * (64 + 1) * 3
-    harvest = int(port_aligners._HARVEST_BYTES * port_aligners._HARVEST_SHARE
-                  * 64 * 64)
-    assert harvest > fill  # the harvest dominates
-    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET",
-                        2 * (fill + harvest))
+    A = _text(53, DNA, 5, 40, 60)
+    # at each pair's own widths: codes, int16 M and the harvest's mask,
+    # the hit mask
+    fill = [(2 * n - 1) * (n + 1) * 4 + (n + 1) * (n + 1) // 8
+            for n in map(len, A)]
+    harvest = [int(port_aligners._HARVEST_BYTES
+                   * port_aligners._HARVEST_SHARE * n * n)
+               for n in map(len, A)]
+    assert all(h > f for f, h in zip(fill, harvest))  # it dominates
+    budget = 2 * max(f + h for f, h in zip(fill, harvest))
+    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET", budget)
+    want, cur = [], budget
+    for f, h in zip(fill, harvest):  # the greedy cut, in pair order
+        if cur + f + h > budget:
+            want.append(0)
+            cur = 0
+        want[-1] += 1
+        cur += f + h
+    assert len(want) > 1 and sum(fill) <= budget
     sizes = []
     real = port_aligners.kernels.sw_fill_dirs
 
@@ -368,10 +381,9 @@ def test_hintless_sw_sub_batches_count_the_harvest(monkeypatch):
         return real(ac, *args)
 
     monkeypatch.setattr(port_aligners.kernels, "sw_fill_dirs", spy)
-    A = _text(53, DNA, 5, 40, 60)
     sw = SmithWaterman(sc, device="cpu")
     sw.align_batch(A, A)
-    assert sizes == [2, 2, 1]
+    assert sizes == want
     sizes.clear()
     sw.align_batch(A, A, [3] * 5)  # hinted: the fill's bytes only
     assert sizes == [5]

@@ -481,29 +481,43 @@ def test_sw_long_pairs_and_other_entry_points_raise(monkeypatch):
 
 
 def test_sw_sub_batches_follow_codes_and_m_bytes(monkeypatch):
-    """SW sub-batches are sized by (la+lb-1)*(lb+1)*(1 + M bytes) per
-    pair, and each sub-batch's fill is freed before the next one fills:
-    the live iterators hold no device tensor, however deep they go."""
+    """SW sub-batches are sized by each pair's own planes, (na+nb-1)*(nb+1)
+    cells of codes, int16 M and the harvest's one-byte mask, beside its
+    hit mask of (na+1)(nb+1) bits; each sub-batch is one fill launch
+    across widths, and its fill is freed before the next one fills: the
+    live iterators hold no device tensor, however deep they go."""
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     sc = scoring_system_sw_default()
     assert tpack.m16_safe(sc, 64, 64)
-    per_pair = (64 + 64 - 1) * (64 + 1) * 3
-    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET", 2 * per_pair)
+    A, B = _text(21, DNA, 5, 10, 40), _text(22, DNA, 5, 10, 40)
+    held = [(len(a) + len(b) - 1) * (len(b) + 1) * (1 + 2 + 1)
+            + (len(a) + 1) * (len(b) + 1) // 8 for a, b in zip(A, B)]
+    budget = held[0] + held[1]
+    monkeypatch.setattr(port_aligners, "ALIGN_DIRS_BUDGET", budget)
+    want, cur = [], 0
+    for h in held:  # the greedy cut, in pair order
+        if want and cur + h > budget:
+            want.append(0)
+            cur = 0
+        if not want:
+            want.append(0)
+        want[-1] += 1
+        cur += h
+    assert len(want) > 1
     sizes, fills = [], []
     real = port_aligners.kernels.sw_fill_dirs
 
-    def spy(ac, bc, na, nb, params, m16):
+    def spy(ac, bc, na, nb, params, m16, sched=None):
         # the fills before this one are gone
         assert all(r() is None for f in fills for r in f)
-        sizes.append((ac.shape[0], m16))
-        d, m = real(ac, bc, na, nb, params, m16)
+        sizes.append((ac.shape[0], m16, sched is not None))
+        d, m = real(ac, bc, na, nb, params, m16, sched)
         fills.append((weakref.ref(d), weakref.ref(m)))
         return d, m
 
     monkeypatch.setattr(port_aligners.kernels, "sw_fill_dirs", spy)
-    A, B = _text(21, DNA, 5, 10, 40), _text(22, DNA, 5, 10, 40)
     its = SmithWaterman(sc, device="cpu").align_batch(A, B, [4] * 5)
-    assert sizes == [(2, True), (2, True), (1, True)]
+    assert sizes == [(n, True, True) for n in want]
     gc.collect()
     assert all(r() is None for f in fills for r in f)
     assert not [v for it in its for v in vars(it).values()
@@ -522,8 +536,8 @@ def test_m16_gate_picks_int32_for_large_scores(monkeypatch):
     seen = []
     real = port_aligners.kernels.sw_fill_dirs
 
-    def spy(ac, bc, na, nb, params, m16):
-        d, m = real(ac, bc, na, nb, params, m16)
+    def spy(ac, bc, na, nb, params, m16, sched=None):
+        d, m = real(ac, bc, na, nb, params, m16, sched)
         seen.append(m.dtype)
         return d, m
 
@@ -566,8 +580,9 @@ def test_deep_streams_on_both_walk_branches_match_host_sw_hits(monkeypatch,
     assert min(map(len, want)) > 100
     rounds = []
     real = port_aligners.kernels.sw_hits
+    # k, the eleventh argument
     monkeypatch.setattr(port_aligners.kernels, "sw_hits",
-                        lambda *a: rounds.append(a[-1]) or real(*a))
+                        lambda *a: rounds.append(a[10]) or real(*a))
     for cut, branch in ((1 << 62, SwDeviceHits), (-1, SwHitIterator)):
         monkeypatch.setattr(port_aligners, "_SW_DEVWALK_CANDS", cut)
         rounds.clear()
