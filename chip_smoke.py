@@ -5,7 +5,7 @@ Usage, from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab]
                           [--fills [--tree DIR]] [--harvest-ab [--tree DIR]]
-                          [--sass [OLD_TREE]]
+                          [--walls [--tree DIR]] [--sass [OLD_TREE]]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
 drives the main paths through the user entry points, with inputs made by
@@ -15,8 +15,10 @@ numpy from a fixed seed:
    same CUDA tensors (exact equality on the valid cells): ragged DNA and
    BLOSUM62 protein batches (B = 64), 1-10 kb pairs padded to the widths
    the main path gives the kernels (2,048 and 6,144 lanes in opt-in shared
-   memory, 10,240 in global scratch), and the SW hit loop and walks on the
-   harvested candidates; then kernel and plain timed with CUDA events at
+   memory, 10,240 in global scratch), each batch's fills also as one
+   launch across widths (at 6,144 and 10,240 lanes every pair takes
+   round rows of the register tiles' scratch), and the SW hit loop and
+   walks on the harvested candidates; then kernel and plain timed with CUDA events at
    B = 256, L = 512; the carry fills of long pairs (rows ``*[carry]``) chunk
    by chunk on 4 pairs of 5,000-6,144 x 1,500-2,048 (equality, BLOSUM62
    with an empty side, nsg+neg) and at 10,240 lanes, and the walks over
@@ -37,7 +39,11 @@ numpy from a fixed seed:
    counts; and the same for SW (rows ``sw_fill_dirs[ragged]``,
    ``sw_hits[ragged]``: codes and M in planes at each pair's widths, the
    hit loop over them) on the first sub-batch ``align_batch`` cuts of SW
-   job 3's mix;
+   job 3's mix; and the default-flag fills' register tiles
+   (csrc/tile_fill.cuh) on pairs at the strip edges (b of 31, 32R-1, 32R,
+   32R+1 and 2*32R+3 lanes for R lanes a thread, empty sides, one pair of
+   2,100 lanes whose strips take two rounds), NW and SW, equality and
+   BLOSUM62, uniform and across widths, M int16 and int32;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -110,10 +116,14 @@ card), host, device, device, host, and stops: the measurement behind the
 walk cutover ``_SW_DEVWALK_CANDS``.  ``--chunk-ab`` instead times the
 long path's NW and SW ``align_batch`` at several chunk widths (the
 measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
-the four default fill instantiations, ``sw_hits``, and ``sw_fill_dirs``
-under BLOSUM62 and under the LCS flags at phase 1's B = 256, L = 512 and
-stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
-times the package of an older checkout in DIR in the same call.
+the four default fills at phase 1's B = 256, L = 512 and as one launch
+across widths (phase 1's ragged rows), NW's and SW's codes fills under
+BLOSUM62, ``sw_hits``, ``sw_fill_dirs`` under the LCS flags (``MODES``),
+``nw_fill_gab`` (``GAB``) and one carry chunk, and stops; it uses only
+the kernel wrappers' API, so with ``--tree DIR`` it times the package of
+an older checkout in DIR in the same call.  ``--walls [--tree DIR]`` instead
+times the stream, NW ``align_batch`` on 1,024 pairs of 1-10 kb, CLI job 1
+and SW job 3 (walls, and their fills by CUDA events) and stops.
 ``--harvest-ab [--tree DIR]`` instead times SW job 3's and CLI job 2's
 alignments (walls; fills, harvests and hit loops by CUDA events) and
 stops: the measurement behind the ragged harvest's design and the hit
@@ -123,10 +133,10 @@ time and busy share and writes the ``key_averages`` tables to DIR.
 ``--sass [OLD_TREE]`` instead compiles ``csrc/*.cu`` to SASS with the
 build's nvcc flags and stops: it prints the instruction mix of each probe
 kernel and of an add-then-max chain written here (both addmax forms give
-``VIADDMNMX``), and with an older checkout of the repository in OLD_TREE
-compares every fill instantiation the two trees share, instruction by
-instruction (the check that a template change left the default fills as
-they were).
+``VIADDMNMX``), each tile fill's with its registers and spills, and
+with an older checkout of the repository in OLD_TREE compares every fill
+instantiation the two trees share, instruction by instruction (the check
+that a template change left the other fills as they were).
 
 The second-to-last line is a JSON summary of the kernels and modes (each
 row with its launches on its path, its times, and the least time the card
@@ -915,7 +925,12 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     """Max |kernel - plain| of each kernel and mode on one batch; one
     plain fill with codes (and SW M) holds the fills of a family, its
     corner or best being the scores fill's, and on the ragged batches
-    (``width`` None) its M, Ga and Gb planes the matrix-dump fill's."""
+    (``width`` None) its M, Ga and Gb planes the matrix-dump fill's.  The
+    same plain fill holds the batch's fills as one launch across widths
+    (rows ``[ragged]``, or ``[table]`` with a table): scores and corners,
+    codes and M on the valid cells of each pair's plane, the ragged M's
+    other cells 0.  At width 10,240 every pair is past 6,400 lanes of b
+    and takes round rows of the tiles' scratch, at 6,144 every pair."""
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import _fill, sw_extract_candidates
     from seqalign_tpu_torch.ops.pack import m16_safe
@@ -926,6 +941,8 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     (ac, bc, na, nb), bp, (na_h, nb_h) = packed(sc, params, seqs_a, seqs_b,
                                                  dev, width)
     mode = "" if bp.sub is None else "[table]"
+    rag = "[ragged]" if bp.sub is None else "[table]"
+    sched = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
     cap = int((na + nb).max())
     err = {}
     gab = width is None  # the dump's fills on the ragged batches
@@ -937,6 +954,13 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
         d, dc = kernels.nw_fill_dirs(ac, bc, na, nb, bp)
         v = valid_cells(d, na, nb)
         err["nw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (dc, dcp))
+        s, c = kernels.nw_scores(ac, bc, na, nb, bp, sched)
+        f, fc = kernels.nw_fill_dirs(ac, bc, na, nb, bp, sched)
+        merge(err, {"nw_scores" + rag: max_abs((s, dcp.max(1).values),
+                                               (c, dcp)),
+                    "nw_fill_dirs" + rag: max_abs(
+                        *on_planes(f, sched.off, na, nb, dpl), (fc, dcp))})
+        del f
         if gab:
             dg, cg, g = kernels.nw_fill_gab(ac, bc, na, nb, bp)
             err["nw_fill_gab"] = max_abs((dg[v], dpl[v]), (cg, dcp),
@@ -957,9 +981,18 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
         err["sw_scores" + mode] = max_abs((s, bestp))
         d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16)
         v = valid_cells(d, na, nb)
-        err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]),
-                                             (m[v], (mpl[0] if gab
-                                                     else mpl)[v]))
+        mp = mpl[0] if gab else mpl
+        err["sw_fill_dirs" + mode] = max_abs((d[v], dpl[v]), (m[v], mp[v]))
+        f, fm = kernels.sw_fill_dirs(ac, bc, na, nb, bp, m16, sched)
+        pv = plane_valid(sched.off, na, nb)
+        merge(err, {"sw_scores" + rag: max_abs(
+                        (kernels.sw_scores(ac, bc, na, nb, bp, sched),
+                         bestp)),
+                    "sw_fill_dirs" + rag: max_abs(
+                        *on_planes(f, sched.off, na, nb, dpl),
+                        *on_planes(fm, sched.off, na, nb, mp),
+                        (fm[~pv], torch.zeros_like(fm[~pv])))})
+        del f, fm, pv, mp
         if gab:
             dg, g = kernels.sw_fill_gab(ac, bc, na, nb, bp)
             err["sw_fill_gab"] = max_abs((dg[v], dpl[v]),
@@ -1115,6 +1148,7 @@ def phase1(scs, rng, dev):
             f"({time.perf_counter() - t0:.1f} s)")
         merge(err, e)
     merge(err, walks_under_modes(dev, rng, times, bounds))
+    merge(err, tiles_vs_plain(scs, dev))
     wide = wide_modes_vs_plain(dev, rng)
     e, sample = carry_vs_plain(dev, rng, times, bounds)
     merge(err, e)
@@ -1138,6 +1172,97 @@ def phase1(scs, rng, dev):
     return err, times, bounds, sample
 
 
+def tile_edges(rng, alpha, R):
+    """Pairs at the strip edges of R lanes a thread (csrc/tile_fill.cuh):
+    b of 31, 32R-1, 32R, 32R+1 and 2*32R+3 lanes (the last with an a side
+    long enough for unchecked step blocks), empty sides, and one pair of
+    2,100 lanes, whose strips take two rounds."""
+    S = 32 * R
+    lens = [(37, 31), (300, S - 1), (41, S), (S + 3 * R, S + 1),
+            (S + 2 * R + 7, 2 * S + 3), (0, 9), (12, 0), (1, 1), (150, 2100)]
+    A = [seqs(rng, 1, n, n, alpha)[0] if n else "" for n, _ in lens]
+    B = [seqs(rng, 1, m, m, alpha)[0] if m else "" for _, m in lens]
+    return A, B
+
+
+def tiles_vs_plain(scs, dev):
+    """The default-flag fills on the register tiles against their plain
+    versions on :func:`tile_edges`' pairs: NW and SW, equality and
+    BLOSUM62, uniform and under a schedule with planes, SW M int16 and
+    int32; codes and M on the valid cells (the ragged M's other cells 0),
+    scores, corners.  One plain fill with codes (and int32 M) holds both
+    layouts and both M types (the plain int16 M is its int32 M cast).
+    Returns the max |diff| by row: the uniform launches under their
+    kernel's row (or ``[table]``), the equality launches across widths
+    under ``[ragged]``."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
+                                           nw_scores_plain,
+                                           sw_fill_dirs_plain,
+                                           sw_scores_plain)
+    from seqalign_tpu_torch.ops.pack import pack_batch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    err = {}
+    for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
+        sc = scs[key]
+        A, B = tile_edges(rng, alpha, kernels.TILE_R)
+        ac, bc, na, nb, bp = pack_batch(
+            sc, kernel_params(sc, dev), A, B, max(map(len, A)),
+            max(map(len, B)))
+        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+        sched = kernels.fill_schedule(na, nb, dev, planes=True)
+        pv = plane_valid(sched.off, t[2], t[3])
+        mode = "[table]" if key == "table" else ""
+        rag = "[ragged]" if key != "table" else "[table]"
+        if key in ("nw", "table"):
+            sp, cp = nw_scores_plain(*t, bp)
+            dp_, dcp = nw_fill_dirs_plain(*t, bp)
+            v = valid_cells(dp_, t[2], t[3])
+            d, dc = kernels.nw_fill_dirs(*t, bp)
+            f, fc = kernels.nw_fill_dirs(*t, bp, sched)
+            merge(err, {
+                "nw_scores" + mode: max_abs(
+                    *zip(kernels.nw_scores(*t, bp), (sp, cp))),
+                "nw_scores" + rag: max_abs(
+                    *zip(kernels.nw_scores(*t, bp, sched), (sp, cp))),
+                "nw_fill_dirs" + mode: max_abs((d[v], dp_[v]),
+                                               (dc, dcp)),
+                "nw_fill_dirs" + rag: max_abs(
+                    *on_planes(f, sched.off, t[2], t[3], dp_), (fc, dcp))})
+            del dp_, d, f, v
+        if key in ("sw", "table"):
+            bestp = sw_scores_plain(*t, bp)
+            merge(err, {
+                "sw_scores" + mode: max_abs(
+                    (kernels.sw_scores(*t, bp), bestp)),
+                "sw_scores" + rag: max_abs(
+                    (kernels.sw_scores(*t, bp, sched), bestp))})
+            dp_, mp32 = sw_fill_dirs_plain(*t, bp, False)
+            v = valid_cells(dp_, t[2], t[3])
+            for m16 in (True, False):
+                mp = mp32.to(torch.int16) if m16 else mp32
+                d, m = kernels.sw_fill_dirs(*t, bp, m16)
+                f, fm = kernels.sw_fill_dirs(*t, bp, m16, sched)
+                merge(err, {
+                    "sw_fill_dirs" + mode: max_abs((d[v], dp_[v]),
+                                                   (m[v], mp[v])),
+                    "sw_fill_dirs" + rag: max_abs(
+                        *on_planes(f, sched.off, t[2], t[3], dp_),
+                        *on_planes(fm, sched.off, t[2], t[3], mp),
+                        (fm[~pv], torch.zeros_like(fm[~pv])))})
+                del mp, d, m, f, fm
+            del dp_, mp32, v
+    torch.cuda.synchronize()
+    log(f"phase 1: tile fills at R = {kernels.TILE_R} on the strip edges, NW "
+        f"and SW, equality and BLOSUM62, uniform and across widths, M int16 "
+        f"and int32, vs plain: max |diff| {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
 def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     """Rows ``nw_fill_dirs[ragged]`` and ``nw_scores[ragged]``: one launch
     across widths (``kernels.fill_schedule``) on CLI job 1's mix,
@@ -1145,7 +1270,9 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     its width buckets on every pair, kernel against kernel (codes on the
     valid cells of each pair's plane, corners, scores), and to the plain
     versions on 8 ragged pairs of up to 300 bp with an empty side (codes,
-    corners, scores, and ``nw_walk`` over the planes); timed with CUDA
+    corners, scores, and ``nw_walk`` over the planes; the plain versions
+    hold such launches of 1-10 kb pairs in :func:`kernels_vs_plain`);
+    timed with CUDA
     events at each of ``RAGGED_LANES`` beside the sum of the bucket
     launches.  Returns the max |diff| of each row."""
     from seqalign_tpu_torch.ops import kernels
@@ -1252,6 +1379,22 @@ def plane_valid(off, na, nb):
             (offs[i + 1] - offs[i]) // lanes, lanes, na[i:i + 1],
             nb[i:i + 1]).reshape(-1)
     return v
+
+
+def on_planes(flat, off, na, nb, full):
+    """The valid cells of each pair's plane at the offsets ``off`` in the
+    1-d ``flat`` of a launch across widths, beside the same cells of the
+    uniform planes ``full`` (B, D, LB+1) of the same pairs: (got, want)
+    pairs for :func:`max_abs`.  ``na``, ``nb`` (B,) on the card."""
+    offs = off.tolist()
+    pairs = []
+    for i in range(len(offs) - 1):
+        lanes = max(int(nb[i]), 1) + 1
+        rows = (offs[i + 1] - offs[i]) // lanes
+        v = valid_mask(rows, lanes, na[i:i + 1], nb[i:i + 1])[0]
+        pairs.append((flat[offs[i]:offs[i + 1]].view(rows, lanes)[v],
+                      full[i, :rows, :lanes][v]))
+    return pairs
 
 
 def sw_ragged_vs_plain(sc, params, A, B, m16, k, dev, plain=None):
@@ -2394,6 +2537,10 @@ CLI_SLICE = 32  # pairs of each job run on the card and under the host route
 CLI_SHARDS = 8  # host processes for the slice of 1-10 kb NW pairs
 CLI_SAMPLE = 64  # alignments of a job checked by spelling and rescoring
 CLI_KB = (1000, 10000)  # the 1-10 kb sides of jobs 1 and 3
+CLI_JOB2_ARGS = ["--scoring", "BLOSUM62", "--minscore", "100", "--maxhits",
+                 "8"]
+CLI_JOB3_ARGS = ["--freestartgap", "--freeendgap", "--wildcard", "N", "0",
+                 "--case_sensitive", "--printscores"]
 
 
 def write_fasta(path, A, B):
@@ -2584,6 +2731,23 @@ def parse_matrices(text):
     return [np.array(m, np.int64) for m in mats], rest
 
 
+def reads_inputs(rng, n):
+    """CLI job 3 (BASELINE.json configs[3]): n references of 1-10 kb DNA
+    and a read of each, 256-512 bp from a random place, 3% of its letters
+    redrawn and 1% set to the wildcard N."""
+    refs = dna(rng, n, *CLI_KB)
+    reads = []
+    for r in refs:
+        k = int(rng.integers(READ_LEN[0], READ_LEN[1] + 1))
+        p = int(rng.integers(0, len(r) - k + 1))
+        seg = np.frombuffer(r[p:p + k].encode(), np.uint8).copy()
+        hit = rng.random(k) < 0.03
+        seg[hit] = DNA[rng.integers(0, len(DNA), int(hit.sum()))]
+        seg[rng.random(k) < 0.01] = ord("N")
+        reads.append(seg.tobytes().decode())
+    return refs, reads
+
+
 def phase_cli(rng, dev, gpu):
     """Path cli: the CLIs' ``main`` in-process on inputs numpy writes from
     the seed into a temporary directory, stdout to a file (see the module
@@ -2645,8 +2809,7 @@ def phase_cli(rng, dev, gpu):
         swp = port.presets.scoring_system_BLOSUM62()
         A, B, _ = job2_inputs(rng, CLI_SW_PAIRS)
         fa = write_fasta(os.path.join(work, "prot.fa"), A, B)
-        args = ["--scoring", "BLOSUM62", "--minscore", "100", "--maxhits",
-                "8"]
+        args = CLI_JOB2_ARGS
         label = f"job 2: smith_waterman {' '.join(args)}, {len(A)} pairs"
         text, c = cli_job(label, "sw", args + ["--file", fa],
                           os.path.join(work, "sw.txt"), cells_of(A, B),
@@ -2673,8 +2836,7 @@ def phase_cli(rng, dev, gpu):
             f"{CLI_SLICE}-pair slice byte-identical on the host route")
 
         # job 3: BASELINE.json configs[3], reads against references
-        args = ["--freestartgap", "--freeendgap", "--wildcard", "N", "0",
-                "--case_sensitive", "--printscores"]
+        args = CLI_JOB3_ARGS
         # the reference CLI's --case_sensitive does not reach the scoring
         # (alignment_cmdline.c, kept bug for bug): letters fold, and so
         # does the wildcard, which scores 0 against anything
@@ -2683,16 +2845,7 @@ def phase_cli(rng, dev, gpu):
         t3 = eq_table(sc3)
         for w in b"Nn":
             t3[w, :] = t3[:, w] = 0
-        refs = dna(rng, CLI_READS, *CLI_KB)
-        reads = []
-        for r in refs:
-            k = int(rng.integers(READ_LEN[0], READ_LEN[1] + 1))
-            p = int(rng.integers(0, len(r) - k + 1))
-            seg = np.frombuffer(r[p:p + k].encode(), np.uint8).copy()
-            hit = rng.random(k) < 0.03
-            seg[hit] = DNA[rng.integers(0, len(DNA), int(hit.sum()))]
-            seg[rng.random(k) < 0.01] = ord("N")
-            reads.append(seg.tobytes().decode())
+        refs, reads = reads_inputs(rng, CLI_READS)
         fa = write_fasta(os.path.join(work, "reads.fa"), refs, reads)
         label = f"job 3: needleman_wunsch {' '.join(args)}, {len(refs)} pairs"
         text, c = cli_job(label, "nw", args + ["--file", fa],
@@ -2846,43 +2999,195 @@ def walk_ab(sw, swp, rng, gpu):
 
 
 def fills_only(scs, rng, dev, gpu):
-    """The four default fills on 256 DNA pairs of 512 bp (phase 1's timing
-    shape), ``sw_hits`` on their hint-less SW candidates (k = 16, as
-    phase 1's row), and ``sw_fill_dirs`` under BLOSUM62 on protein and
-    under the LCS flags (the ``MODES`` instantiation) at that shape: five
-    means of 10 launches each, after a warm-up.  Only uniform launches
-    through the wrappers' API, so that ``--tree`` can time an older tree's
-    package with this script."""
-    from seqalign_tpu_torch import kernel_params
+    """The fills' times through the wrappers' API only, so that ``--tree``
+    times an older tree's package with this script: at phase 1's timing
+    shape, 256 pairs of 512 bp, the four default fills, NW's and SW's
+    codes fill under BLOSUM62 on protein, ``sw_hits`` on the hint-less SW
+    candidates (k = 16, phase 1's row), ``sw_fill_dirs`` under the LCS
+    flags (the ``MODES`` instantiation) and ``nw_fill_gab`` (``GAB``);
+    ``nw_fill_dirs_carry`` on one chunk of 2,048 columns of 4 pairs of
+    5,000-6,144 x 1,500-2,048 (phase 1's carry row); and the four fills as
+    one launch across widths: NW on ``RAGGED_PAIRS`` pairs of 1-10 kb
+    (CLI job 1's mix), SW on the first sub-batch of SW job 3's.  Each row
+    five means of 10 launches (3 of 3 across widths), after a warm-up."""
+    from seqalign_tpu_torch import aligners, kernel_params
     from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import boundary_column
+    from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch
 
-    for key in ("nw", "sw", "sw[table]", "sw[nga+ngb+nmm]"):
-        sc = (scs["table"] if key == "sw[table]" else
+    rows = {}  # name -> (shape, fn, reps)
+    for key in ("nw", "sw", "nw[table]", "sw[table]", "sw[nga+ngb+nmm]"):
+        sc = (scs["table"] if key.endswith("[table]") else
               mode_scoring("nga+ngb+nmm", sw=True) if key.endswith("nmm]")
               else scs[key])
-        alpha = AMINO if key == "sw[table]" else DNA
+        alpha = AMINO if key.endswith("[table]") else DNA
         (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
             sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512, alpha),
             seqs(rng, 256, 512, 512, alpha), dev)
-        fns = ({"nw_scores": lambda: kernels.nw_scores(ac, bc, na, nb, bp),
-                "nw_fill_dirs": lambda: kernels.nw_fill_dirs(ac, bc, na, nb,
-                                                             bp)}
-               if key == "nw" else
-               {"sw_scores": lambda: kernels.sw_scores(ac, bc, na, nb, bp),
-                "sw_fill_dirs": lambda: kernels.sw_fill_dirs(ac, bc, na, nb,
-                                                             bp, True)}
-               if key == "sw" else
-               {"sw_fill_dirs" + key[2:]: lambda: kernels.sw_fill_dirs(
-                   ac, bc, na, nb, bp, True)})
-        if key == "sw":
-            d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
+        f = (ac, bc, na, nb, bp)
+        if key == "nw":
+            rows["nw_scores"] = lambda f=f: kernels.nw_scores(*f)
+            rows["nw_fill_dirs"] = lambda f=f: kernels.nw_fill_dirs(*f)
+            rows["nw_fill_gab"] = lambda f=f: kernels.nw_fill_gab(*f)
+        elif key == "sw":
+            rows["sw_scores"] = lambda f=f: kernels.sw_scores(*f)
+            rows["sw_fill_dirs"] = lambda f=f: kernels.sw_fill_dirs(*f, True)
+            d, m = kernels.sw_fill_dirs(*f, True)
             args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
             del m
-            fns["sw_hits"] = lambda: kernels.sw_hits(*args)
-        for name, fn in fns.items():
-            ms = [cuda_ms(fn, 10) for _ in range(5)]
-            log(f"fills: {name} at B=256 L=512: " +
-                ", ".join(f"{t:.4f}" for t in ms) + f" ms [{gpu}]")
+            rows["sw_hits"] = lambda args=args: kernels.sw_hits(*args)
+        elif key.startswith("nw"):
+            rows["nw_fill_dirs" + key[2:]] = (
+                lambda f=f: kernels.nw_fill_dirs(*f))
+        else:
+            rows["sw_fill_dirs" + key[2:]] = (
+                lambda f=f: kernels.sw_fill_dirs(*f, True))
+    shape = {k: "B=256 L=512" for k in rows}
+    # one chunk of the long pairs' carry fill
+    crng = np.random.default_rng(SEED + 7)
+    sc = scs["nw"]
+    A, B = seqs(crng, 4, 5000, 6144), seqs(crng, 4, 1500, 2048)
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, B, 6144,
+                                    2048)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    bin = boundary_column(bp, 4, 2048, is_sw=False)
+    bout = torch.zeros_like(bin)
+    slab = torch.zeros((4, CARRY_CA + 2047, 2049), dtype=torch.uint8,
+                       device=dev)
+    corner = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    rows["nw_fill_dirs[carry]"] = lambda: kernels.nw_fill_dirs_carry(
+        *t, bp, CARRY_CA, bin, bout, slab, corner)
+    shape["nw_fill_dirs[carry]"] = "4 pairs, one chunk of 2048"
+    # the launches across widths
+    rrng = np.random.default_rng(SEED + 5)
+    A, B = dna(rrng, RAGGED_PAIRS, *CLI_KB), dna(rrng, RAGGED_PAIRS, *CLI_KB)
+    ac, bc, na_h, nb_h, bp = pack_batch(scs["nw"], kernel_params(
+        scs["nw"], dev), A, B, max(map(len, A)), max(map(len, B)))
+    tn = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    sn = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
+    rows["nw_scores[ragged]"] = lambda: kernels.nw_scores(*tn, bp, sn)
+    rows["nw_fill_dirs[ragged]"] = lambda: kernels.nw_fill_dirs(*tn, bp, sn)
+    srng = np.random.default_rng(SEED + 3)
+    sc = scs["sw"]
+    A, B = planted(srng, DNA, SW_JOB3[1], 1000, 10000, (0.3, 0.5), 0.03)
+    mbytes = 2 if m16_safe(sc, max(map(len, A)), max(map(len, B))) else 4
+    subs = aligners._plane_subbatches(
+        range(len(A)), aligners._align_budget(dev),
+        lambda i: aligners._sw_pair_bytes(len(A[i]), len(B[i]), mbytes,
+                                          False))
+    A, B = [A[i] for i in subs[0]], [B[i] for i in subs[0]]
+    ac, bc, na_h, nb_h, bps = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                         max(map(len, A)), max(map(len, B)))
+    ts = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    ss = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
+    m16 = m16_safe(sc, int(na_h.max()), int(nb_h.max()))
+    rows["sw_scores[ragged]"] = lambda: kernels.sw_scores(*ts, bps, ss)
+    rows["sw_fill_dirs[ragged]"] = lambda: kernels.sw_fill_dirs(*ts, bps,
+                                                                m16, ss)
+    shape.update({"nw_scores[ragged]": f"{RAGGED_PAIRS} pairs of 1-10 kb",
+                  "nw_fill_dirs[ragged]": f"{RAGGED_PAIRS} pairs of 1-10 kb",
+                  "sw_scores[ragged]": f"SW job 3's {len(A)} pairs",
+                  "sw_fill_dirs[ragged]": f"SW job 3's {len(A)} pairs"})
+
+    def time_rows(names):
+        for name in names:
+            n = 3 if "[ragged]" in name else 10
+            ms = [cuda_ms(rows[name], n) for _ in range(5 if n == 10 else 3)]
+            log(f"fills: {name} at {shape[name]}: " +
+                ", ".join(f"{v:.4f}" for v in ms) + f" ms [{gpu}]")
+
+    time_rows(rows)
+
+
+def walls_ab(gpu):
+    """The walls of the main path's fill-bound jobs, through the entry
+    points a user calls and only those, so that ``--tree`` times an older
+    tree's package with this script in the same call: NW
+    ``score_pairs_stream`` on ``STREAM_PAIRS`` pairs of 1-10 kb, NW
+    ``align_batch`` on ``ALIGN_LONG_PAIRS`` of them, CLI job 1
+    (``needleman_wunsch --printscores --file`` on ``CLI_NW_PAIRS`` pairs of
+    1-10 kb, gzip FASTA, in-process, stdout to a file), SW job 3
+    (``SW_JOB3``: ``align_batch`` at best - 10, first 8 hits), and CLI
+    jobs 2 (``smith_waterman`` under BLOSUM62 on ``CLI_SW_PAIRS`` protein
+    pairs) and 3 (``needleman_wunsch`` under the free end gaps, a flagged
+    fill, on ``CLI_READS`` reads against references), in-process as job
+    1; each from a generator of its own; one warm-up on 64 pairs, then
+    one timed run each, with the fills' milliseconds by CUDA events."""
+    import tempfile
+
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch.ops import kernels
+
+    nw = port.NeedlemanWunsch(device="cuda")
+    sw = port.SmithWaterman(device="cuda")
+    rng = np.random.default_rng(SEED + 11)
+    LA, LB = dna(rng, STREAM_PAIRS, 1000, 10000), dna(rng, STREAM_PAIRS,
+                                                      1000, 10000)
+
+    def stream(n):
+        return list(nw.score_pairs_stream(
+            (i, a, b) for i, (a, b) in enumerate(zip(LA[:n], LB[:n]))))
+
+    A3, B3 = planted(np.random.default_rng(SEED + 3), DNA, SW_JOB3[1], 1000,
+                     10000, (0.3, 0.5), 0.03)
+    mins3 = [max(1, int(v) - 10) for v in sw.best_score_batch(A3, B3)]
+    with tempfile.TemporaryDirectory(prefix="walls-") as work:
+        crng = np.random.default_rng(SEED + 12)
+        A1, B1 = dna(crng, CLI_NW_PAIRS, *CLI_KB), dna(
+            crng, CLI_NW_PAIRS, *CLI_KB)
+        fa = write_fasta(os.path.join(work, "pairs.fa.gz"), A1, B1)
+        small = write_fasta(os.path.join(work, "small.fa.gz"), A1[:64],
+                            B1[:64])
+        out = os.path.join(work, "nw.txt")
+        A2, B2, _ = job2_inputs(np.random.default_rng(SEED + 13),
+                                CLI_SW_PAIRS)
+        fa2 = write_fasta(os.path.join(work, "prot.fa"), A2, B2)
+        small2 = write_fasta(os.path.join(work, "prot64.fa"), A2[:64],
+                             B2[:64])
+        refs, reads = reads_inputs(np.random.default_rng(SEED + 14),
+                                   CLI_READS)
+        fa3 = write_fasta(os.path.join(work, "reads.fa"), refs, reads)
+        small3 = write_fasta(os.path.join(work, "reads64.fa"), refs[:64],
+                             reads[:64])
+        jobs = {
+            f"nw score_pairs_stream {STREAM_PAIRS} x 1-10kb": (
+                lambda: stream(64), lambda: stream(STREAM_PAIRS),
+                (kernels, "nw_scores")),
+            f"nw align_batch {ALIGN_LONG_PAIRS} x 1-10kb": (
+                lambda: nw.align_batch(LA[:64], LB[:64]),
+                lambda: nw.align_batch(LA[:ALIGN_LONG_PAIRS],
+                                       LB[:ALIGN_LONG_PAIRS]),
+                (kernels, "nw_fill_dirs")),
+            f"cli job 1 {CLI_NW_PAIRS} x 1-10kb": (
+                lambda: run_cli("nw", ["--printscores", "--file", small], out),
+                lambda: run_cli("nw", ["--printscores", "--file", fa], out),
+                (kernels, "nw_fill_dirs")),
+            f"sw job 3 {SW_JOB3[1]} x 1-10kb": (
+                lambda: consume(sw, A3[:16], B3[:16], mins3[:16], SW_JOB3[2]),
+                lambda: consume(sw, A3, B3, mins3, SW_JOB3[2]),
+                (kernels, "sw_fill_dirs")),
+            f"cli job 2 {CLI_SW_PAIRS} x 100-1000aa": (
+                lambda: run_cli("sw", CLI_JOB2_ARGS + ["--file", small2],
+                                out),
+                lambda: run_cli("sw", CLI_JOB2_ARGS + ["--file", fa2], out),
+                (kernels, "sw_fill_dirs")),
+            f"cli job 3 {CLI_READS} reads x 1-10kb": (
+                lambda: run_cli("nw", CLI_JOB3_ARGS + ["--file", small3],
+                                out),
+                lambda: run_cli("nw", CLI_JOB3_ARGS + ["--file", fa3], out),
+                (kernels, "nw_fill_dirs"))}
+        for label, (warm, job, target) in jobs.items():
+            warm()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, ms = call_events(job, target)
+            secs = time.perf_counter() - t0
+            if label.startswith("cli") and res[0] != 0:
+                raise AssertionError(f"walls: {label} exited {res[0]}: "
+                                     f"{res[1][-500:]}")
+            fills = ms[target[1]]
+            log(f"walls: {label}: {secs:.4f} s; {target[1]} x{len(fills)} "
+                f"{sum(fills):.3f} ms [{gpu}]")
 
 
 HARVEST_AB_CHUNK = 256  # the CLIs' pairs per align_batch call
@@ -3066,15 +3371,18 @@ def sass_of(sources, work):
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     cubins = [os.path.join(work, f"{i}_{os.path.basename(src)}.cubin")
               for i, src in enumerate(sources)]
-    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-cubin", "-o", cb,
-                               str(src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v",
+                               "-cubin", "-o", cb, str(src)],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, cb in zip(sources, cubins)]
+    ptxas = []
     for src, p in zip(sources, procs):
         out = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{out}")
-    funcs: dict = {}
+        ptxas.append(out)
+    funcs: dict = {"_ptxas": ptxas}
     for cb in cubins:
         text = subprocess.run([cuobjdump, "-sass", cb], capture_output=True,
                               text=True, check=True).stdout
@@ -3092,6 +3400,18 @@ def sass_of(sources, work):
     return funcs
 
 
+def demangle(name) -> str:
+    """A kernel's C++ name by ``cu++filt`` beside nvcc, else as given."""
+    from seqalign_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    try:
+        return subprocess.run([tool, name], capture_output=True, text=True,
+                              check=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+
+
 def opcode_mix(ins, top=10) -> str:
     """The ``top`` opcodes of a kernel's instructions, with counts."""
     ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in ins]
@@ -3104,8 +3424,10 @@ def opcode_mix(ins, top=10) -> str:
 
 def sass_report(old, gpu):
     """``--sass``: the probe kernels' and the add-then-max chains' opcode
-    mixes, and, with an older tree ``old``, the fill instantiations both
+    mixes, each tile fill's (csrc/tile_fill.cuh) with its registers and
+    spills, and, with an older tree ``old``, the fill instantiations both
     trees share compared instruction by instruction."""
+    import re
     import tempfile
     from pathlib import Path
 
@@ -3126,9 +3448,29 @@ def sass_report(old, gpu):
         prev = sass_of(old_src, os.path.join(work, "old")) if old else {}
     log(f"sass: compiled {len(new_src) + 1 + len(old_src)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
+    ptxas = new.pop("_ptxas")
+    prev.pop("_ptxas", None)
     for name, ins in sorted(new.items()):
         if "chain_kernel" in name or "addmax_plain" in name:
             log(f"sass: {name}: {len(ins)} instructions: {opcode_mix(ins)}")
+    # the tile fills (csrc/tile_fill.cuh): instruction mix, and registers
+    # and spills from ptxas
+    usage, entry = {}, None
+    for line in "\n".join(ptxas).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            usage.setdefault(entry, {})["spills"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            usage.setdefault(entry, {})["regs"] = int(m.group(1))
+    for name, ins in sorted(new.items()):
+        if "tile_fill_kernel" in name:
+            log(f"sass: {demangle(name)}: {len(ins)} instructions, "
+                f"{usage.get(name, {})}: {opcode_mix(ins, 16)}")
     if old:
         common = sorted(set(new) & set(prev))
         fills = [n for n in common if "fill_kernel" in n]
@@ -3155,8 +3497,11 @@ def main() -> int:
     ap.add_argument("--harvest-ab", action="store_true",
                     help="only time SW job 3 and CLI job 2's alignments: "
                          "walls, fills, harvests and hit loops")
+    ap.add_argument("--walls", action="store_true",
+                    help="only time the stream, NW align_batch, CLI job 1 "
+                         "and SW job 3: walls and fills")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --fills or --harvest-ab: import "
+                    help="with --fills, --harvest-ab or --walls: import "
                          "seqalign_tpu_torch from the checkout in DIR (an "
                          "older tree, for an A/B)")
     ap.add_argument("--chunk-ab", action="store_true",
@@ -3172,8 +3517,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    if args.tree and not (args.fills or args.harvest_ab):
-        ap.error("--tree goes with --fills or --harvest-ab")
+    if args.tree and not (args.fills or args.harvest_ab or args.walls):
+        ap.error("--tree goes with --fills, --harvest-ab or --walls")
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else
                     os.path.dirname(os.path.abspath(__file__)))
     import seqalign_tpu_torch as port
@@ -3211,6 +3556,9 @@ def main() -> int:
         return 0
     if args.harvest_ab:
         harvest_ab(gpu)
+        return 0
+    if args.walls:
+        walls_ab(gpu)
         return 0
     # the plain versions are bound by per-operation overhead on the host;
     # inference mode trims it (phase 1 only: the main paths run as a user

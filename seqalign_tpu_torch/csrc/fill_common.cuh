@@ -1,7 +1,10 @@
 // Gotoh fill shared by nw_scores.cu, nw_dirs.cu, sw_scores.cu and
 // sw_dirs.cu: global (NW) or local (SW); equality scoring on case-folded
 // codes or substitution-table scoring on compact codes; the default
-// recurrence or any combination of the five scoring flags.
+// recurrence or any combination of the five scoring flags.  The four
+// fills launch it for the flagged recurrence (MODES) only; their
+// default-flag launches run tile_fill.cuh's register tiles.  The matrix
+// dump (GAB) and the long pairs' chunks (CARRY) run here under every flag.
 //
 // Replaces the recurrence of seqalign_tpu/ops/pallas_dp2.py:_kernel2 and
 // :_dirs_kernel2 in their NW and SW modes, equality and packed-LUT
@@ -615,7 +618,9 @@ int launch_mode(const void* ac, const void* bc, const void* na,
 // The fill entry points share one C signature (ops/build.py):
 // ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,
 // scores, corner, dirs, mout, m16, scratch, stream, and the schedule:
-// order, slot, off (each null or a device array), smem_lanes.
+// order, slot, off (each null or a device array), lanes: fill_kernel's
+// lanes of rolling diagonals in shared memory (the default-flag fills of
+// tile_fill.cuh do not read it).
 #define FILL_ENTRY(name)                                                     \
   extern "C" int name(const void* ac, const void* bc, const void* na,       \
                       const void* nb, const void* scal, const void* sub,     \
@@ -623,12 +628,12 @@ int launch_mode(const void* ac, const void* bc, const void* na,
                       int table_smem, int B, int LA, int LB, void* scores,   \
                       void* corner, void* dirs, void* mout, int m16,         \
                       void* scratch, void* stream, const void* order,        \
-                      const void* slot, const void* off, int smem_lanes)
+                      const void* slot, const void* off, int lanes)
 
 #define SCHED_ARGS                                                           \
   fill::Sched { static_cast<const int*>(order),                             \
                 static_cast<const int*>(slot),                              \
-                static_cast<const long long*>(off), smem_lanes }
+                static_cast<const long long*>(off), lanes }
 
 // The two carry entry points (one chunk of a long pair) add: bin, bout,
 // x_off, CA, and the pair strides of the code and M slabs (ops/build.py).

@@ -1,5 +1,7 @@
 // NW fill with direction codes, equality or substitution-table scoring,
-// every combination of the scoring flags (fill_common.cuh).
+// every combination of the scoring flags: the default flags on the
+// register tiles of tile_fill.cuh, the flagged recurrence on
+// fill_common.cuh's fill_kernel.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
 // pallas_fill_dirs2) in NW mode with its constrained modes, and the NW
@@ -8,12 +10,13 @@
 // byte, dm | dga << 2 | dgb << 4, chosen with the reference traceback's
 // guard/equality/priority order (GAP_A > GAP_B > MATCH,
 // alignment.c:311-327), into the skewed (B, LA+LB-1, LB+1) layout of
-// seqalign_tpu/ops/traceback.py (cell (y, x) at [x+y-2][y]).  Lanes of one
-// diagonal are neighbouring bytes, so a warp's stores coalesce.
+// seqalign_tpu/ops/traceback.py (cell (y, x) at [x+y-2][y]).  A thread's
+// lanes on one diagonal are neighbouring bytes of one row, stored at once
+// (tile_fill.cuh, store_run), and a warp's stores coalesce.
 //
-// Bound on the card: the code stores, one byte per cell of the padded
-// layout's valid band, plus the barrier per diagonal.  Cells outside the
-// valid band are never written; the walk never reads them.
+// Bound on the card: integer issue (the codes' compares triple a cell's
+// instructions), then the code stores, one byte per valid cell.  Cells
+// outside the valid band are never written; the walk never reads them.
 //
 // nw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
 // fill_common.cuh; replaces the chunked pallas_dp.py:_dirs_kernel that
@@ -28,11 +31,16 @@
 // bounds it (bytes) more than the barrier does at the dump's sizes.
 
 #include "fill_common.cuh"
+#include "tile_fill.cuh"
 
 FILL_ENTRY(nw_dirs_launch) {
-  return fill::launch_mode<true, false, 0>(
+  if (modes == 0) {
+    return tile::launch<true, false, 0>(TILE_ARGS);
+  }
+  return fill::launch_table<true, false, 0, true, false>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, nullptr, scratch, stream, SCHED_ARGS);
+      LB, scores, corner, dirs, nullptr, scratch, stream, SCHED_ARGS,
+      fill::Carry{});
 }
 
 CARRY_ENTRY(nw_dirs_carry_launch) {

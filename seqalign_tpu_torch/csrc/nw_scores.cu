@@ -1,5 +1,6 @@
 // NW scores, equality or substitution-table scoring, every combination of
-// the scoring flags (fill_common.cuh).
+// the scoring flags: the default flags on the register tiles of
+// tile_fill.cuh, the flagged recurrence on fill_common.cuh's fill_kernel.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
 // pallas_scores2) in NW mode, equality and packed-LUT scoring, with its
@@ -8,23 +9,25 @@
 // int32 for sentinel parity: this fill is int32 throughout).  The TPU
 // kernel chains pairs along 512-lane rows, removes drift to stay exact in
 // f32, sizes its blocks to VMEM and bakes the table into select planes; on
-// the H100 the fill is native int32 with
-// one block per pair (fill_common.cuh) and the table sits in shared
-// memory, so none of that is needed.  Only the corner cell is kept: the
-// rolling diagonals are the whole working set, and the kernel writes 16
-// bytes per pair.
+// the H100 the fill is native int32, a warp a strip of lanes with the
+// tile in registers (tile_fill.cuh), and the table sits in shared memory,
+// so none of that is needed.  Only the corner cell is kept: the kernel
+// writes 16 bytes per pair.
 //
-// Bound on the card: the per-diagonal barrier and integer issue rate,
-// not memory (the working set of a 512-wide pair is 18 KB of shared
-// memory).  Pairs wider than 6455 lanes keep their diagonals in a global
-// scratch buffer (L1/L2 resident per block) instead.
+// Bound on the card: integer issue, the cells' int32 instructions (a
+// scores cell is 10 on the default flags); no memory traffic to speak of.
 
 #include "fill_common.cuh"
+#include "tile_fill.cuh"
 
 FILL_ENTRY(nw_scores_launch) {
-  return fill::launch_mode<false, false, 0>(
+  if (modes == 0) {
+    return tile::launch<false, false, 0>(TILE_ARGS);
+  }
+  return fill::launch_table<false, false, 0, true, false>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, nullptr, nullptr, scratch, stream, SCHED_ARGS);
+      LB, scores, corner, nullptr, nullptr, scratch, stream, SCHED_ARGS,
+      fill::Carry{});
 }
 
 extern "C" const char* nw_error_string(int code) {

@@ -1,6 +1,7 @@
 // SW fill with direction codes and the M matrix, equality or
-// substitution-table scoring, every combination of the scoring flags
-// (fill_common.cuh).
+// substitution-table scoring, every combination of the scoring flags: the
+// default flags on the register tiles of tile_fill.cuh, the flagged
+// recurrence on fill_common.cuh's fill_kernel.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
 // pallas_fill_dirs2 with is_sw and emit_m, M emission at :977-999) and the
@@ -11,13 +12,14 @@
 // when the wrapper's m16_safe gate (pallas_dp2.py:94-101) holds, else
 // int32.  The candidate harvest reads M in place on the card; the codes
 // stay there for the hit loop (sw_hits.cu) and the hit walks (sw_walk.cu).
-// Under a fill schedule with planes (one launch across widths, the SCHED
-// instantiations of fill_common.cuh) pair j's codes and M go to planes at
-// its own widths, from dirs + off[j] and mout + off[j] (in elements), as
-// ops/pack.py:ragged_planes lays them out.
+// Under a fill schedule with planes (one launch across widths) pair j's
+// codes and M go to planes at its own widths, from dirs + off[j] and
+// mout + off[j] (in elements), as ops/pack.py:ragged_planes lays them
+// out.  A thread's R codes and R M values of one diagonal go out as
+// aligned runs (tile_fill.cuh, store_run).
 //
-// Bound on the card: the stores, 3 or 5 bytes per valid cell (the codes
-// coalesce per warp, the M values too), and the barrier per diagonal.
+// Bound on the card: integer issue, then the stores, 3 or 5 bytes per
+// valid cell (the codes coalesce per warp, the M values too).
 //
 // sw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
 // fill_common.cuh): codes into the chunk's slab, M into a plane of the
@@ -30,16 +32,23 @@
 // harvest reads as M.
 
 #include "fill_common.cuh"
+#include "tile_fill.cuh"
 
 FILL_ENTRY(sw_dirs_launch) {
-  if (m16) {
-    return fill::launch_mode<true, true, 2>(
-        ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
+  if (modes == 0) {
+    return m16 ? tile::launch<true, true, 2>(TILE_ARGS)
+               : tile::launch<true, true, 4>(TILE_ARGS);
   }
-  return fill::launch_mode<true, true, 4>(
+  if (m16) {
+    return fill::launch_table<true, true, 2, true, false>(
+        ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
+        LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS,
+        fill::Carry{});
+  }
+  return fill::launch_table<true, true, 4, true, false>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
+      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS,
+      fill::Carry{});
 }
 
 CARRY_ENTRY(sw_dirs_carry_launch) {

@@ -1,25 +1,30 @@
 // SW best scores, equality or substitution-table scoring, every combination
-// of the scoring flags (fill_common.cuh).
+// of the scoring flags: the default flags on the register tiles of
+// tile_fill.cuh, the flagged recurrence on fill_common.cuh's fill_kernel.
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
 // pallas_scores2 with is_sw) in SW mode, equality and packed-LUT scoring,
 // with its flag branches, and the SW duties of pallas_dp.py:_kernel (the
-// both-no-gaps int32 fill among them).  The fill is the
-// one of nw_scores.cu (fill_common.cuh) with the local recurrence: every
-// cell floors at 0, the boundary is all zero, and each thread keeps the
-// best M of the cells it computes; a warp reduces them with
-// __reduce_max_sync and its leader folds the result into the pair's score
-// with one atomicMax.  The TPU kernel carries that max through its drift
-// terms in f32; here it is an int32 register.
+// both-no-gaps int32 fill among them).  The fill is the one of
+// nw_scores.cu with the local recurrence: every cell floors at 0, the
+// boundary is all zero, and each thread keeps the best M of the valid
+// cells it computes; a warp reduces them with __reduce_max_sync and its
+// leader folds the result into the pair's score with one atomicMax.  The
+// TPU kernel carries that max through its drift terms in f32; here it is
+// an int32 register.
 //
-// Bound on the card: as nw_scores.cu, the per-diagonal barrier and the
-// integer ops per cell; the reduction is one shuffle tree per warp at the
-// end.
+// Bound on the card: as nw_scores.cu, the integer ops per cell; the
+// reduction is one shuffle tree per warp at the end.
 
 #include "fill_common.cuh"
+#include "tile_fill.cuh"
 
 FILL_ENTRY(sw_scores_launch) {
-  return fill::launch_mode<false, true, 0>(
+  if (modes == 0) {
+    return tile::launch<false, true, 0>(TILE_ARGS);
+  }
+  return fill::launch_table<false, true, 0, true, false>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, nullptr, nullptr, scratch, stream, SCHED_ARGS);
+      LB, scores, nullptr, nullptr, nullptr, scratch, stream, SCHED_ARGS,
+      fill::Carry{});
 }

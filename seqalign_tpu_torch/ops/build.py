@@ -4,7 +4,9 @@
 parallel processes, and links them into one shared library with a plain C
 interface, loaded with ``ctypes`` (seconds to build; no PyTorch headers).
 The library lands in ``seqalign_tpu_torch/_build/`` under a name keyed by a
-hash of the sources and flags, is written to a temporary name first and
+hash of every file of ``csrc/`` (the headers ``fill_common.cuh``,
+``tile_fill.cuh`` and ``slab.cuh`` too) and the flags, is written to a
+temporary name first and
 then renamed, so a stale or half-written library is never loaded; the
 objects live in a temporary directory that is removed.  The build runs at
 first use; a failed build raises with nvcc's output.

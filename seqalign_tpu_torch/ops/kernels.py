@@ -10,6 +10,12 @@ fills ``nw_fill_gab`` and ``sw_fill_gab``, the long-pair chunk fills
 code plane, a long pair's chunk slabs, or the planes of one launch across
 widths), and the ALU probe ``vpu_chain``.
 
+The four fills' default-flag launches (``params.modes == 0``) run the
+register tiles of csrc/tile_fill.cuh (a warp a strip of 32 * ``TILE_R``
+lanes); their flagged launches, the matrix dump and the
+long pairs' chunks run fill_kernel / fill_carry_kernel of
+csrc/fill_common.cuh.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
 PyTorch version; a tensor on a CUDA device goes to the kernel, and a
@@ -41,12 +47,18 @@ from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
 
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
-# lanes of rolling diagonals (36 bytes each) a block of a launch across
-# widths keeps in shared memory; a pair with more lanes takes a slice of
-# global scratch.  6,400 lanes hold every pair of up to 6,399 bp on side b
-# at one block an SM (PERF.md: chip_smoke.py's ragged rows time the
-# choices).
+# lanes of rolling diagonals (36 bytes each) a block of a flagged fill
+# (fill_kernel) across widths keeps in shared memory; a pair with more
+# lanes takes a slice of global scratch.  6,400 lanes hold every pair of
+# up to 6,399 bp on side b at one block an SM (PERF.md: chip_smoke.py's
+# ragged rows time the choices).
 RAGGED_SMEM_LANES = 6400
+# What the sizing of the default-flag fills' register tiles needs of
+# csrc/tile_fill.cuh (RING, LANES, THREAD_LANES there): an edge ring of
+# TILE_RING entries a warp, TILE_LANES lanes of b a block covers in one
+# round (a pair with more takes a round row of 3 * (LA+1) int32 in global
+# scratch), TILE_R lanes a thread.
+TILE_RING, TILE_LANES, TILE_R = 128, 2048, 4
 
 
 class FillSchedule(NamedTuple):
@@ -63,6 +75,11 @@ class FillSchedule(NamedTuple):
       ``nw_fill_dirs`` and ``sw_fill_dirs`` write pair j's codes (and M)
       at its own widths from ``off[j]`` into 1-d tensors of ``total``
       elements.
+    wrap: (B,) int32, the pair's round row in scratch for a default-flag
+      fill (csrc/tile_fill.cuh), -1 when its nb fits ``TILE_LANES``.
+    nwrap: round rows the default-flag fills allocate.
+    slot and nslots serve the flagged fills (``params.modes``), wrap and
+    nwrap the default ones.
     """
 
     order: torch.Tensor
@@ -71,6 +88,8 @@ class FillSchedule(NamedTuple):
     smem_lanes: int
     off: Optional[torch.Tensor] = None
     total: int = 0
+    wrap: Optional[torch.Tensor] = None
+    nwrap: int = 0
 
 
 def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
@@ -88,6 +107,8 @@ def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
     order = np.argsort(-(na * nb), kind="stable")
     need = np.maximum(nb, 1) + 1 > lanes
     slot = np.where(need, np.cumsum(need) - 1, -1)
+    rounds = nb > TILE_LANES
+    wrap = np.where(rounds, np.cumsum(rounds) - 1, -1)
 
     def dev(v, dtype):
         return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
@@ -96,7 +117,8 @@ def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
     return FillSchedule(dev(order, np.int32), dev(slot, np.int32),
                         int(need.sum()), lanes,
                         None if off is None else dev(off, np.int64),
-                        0 if off is None else int(off[-1]))
+                        0 if off is None else int(off[-1]),
+                        dev(wrap, np.int32), int(rounds.sum()))
 
 
 # a launch across widths (a fill under a schedule, sw_hits over its
@@ -193,37 +215,59 @@ def _check_sched(sched, B):
 
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
           dirs=None, mout=None, m16=False, sched=None, carry=None):
-    """Launch one of the fill kernels (csrc/fill_common.cuh).  Without a
-    schedule the rolling diagonals (36 bytes per lane) of every pair take
-    shared memory when LB+1 lanes fit there, else a global scratch buffer;
-    with one, a pair's take shared memory when its own lanes fit the
-    schedule's, else its slice of scratch.  The table (4 bytes per entry,
-    twice that with the is-match table of no_mismatches) takes the shared
-    memory left, else the read-only global path.  ``carry``: the extra
-    arguments of a carry entry, which takes no schedule."""
+    """Launch one of the fill kernels.  The default-flag launches of the
+    four fills (``params.modes == 0``, not the matrix dump, not a carry)
+    run the register tiles of csrc/tile_fill.cuh: ``TILE_R`` lanes a
+    thread, a warp's edge ring (12 * ``TILE_RING`` bytes) in shared
+    memory, and a round row of 3 * (LA+1) int32 in scratch for each pair
+    past ``TILE_LANES`` lanes of b (slice j without a schedule, the
+    schedule's ``wrap`` slot with one).  The others run fill_kernel
+    (csrc/fill_common.cuh): without a schedule the rolling diagonals (36
+    bytes per lane) of every pair take shared memory when LB+1 lanes fit
+    there, else a global scratch buffer; with one, a pair's take shared
+    memory when its own lanes fit the schedule's, else its slice of
+    scratch.  The table (4 bytes per entry, twice that with the is-match
+    table of no_mismatches) takes the shared memory left, else the
+    read-only global path.  ``carry``: the extra arguments of a carry
+    entry, which takes no schedule."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
         return
     dev = ac.device
-    if sched is None:
-        lanes = LB + 1 if 36 * (LB + 1) <= SMEM_MAX else 0
-        nscratch = 0 if lanes else B
+    tiles = (params.modes == 0 and carry is None
+             and not entry.endswith("_gab_launch"))
+    if tiles:
+        lanes = 0  # not read
+        smem = 12 * TILE_RING * min(-(-LB // (32 * TILE_R)),
+                                    TILE_LANES // (32 * TILE_R))
+        if sched is None:
+            nscratch = B if LB > TILE_LANES else 0
+        else:
+            nscratch = sched.nwrap
+        scratch = (torch.empty((nscratch, 3, LA + 1), dtype=torch.int32,
+                               device=dev) if nscratch else None)
     else:
-        lanes, nscratch = min(sched.smem_lanes, LB + 1), sched.nslots
-    scratch = (torch.empty((nscratch, 9, LB + 1), dtype=torch.int32,
-                           device=dev) if nscratch else None)
+        if sched is None:
+            lanes = LB + 1 if 36 * (LB + 1) <= SMEM_MAX else 0
+            nscratch = 0 if lanes else B
+        else:
+            lanes, nscratch = min(sched.smem_lanes, LB + 1), sched.nslots
+        smem = 36 * lanes
+        scratch = (torch.empty((nscratch, 9, LB + 1), dtype=torch.int32,
+                               device=dev) if nscratch else None)
     sub = params.sub
     im = params.im if sub is not None and params.modes & NMM else None
     kb = sub_n = table_smem = 0
     if sub is not None:
         kb, sub_n = sub.shape[1], sub.numel()
         tables = 4 * sub_n * (1 if im is None else 2)
-        table_smem = int(36 * lanes + tables <= SMEM_MAX)
+        table_smem = int(smem + tables <= SMEM_MAX)
     lib = library()
     if carry is None:
         tail = ((None, None, None, lanes) if sched is None else
-                (_ptr(sched.order), _ptr(sched.slot), _ptr(sched.off), lanes))
+                (_ptr(sched.order), _ptr(sched.wrap if tiles else sched.slot),
+                 _ptr(sched.off), lanes))
     else:
         tail = carry
     rc = getattr(lib, entry)(

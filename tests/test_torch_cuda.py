@@ -1017,3 +1017,94 @@ def test_sw_align_batch_across_widths_on_cuda_matches_host(dev,
         assert [dataclasses.astuple(h) for _, h in zip(range(12), it)] == \
             [dataclasses.astuple(h) for _, h in zip(
                 range(12), host_dp.HostSwHits(lcs.scoring, s, s))]
+
+
+
+def _tile_batch(alpha, R, seed, wide=False):
+    """Pairs at the strip edges of R lanes a thread (csrc/tile_fill.cuh):
+    b one lane short of a strip, a strip, one over, two strips and a bit
+    (its a side long enough for unchecked step blocks), empty sides; with
+    ``wide``, b sides of 6,000 to 10,240 lanes, past one round (at 1,040
+    lanes of a, a strip's ndur is 1 mod 4 at R = 4: the columns of a
+    warp's next strip meet, in its ring, the ones the next warp still
+    reads, unless the schedule waits for it)."""
+    S = 32 * R
+    rng = np.random.default_rng(seed)
+    lens = ([(1040, 6144), (300, 10240), (0, 6000)] if wide else
+            [(37, 31), (300, S - 1), (41, S), (S + 3 * R, S + 1),
+             (S + 2 * R + 7, 2 * S + 3), (0, 9), (12, 0), (0, 0), (1, 1)])
+    letters = np.array(list(alpha))
+    A = ["".join(letters[rng.integers(0, len(letters), n)]) for n, _ in lens]
+    B = ["".join(letters[rng.integers(0, len(letters), m)]) for _, m in lens]
+    return A, B
+
+
+TILE_CASES = {"equality": (scoring_system_default, scoring_system_sw_default,
+                           "acgtACGT"),
+              "blosum62": (scoring_system_BLOSUM62, scoring_system_BLOSUM62,
+                           PROTEIN)}
+_TILE_PLAIN: dict = {}  # the plain fills of the wide batches
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["edges", "rounds"])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_fills_equal_plain_versions(dev, case, wide):
+    """The default-flag fills on the register tiles (nw_scores,
+    nw_fill_dirs, sw_scores, sw_fill_dirs with int16 and int32 M), uniform
+    and under a schedule with planes, against their plain versions: pairs
+    at the strip edges of R = kernels.TILE_R lanes a thread (b of 31 and
+    32R-1, 32R, 32R+1 and 2*32R+3 lanes), empty sides, and b sides of 6,000
+    to 10,240 lanes whose strips take several rounds.  Codes and M on the
+    valid cells (the ragged M whole), scores and corners exactly; the
+    launch counters show each entry ran under its name."""
+    R = kernels.TILE_R
+    make_nw, make_sw, alpha = TILE_CASES[case]
+    for sw in (False, True):
+        sc = (make_sw if sw else make_nw)()
+        A, B = _tile_batch(alpha, R, len(case) + sw, wide)
+        p = kernel_params(sc, dev)
+        la, lb = max(map(len, A)), max(map(len, B))
+        ac, bc, na, nb, bp = pack_batch(sc, p, A, B, la, lb)
+        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+        sched = kernels.fill_schedule(na, nb, dev, planes=True)
+        v = _valid(dev, t[2], t[3], la, lb)
+        pv = _plane_valid(sched.off, t[2], t[3], dev)
+        key = (case, sw) if wide else None  # the edge batches are cheap
+        if key not in _TILE_PLAIN or key is None:
+            if not sw:
+                _TILE_PLAIN[key] = (nw_scores_plain(*t, bp),
+                                    nw_fill_dirs_plain(*t, bp),
+                                    nw_fill_dirs_plain(*t, bp, sched.off))
+            else:
+                _TILE_PLAIN[key] = (sw_scores_plain(*t, bp), {
+                    m16: (sw_fill_dirs_plain(*t, bp, m16),
+                          sw_fill_dirs_plain(*t, bp, m16, sched.off))
+                    for m16 in (True, False)})
+        plain = _TILE_PLAIN[key]
+        before = kernel_launch_counts()
+        if not sw:
+            (sp, cp), (dp_, dcp), (fp, fcp) = plain
+            for s in (None, sched):
+                got = kernels.nw_scores(*t, bp, s)
+                assert torch.equal(got[0], sp) and torch.equal(got[1], cp)
+            d, dc = kernels.nw_fill_dirs(*t, bp)
+            assert torch.equal(d[v], dp_[v]) and torch.equal(dc, dcp)
+            f, fc = kernels.nw_fill_dirs(*t, bp, sched)
+            assert torch.equal(f[pv], fp[pv]) and torch.equal(fc, fcp)
+            names = ("nw_scores", "nw_fill_dirs")
+        else:
+            best, fills = plain
+            for s in (None, sched):
+                assert torch.equal(kernels.sw_scores(*t, bp, s), best)
+            for m16, ((dp_, mp), (fp, fmp)) in fills.items():
+                d, m = kernels.sw_fill_dirs(*t, bp, m16)
+                assert torch.equal(d[v], dp_[v]) and torch.equal(m[v], mp[v])
+                f, fm = kernels.sw_fill_dirs(*t, bp, m16, sched)
+                assert torch.equal(f[pv], fp[pv]) and torch.equal(fm, fmp)
+            names = ("sw_scores", "sw_fill_dirs")
+        after = kernel_launch_counts()
+        for k in names:
+            want = 2 if k == "sw_fill_dirs" else 1
+            assert after[k] - before[k] == want
+            assert after[f"{k}[ragged]"] - before[f"{k}[ragged]"] == want
+        del plain, v, pv
