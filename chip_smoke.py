@@ -21,7 +21,11 @@ numpy from a fixed seed:
    walks on the harvested candidates; then kernel and plain timed with CUDA events at
    B = 256, L = 512; the carry fills of long pairs (rows ``*[carry]``) chunk
    by chunk on 4 pairs of 5,000-6,144 x 1,500-2,048 (equality, BLOSUM62
-   with an empty side, nsg+neg) and at 10,240 lanes, and the walks over
+   with an empty side, nsg+neg) and at 10,240 lanes (4 pairs, and 16 of
+   path long's 6-10 kb of b, row ``nw_fill_dirs[carry,B16]``; at default
+   flags the
+   register tiles of csrc/tile_carry.cuh, a round of a pair's lanes a
+   block), and the walks over
    their slabs (rows ``*[chunked]``); the four fills under each recurrence
    mode (the flag combinations of ``MODES`` and gap_open > 0; rows
    ``<kernel>[<mode>]``) at that shape and on ragged batches with empty
@@ -119,11 +123,13 @@ measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
 the four default fills at phase 1's B = 256, L = 512 and as one launch
 across widths (phase 1's ragged rows), NW's and SW's codes fills under
 BLOSUM62, ``sw_hits``, ``sw_fill_dirs`` under the LCS flags (``MODES``),
-``nw_fill_gab`` (``GAB``) and one carry chunk, and stops; it uses only
-the kernel wrappers' API, so with ``--tree DIR`` it times the package of
-an older checkout in DIR in the same call.  ``--walls [--tree DIR]`` instead
-times the stream, NW ``align_batch`` on 1,024 pairs of 1-10 kb, CLI job 1
-and SW job 3 (walls, and their fills by CUDA events) and stops.
+``nw_fill_gab`` (``GAB``) and one carry chunk (on a tree with
+``kernels.carry_warps`` also carry chunks at 1 to 16 warps a block), and
+stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
+times the package of an older checkout in DIR in the same call.
+``--walls [--tree DIR]`` instead times the stream, NW ``align_batch`` on
+1,024 pairs of 1-10 kb, CLI jobs 1-3, SW job 3 and path long's jobs 1, 2,
+3, 5 and 6 (walls, and their fills by CUDA events) and stops.
 ``--harvest-ab [--tree DIR]`` instead times SW job 3's and CLI job 2's
 alignments (walls; fills, harvests and hit loops by CUDA events) and
 stops: the measurement behind the ragged harvest's design and the hit
@@ -133,7 +139,8 @@ time and busy share and writes the ``key_averages`` tables to DIR.
 ``--sass [OLD_TREE]`` instead compiles ``csrc/*.cu`` to SASS with the
 build's nvcc flags and stops: it prints the instruction mix of each probe
 kernel and of an add-then-max chain written here (both addmax forms give
-``VIADDMNMX``), each tile fill's with its registers and spills, and
+``VIADDMNMX``), each tile fill's and tile carry's with its registers,
+spills and local memory instructions, and
 with an older checkout of the repository in OLD_TREE compares every fill
 instantiation the two trees share, instruction by instruction (the check
 that a template change left the other fills as they were).
@@ -187,6 +194,8 @@ KERNELS = {
     "sw_hits[table]": ("sw_hits", "sw_hits.cu", _SWH),
     "nw_fill_dirs[carry]": ("nw_fill_dirs_carry", "nw_dirs.cu", _B4C),
     "sw_fill_dirs[carry]": ("sw_fill_dirs_carry", "sw_dirs.cu", _B4C),
+    # the carry at path long's width: 16 pairs, b of 6-10 kb, many rounds
+    "nw_fill_dirs[carry,B16]": ("nw_fill_dirs_carry", "nw_dirs.cu", _B4C),
     "nw_walk[chunked]": ("nw_walk", "nw_walk.cu",
                          "seqalign_tpu/ops/traceback.py:515"),
     "sw_walk[chunked]": ("sw_walk", "sw_walk.cu", _SWW),
@@ -305,14 +314,19 @@ SW_JOB2 = ("job 2", 1024, 8)
 SW_JOB3 = ("job 3", 256, 8)
 AB_PAIRS = 64  # pairs of each SW align job in the walk-branch A/B
 PROTEIN_MIN_SCORE = 100  # random 1,000 x 1,000 aa pairs score 42-57
-# phase 1's carry rows: 4 pairs, chunks of the JAX package's 2,048 columns;
-# (label, |a| range, |b| range, lanes): the long path's lane widths, from
-# opt-in shared memory to global scratch
+# phase 1's carry rows: chunks of the JAX package's 2,048 columns; (label,
+# |a| range, |b| range, lanes, pairs): 4 pairs of up to 2,048 lanes (the
+# default flags' tiles in 4 rounds of 4 warps, the flags' diagonals in
+# opt-in shared memory), 4 at 10,240 lanes, and 16 pairs of path long's
+# 6-10 kb of b at 10,240 lanes (10 rounds of 8 warps; NW only, row
+# nw_fill_dirs[carry,B16]: the plain fill's diagonals are most of phase 1's
+# time, and the 4 pairs hold SW at this width)
 CARRY_CA = 2048
-CARRY_CASES = (("equality", (5000, 6144), (1500, 2048), None),
-               ("BLOSUM62", (5000, 6144), (1500, 2048), None),
-               ("nsg+neg", (5000, 6144), (1500, 2048), None),
-               ("equality", (2049, 4096), (7169, 10000), 10240))
+CARRY_CASES = (("equality", (5000, 6144), (1500, 2048), None, 4),
+               ("BLOSUM62", (5000, 6144), (1500, 2048), None, 4),
+               ("nsg+neg", (5000, 6144), (1500, 2048), None, 4),
+               ("equality", (2049, 4096), (7169, 10000), 10240, 4),
+               ("equality", (2049, 4096), (6000, 10000), 10240, 16))
 # path long: long reads against reference windows
 LONG_A, LONG_B = (20_000, 40_000), (6_000, 10_000)
 LONG_NW, LONG_NSG, LONG_SW, LONG_HINTLESS = 64, 16, 32, 4
@@ -773,14 +787,17 @@ def carry_vs_plain(dev, rng, times, bounds):
     """The carry kernels against their plain versions chunk by chunk, NW
     and SW, on 4 pairs of 5,000-6,144 x 1,500-2,048 in chunks of CARRY_CA
     (equality, BLOSUM62 with an empty seq_a and an empty seq_b, nsg+neg)
-    and at 10,240 lanes (the diagonals in global scratch, the width of the
-    long path's reads): the codes of every slab on the valid cells, each
-    chunk's bout on the lanes 1 .. nb of the pairs that reach it, the
-    corners or best scores, SW M.  The middle chunk of the equality pairs
-    is timed: the kernel with CUDA events, the plain version in the check's
-    run.  Then the walks over the equality pairs' slabs against their
-    plain versions (rows ``*[chunked]``).  Returns the errors and, for the
-    long path's sample check, the equality pairs with their plain NW
+    and at 10,240 lanes (4 pairs, and, NW only, 16 of path long's 6-10 kb
+    of b): the codes of every slab on the valid cells, each chunk's bout
+    on the lanes 1 .. nb of the pairs that reach it, the corners or best
+    scores, SW M; at default flags each case crosses rounds of the tiles
+    (csrc/tile_carry.cuh: 4 rounds of 4 warps at 2,048 lanes, 20 of 4 and
+    10 of 8 at 10,240).  The middle chunk of the first equality pairs and
+    of the 16 pairs (row ``nw_fill_dirs[carry,B16]``) is timed: the kernel
+    with CUDA events, the plain version in the check's run.  Then the
+    walks over the first equality pairs' slabs against their plain
+    versions (rows ``*[chunked]``).  Returns the errors and, for the long
+    path's sample check, the equality pairs with their plain NW
     alignments and SW hits."""
     import seqalign_tpu_torch as port
     from seqalign_tpu_torch import kernel_params
@@ -799,15 +816,15 @@ def carry_vs_plain(dev, rng, times, bounds):
     err = {}
     ref = {}
     ca = CARRY_CA
-    for label, ra, rb, lanes in CARRY_CASES:
+    for label, ra, rb, lanes, n in CARRY_CASES:
         t0 = time.perf_counter()
         worst = 0
         alpha = AMINO if label == "BLOSUM62" else DNA
-        A, B = seqs(rng, 4, *ra, alpha), seqs(rng, 4, *rb, alpha)
+        A, B = seqs(rng, n, *ra, alpha), seqs(rng, n, *rb, alpha)
         A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
         if label == "BLOSUM62":  # the corners of empty sides
             A[2], B[3] = "", ""
-        for sw in (False, True):
+        for sw in (False,) if n == 16 else (False, True):
             if label == "BLOSUM62":
                 sc = port.presets.scoring_system_BLOSUM62()
             elif label == "nsg+neg":
@@ -821,7 +838,8 @@ def carry_vs_plain(dev, rng, times, bounds):
             args = (*(torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)),
                     bp)
             m16 = sw and m16_safe(sc, la, lb)
-            name = f"{'sw' if sw else 'nw'}_fill_dirs[carry]"
+            name = (f"{'sw' if sw else 'nw'}_fill_dirs[carry"
+                    f"{',B16' if n == 16 else ''}]")
             kfill = (kernels.sw_fill_dirs_carry if sw
                      else kernels.nw_fill_dirs_carry)
             pfill = sw_fill_dirs_carry_plain if sw else \
@@ -841,7 +859,7 @@ def carry_vs_plain(dev, rng, times, bounds):
                     e = max(e, max_abs((got[2][c][v], want[2][c][v])))
             err[name] = max(err.get(name, 0), e)
             worst = max(worst, e)
-            if label == "equality" and not lanes:
+            if label == "equality" and (not lanes or n == 16):
                 # the middle chunk: the kernel launched again, the plain
                 # version's run above
                 bin = want[1][0]
@@ -856,10 +874,11 @@ def carry_vs_plain(dev, rng, times, bounds):
                 bounds[name] = fill_bound(
                     wa, nb, sw, True, (2 if m16 else 4) * sw,
                     extra_bytes=2 * 12 * (lb + 1) * len(na))
-                ref[sw] = (sc, A, B, args, got)
+                if not lanes:
+                    ref[sw] = (sc, A, B, args, got)
             del got, want
         torch.cuda.synchronize()
-        log(f"phase 1: carry fills vs plain, {label}, 4 pairs of "
+        log(f"phase 1: carry fills vs plain, {label}, {n} pairs of "
             f"{ra[0]}-{ra[1]} x {rb[0]}-{rb[1]} at {lanes or 'their'} lanes "
             f"in chunks of {ca}: max |diff| {worst} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -1162,6 +1181,8 @@ def phase1(scs, rng, dev):
     for k, (t, tp) in times.items():
         b, by = bounds[k]
         shape = ("4 pairs, one chunk of 2048" if "[carry]" in k else
+                 "16 pairs, one chunk of 2048 at 10240 lanes"
+                 if "[carry,B16]" in k else
                  "4 pairs' slabs" if "[chunked]" in k else
                  f"SW job 3's first sub-batch (plain: 8 pairs of 0-300 bp)"
                  if k.startswith("sw") and "[ragged]" in k else
@@ -3006,7 +3027,11 @@ def fills_only(scs, rng, dev, gpu):
     candidates (k = 16, phase 1's row), ``sw_fill_dirs`` under the LCS
     flags (the ``MODES`` instantiation) and ``nw_fill_gab`` (``GAB``);
     ``nw_fill_dirs_carry`` on one chunk of 2,048 columns of 4 pairs of
-    5,000-6,144 x 1,500-2,048 (phase 1's carry row); and the four fills as
+    5,000-6,144 x 1,500-2,048 (phase 1's carry row), and, on a tree with
+    ``kernels.carry_warps``, that chunk, one of 2,048 columns of 16 of path
+    long's pairs and one of 16,384 of its 48 kb x 48 kb pair at 1, 2, 4, 8
+    and 16 warps a block (the measurement behind the rule); and the four
+    fills as
     one launch across widths: NW on ``RAGGED_PAIRS`` pairs of 1-10 kb
     (CLI job 1's mix), SW on the first sub-batch of SW job 3's.  Each row
     five means of 10 launches (3 of 3 across widths), after a warm-up."""
@@ -3058,6 +3083,46 @@ def fills_only(scs, rng, dev, gpu):
     rows["nw_fill_dirs[carry]"] = lambda: kernels.nw_fill_dirs_carry(
         *t, bp, CARRY_CA, bin, bout, slab, corner)
     shape["nw_fill_dirs[carry]"] = "4 pairs, one chunk of 2048"
+    reps = {}
+    if hasattr(kernels, "carry_warps"):
+        # the tile carry's warps a block (csrc/tile_carry.cuh): the 4 pairs
+        # above, 16 of path long's pairs (6-10 kb of b) and its 48 kb x
+        # 48 kb pair, one chunk each, at every W
+        def at_warps(w, fn):
+            def run():
+                rule = kernels.carry_warps
+                kernels.carry_warps = lambda *a: w
+                try:
+                    return fn()
+                finally:
+                    kernels.carry_warps = rule
+            return run
+
+        def carry_case(n, ra, rb, lb, ca):
+            A, B = seqs(crng, n, *ra), seqs(crng, n, *rb)
+            ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A,
+                                            B, ra[1], lb)
+            t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+            bin = boundary_column(bp, n, lb, is_sw=False)
+            bout = torch.zeros_like(bin)
+            slab = torch.empty((n, ca + lb - 1, lb + 1), dtype=torch.uint8,
+                               device=dev)
+            corner = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+            return lambda: kernels.nw_fill_dirs_carry(
+                *t, bp, 0, bin, bout, slab, corner)
+
+        cases = {"4 pairs, one chunk of 2048": rows["nw_fill_dirs[carry]"],
+                 "16 pairs of 20-40 kb x 6-10 kb, one chunk of 2048":
+                 carry_case(16, LONG_A, LONG_B, LONG_B[1], CARRY_CA),
+                 "1 pair of 48 kb x 48 kb, one chunk of 16384":
+                 carry_case(1, (GIANT, GIANT), (GIANT, GIANT), GIANT,
+                            aligners.LONG_CHUNK)}
+        for label, fn in cases.items():
+            for w in (1, 2, 4, 8, 16):
+                name = f"nw_fill_dirs[carry] W={w}, {label}"
+                rows[name] = at_warps(w, fn)
+                shape[name] = label
+                reps[name] = 2 if label.startswith("1 pair") else 10
     # the launches across widths
     rrng = np.random.default_rng(SEED + 5)
     A, B = dna(rrng, RAGGED_PAIRS, *CLI_KB), dna(rrng, RAGGED_PAIRS, *CLI_KB)
@@ -3091,7 +3156,7 @@ def fills_only(scs, rng, dev, gpu):
 
     def time_rows(names):
         for name in names:
-            n = 3 if "[ragged]" in name else 10
+            n = reps.get(name, 3 if "[ragged]" in name else 10)
             ms = [cuda_ms(rows[name], n) for _ in range(5 if n == 10 else 3)]
             log(f"fills: {name} at {shape[name]}: " +
                 ", ".join(f"{v:.4f}" for v in ms) + f" ms [{gpu}]")
@@ -3111,8 +3176,10 @@ def walls_ab(gpu):
     jobs 2 (``smith_waterman`` under BLOSUM62 on ``CLI_SW_PAIRS`` protein
     pairs) and 3 (``needleman_wunsch`` under the free end gaps, a flagged
     fill, on ``CLI_READS`` reads against references), in-process as job
-    1; each from a generator of its own; one warm-up on 64 pairs, then
-    one timed run each, with the fills' milliseconds by CUDA events."""
+    1; path long's jobs 1, 2, 3, 5a, 5b and 6 (``long_walls``); each from a
+    generator of its own; one warm-up (on 64 pairs, or 1-2 long ones),
+    then one timed run each, with the fills' milliseconds by CUDA
+    events."""
     import tempfile
 
     import seqalign_tpu_torch as port
@@ -3176,6 +3243,7 @@ def walls_ab(gpu):
                                 out),
                 lambda: run_cli("nw", CLI_JOB3_ARGS + ["--file", fa3], out),
                 (kernels, "nw_fill_dirs"))}
+        jobs.update(long_walls(nw, sw, kernels))
         for label, (warm, job, target) in jobs.items():
             warm()
             torch.cuda.synchronize()
@@ -3188,6 +3256,54 @@ def walls_ab(gpu):
             fills = ms[target[1]]
             log(f"walls: {label}: {secs:.4f} s; {target[1]} x{len(fills)} "
                 f"{sum(fills):.3f} ms [{gpu}]")
+
+
+def long_walls(nw, sw, kernels):
+    """Path long's jobs 1, 2 (the flagged carry, nsg+neg), 3, 5a, 5b and 6
+    for ``walls_ab``, on pairs of their own generator: label -> (warm-up,
+    job, the carry fill it times).  Only the entry points a user calls, so
+    that an older tree runs them."""
+    import seqalign_tpu_torch as port
+
+    nwf = port.NeedlemanWunsch(mode_scoring("nsg+neg"), device="cuda")
+    rng = np.random.default_rng(SEED + 15)
+    A, B = dna(rng, LONG_NW, *LONG_A), dna(rng, LONG_NW, *LONG_B)
+    SA = dna(rng, LONG_SW, *LONG_A)
+    SB = [plant(rng, a, b, LONG_SEG, LONG_SUB)
+          for a, b in zip(SA, dna(rng, LONG_SW, *LONG_B))]
+    ga = dna(rng, 1, GIANT, GIANT)[0]
+    gb = plant(rng, ga, dna(rng, 1, GIANT, GIANT)[0], LONG_SEG, LONG_SUB,
+               pb=GIANT - LONG_SEG - 1000)
+    mins = [max(1, int(v) - 10) for v in sw.best_score_batch(SA, SB)]
+    gmin = [int(sw.best_score(ga, gb)) - 10]
+    nwc, swc = (kernels, "nw_fill_dirs_carry"), (kernels, "sw_fill_dirs_carry")
+
+    def hits(A_, B_, m):
+        return [list(itertools.islice(it, 8))
+                for it in sw.align_batch(A_, B_, m)]
+
+    return {
+        f"long job 1 nw align_batch {LONG_NW} x 20-40kb x 6-10kb": (
+            lambda: nw.align_batch(A[:2], B[:2]),
+            lambda: nw.align_batch(A, B), nwc),
+        f"long job 2 nw[nsg+neg] align_batch {LONG_NSG} x 20-40kb x "
+        f"6-10kb": (lambda: nwf.align_batch(A[:2], B[:2]),
+                    lambda: nwf.align_batch(A[:LONG_NSG], B[:LONG_NSG]),
+                    nwc),
+        f"long job 3 sw align_batch {LONG_SW} x 20-40kb x 6-10kb, best - "
+        f"10, 8 hits": (lambda: hits(SA[:2], SB[:2], mins[:2]),
+                        lambda: hits(SA, SB, mins), swc),
+        "long job 5a NeedlemanWunsch.align_long": (
+            lambda: nw.align_long(A[1], B[1]),
+            lambda: nw.align_long(A[0], B[0]), nwc),
+        "long job 5b SmithWaterman.align_long, 8 hits": (
+            lambda: list(itertools.islice(sw.align_long(
+                SA[1], SB[1], min_score=mins[1]), 8)),
+            lambda: list(itertools.islice(sw.align_long(
+                SA[0], SB[0], min_score=mins[0]), 8)), swc),
+        f"long job 6 sw align_batch 1 x {GIANT} x {GIANT}, best - 10, 8 "
+        f"hits": (lambda: hits(SA[:1], SB[:1], mins[:1]),
+                  lambda: hits([ga], [gb], gmin), swc)}
 
 
 HARVEST_AB_CHUNK = 256  # the CLIs' pairs per align_batch call
@@ -3424,9 +3540,11 @@ def opcode_mix(ins, top=10) -> str:
 
 def sass_report(old, gpu):
     """``--sass``: the probe kernels' and the add-then-max chains' opcode
-    mixes, each tile fill's (csrc/tile_fill.cuh) with its registers and
-    spills, and, with an older tree ``old``, the fill instantiations both
-    trees share compared instruction by instruction."""
+    mixes, each tile fill's (csrc/tile_fill.cuh) and tile carry's
+    (csrc/tile_carry.cuh) with its registers, spills and local memory
+    instructions (LDL, STL), and, with an older tree ``old``, the fill
+    instantiations both trees share compared instruction by
+    instruction."""
     import re
     import tempfile
     from pathlib import Path
@@ -3468,9 +3586,14 @@ def sass_report(old, gpu):
         if m and entry:
             usage.setdefault(entry, {})["regs"] = int(m.group(1))
     for name, ins in sorted(new.items()):
-        if "tile_fill_kernel" in name:
+        if "tile_fill_kernel" in name or "tile_carry_kernel" in name:
+            ops = [i.split()[1 if i.startswith("@") else 0].split(".")[0]
+                   for i in ins]
             log(f"sass: {demangle(name)}: {len(ins)} instructions, "
-                f"{usage.get(name, {})}: {opcode_mix(ins, 16)}")
+                f"{usage.get(name, {})}, " + ", ".join(
+                    f"{o} {ops.count(o)}" for o in ("VIADDMNMX", "VIMNMX3",
+                                                    "LDL", "STL"))
+                + f": {opcode_mix(ins, 16)}")
     if old:
         common = sorted(set(new) & set(prev))
         fills = [n for n in common if "fill_kernel" in n]
@@ -3617,7 +3740,7 @@ def main() -> int:
             n = vpu_launches[name][counter]
         elif name.endswith("_fill_gab"):
             n = launches["cli"][counter]
-        elif mode in ("carry", "chunked"):
+        elif mode.startswith("carry") or mode == "chunked":
             n = launches["long"][counter]
         elif mode in ("", "ragged"):  # the default flags: a row a shape
             n = launches[name.split("_")[0]][counter]

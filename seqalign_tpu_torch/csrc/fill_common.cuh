@@ -4,7 +4,8 @@
 // recurrence or any combination of the five scoring flags.  The four
 // fills launch it for the flagged recurrence (MODES) only; their
 // default-flag launches run tile_fill.cuh's register tiles.  The matrix
-// dump (GAB) and the long pairs' chunks (CARRY) run here under every flag.
+// dump (GAB) runs here under every flag, the long pairs' chunks (CARRY)
+// under flags (their default-flag chunks run tile_carry.cuh).
 //
 // Replaces the recurrence of seqalign_tpu/ops/pallas_dp2.py:_kernel2 and
 // :_dirs_kernel2 in their NW and SW modes, equality and packed-LUT
@@ -57,8 +58,10 @@
 // compile to the plain recurrence; GAB is an instantiation of its own and
 // its extra stores are dead code in the others.
 //
-// CARRY fills one chunk of a long pair (fill_carry_kernel, a kernel of its
-// own, so that fill_kernel's instantiations take no chunk state): the
+// CARRY fills one chunk of a long pair under the scoring flags
+// (fill_carry_kernel, a kernel of its own, so that fill_kernel's
+// instantiations take no chunk state; the default flags' chunks run
+// tile_carry.cuh, which computes the same, bit for bit): the
 // columns x_off+1 .. x_off+CA of the global DP (replacing the chunked mode
 // of pallas_dp.py:_dirs_kernel, driven by fill_dirs_long with _next_bcol,
 // pallas_dp.py:1199-1334).  The
@@ -596,21 +599,21 @@ int launch_table(const void* ac, const void* bc, const void* na,
       scores, corner, dirs, mout, scratch, stream, sc, cr);
 }
 
-template <bool DIRS, bool SW, int MBYTES, bool CARRY = false>
+template <bool DIRS, bool SW, int MBYTES>
 int launch_mode(const void* ac, const void* bc, const void* na,
                 const void* nb, const void* scal, const void* sub,
                 const void* im, int modes, int Kb, int sub_n, int table_smem,
                 int B, int LA, int LB, void* scores, void* corner,
                 void* dirs, void* mout, void* scratch, void* stream,
-                const Sched& sc, const Carry& cr = Carry{}) {
+                const Sched& sc) {
   if (modes) {
-    return launch_table<DIRS, SW, MBYTES, true, CARRY>(
+    return launch_table<DIRS, SW, MBYTES, true, false>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, corner, dirs, mout, scratch, stream, sc, cr);
+        LB, scores, corner, dirs, mout, scratch, stream, sc, Carry{});
   }
-  return launch_table<DIRS, SW, MBYTES, false, CARRY>(
+  return launch_table<DIRS, SW, MBYTES, false, false>(
       ac, bc, na, nb, scal, sub, nullptr, 0, Kb, sub_n, table_smem, B, LA, LB,
-      scores, corner, dirs, mout, scratch, stream, sc, cr);
+      scores, corner, dirs, mout, scratch, stream, sc, Carry{});
 }
 
 }  // namespace fill
@@ -636,7 +639,9 @@ int launch_mode(const void* ac, const void* bc, const void* na,
                 static_cast<const long long*>(off), lanes }
 
 // The two carry entry points (one chunk of a long pair) add: bin, bout,
-// x_off, CA, and the pair strides of the code and M slabs (ops/build.py).
+// x_off, CA, the pair strides of the code and M slabs, and the warps of a
+// block of the default-flag tiles (tile_carry.cuh; not read under flags)
+// (ops/build.py).
 #define CARRY_ENTRY(name)                                                    \
   extern "C" int name(const void* ac, const void* bc, const void* na,       \
                       const void* nb, const void* scal, const void* sub,     \
@@ -645,7 +650,7 @@ int launch_mode(const void* ac, const void* bc, const void* na,
                       void* corner, void* dirs, void* mout, int m16,         \
                       void* scratch, void* stream, const void* bin,          \
                       void* bout, int x_off, int CA, long long dstride,      \
-                      long long mstride)
+                      long long mstride, int warps)
 
 #define CARRY_ARGS                                                           \
   fill::Carry { static_cast<const int*>(bin), static_cast<int*>(bout),      \

@@ -18,11 +18,13 @@
 // instructions), then the code stores, one byte per valid cell.  Cells
 // outside the valid band are never written; the walk never reads them.
 //
-// nw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
-// fill_common.cuh; replaces the chunked pallas_dp.py:_dirs_kernel that
-// fill_dirs_long drives): the boundary column comes in as bin and the
-// chunk's last column goes out as bout, the codes land in the chunk's slab,
-// and the corner is written by the chunk that holds x = na.
+// nw_dirs_carry_launch fills one chunk of a long pair (replaces the
+// chunked pallas_dp.py:_dirs_kernel that fill_dirs_long drives): the
+// boundary column comes in as bin and the chunk's last column goes out as
+// bout, the codes land in the chunk's slab, and the corner is written by
+// the chunk that holds x = na; the default flags on the register tiles of
+// tile_carry.cuh, a round of a pair's lanes a block, the flags on
+// fill_common.cuh's fill_carry_kernel (CARRY).
 //
 // nw_dirs_gab_launch is the same fill with the three matrices for the
 // matrix dump (the GAB mode of fill_common.cuh; replaces the emit_gab
@@ -31,6 +33,7 @@
 // bounds it (bytes) more than the barrier does at the dump's sizes.
 
 #include "fill_common.cuh"
+#include "tile_carry.cuh"
 #include "tile_fill.cuh"
 
 FILL_ENTRY(nw_dirs_launch) {
@@ -44,7 +47,10 @@ FILL_ENTRY(nw_dirs_launch) {
 }
 
 CARRY_ENTRY(nw_dirs_carry_launch) {
-  return fill::launch_mode<true, false, 0, true>(
+  if (modes == 0) {
+    return tile::carry<false, 0>(TILE_CARRY_ARGS);
+  }
+  return fill::launch_table<true, false, 0, true, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, corner, dirs, nullptr, scratch, stream, fill::Sched{},
       CARRY_ARGS);

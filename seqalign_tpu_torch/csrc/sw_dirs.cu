@@ -21,10 +21,12 @@
 // Bound on the card: integer issue, then the stores, 3 or 5 bytes per
 // valid cell (the codes coalesce per warp, the M values too).
 //
-// sw_dirs_carry_launch fills one chunk of a long pair (the CARRY mode of
-// fill_common.cuh): codes into the chunk's slab, M into a plane of the
-// chunk alone (harvested and freed before the next chunk), the boundary
-// column carried through bin / bout, the pair's best raised in place.
+// sw_dirs_carry_launch fills one chunk of a long pair: codes into the
+// chunk's slab, M into a plane of the chunk alone (harvested and freed
+// before the next chunk), the boundary column carried through bin / bout,
+// the pair's best raised in place; the default flags on the register tiles
+// of tile_carry.cuh, a round of a pair's lanes a block, the flags on
+// fill_common.cuh's fill_carry_kernel (CARRY).
 //
 // sw_dirs_gab_launch is the fill with the three matrices for the matrix
 // dump (the GAB mode; replaces the SW emit_gab planes of dp_fill): M, Ga
@@ -32,6 +34,7 @@
 // harvest reads as M.
 
 #include "fill_common.cuh"
+#include "tile_carry.cuh"
 #include "tile_fill.cuh"
 
 FILL_ENTRY(sw_dirs_launch) {
@@ -52,13 +55,17 @@ FILL_ENTRY(sw_dirs_launch) {
 }
 
 CARRY_ENTRY(sw_dirs_carry_launch) {
+  if (modes == 0) {
+    return m16 ? tile::carry<true, 2>(TILE_CARRY_ARGS)
+               : tile::carry<true, 4>(TILE_CARRY_ARGS);
+  }
   if (m16) {
-    return fill::launch_mode<true, true, 2, true>(
+    return fill::launch_table<true, true, 2, true, true>(
         ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
         LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
         CARRY_ARGS);
   }
-  return fill::launch_mode<true, true, 4, true>(
+  return fill::launch_table<true, true, 4, true, true>(
       ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
       LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
       CARRY_ARGS);

@@ -1,9 +1,10 @@
 // Gotoh fill as register tiles on the anti-diagonal: the default-flag fills
 // of nw_scores.cu, nw_dirs.cu, sw_scores.cu and sw_dirs.cu (modes == 0, no
-// GAB planes, no carry), equality or substitution-table scoring, uniform or
-// under a fill schedule (one launch across widths).  The flagged fills
-// (MODES), the matrix dump (GAB) and the long pairs' chunks (CARRY) stay
-// on fill_common.cuh's fill_kernel / fill_carry_kernel.
+// GAB planes), equality or substitution-table scoring, uniform or under a
+// fill schedule (one launch across widths); the long pairs' default-flag
+// chunks run the same Tile from tile_carry.cuh.  The flagged fills
+// (MODES) and the matrix dump (GAB) stay on fill_common.cuh's fill_kernel,
+// the flagged chunks on its fill_carry_kernel.
 //
 // Replaces, for the default flags, the recurrence of seqalign_tpu/ops/
 // pallas_dp2.py:_kernel2 (scores: NW corner, SW best) and :_dirs_kernel2
@@ -184,7 +185,11 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[R]) {
 // One warp's tile: the pair's constants, the strip's, and the scalars it
 // carries; the lanes' registers are arrays of the kernel, passed in by
 // reference (as members of this struct nvcc kept them in local memory).
-template <bool DIRS, bool SW, bool TABLE, int MBYTES, int R>
+// CARRY: one chunk of a long pair (tile_carry.cuh); na is then the chunk's
+// local width, and the members below the CARRY line take the duties of the
+// closed-form boundary.
+template <bool DIRS, bool SW, bool TABLE, int MBYTES, int R,
+          bool CARRY = false>
 struct Tile {
   using MT = typename std::conditional<MBYTES == 2, int16_t, int>::type;
   static constexpr int S = 32 * R;
@@ -207,6 +212,16 @@ struct Tile {
   int u2m, u2a, u2b;  // lane 0's up neighbour at d-2
   int pm, pa, pb, ph;  // thread 31: the source of the next step
   int best;
+  // CARRY: the chunk's first global column x0 (row 0 is computed at
+  // x0 + x); its column x = 0 in, bin, and the column x = bcol out, bout,
+  // both (M, Ga, Gb) planes of bstride lanes; the local column of the NW
+  // corner, cx (bcol and cx out of reach where the chunk has none); and
+  // whether thread 0's source is a round row in global memory that
+  // another block writes (read through L2, where it is coherent)
+  int x0, bstride, bcol, cx;
+  const int* bin;
+  int* bout;
+  bool gsrc;
 
   __device__ __forceinline__ int run(int k) const {
     return SW ? 0 : add(go, k * ge);
@@ -215,14 +230,21 @@ struct Tile {
   // thread 31: thread 0's up neighbour at column x, and its a code
   __device__ __forceinline__ void fetch(int x) {
     if (row0) {
-      pm = x ? mn : 0;
-      pa = x ? mn : 0;
-      pb = x ? run(x) : 0;
+      const int xg = CARRY ? x0 + x : x;
+      pm = xg ? mn : 0;
+      pa = xg ? mn : 0;
+      pb = xg ? run(xg) : 0;
     } else if (x <= smax) {
       const int* q = src + (x & smask);
-      pm = q[0];
-      pa = q[sstride];
-      pb = q[2 * sstride];
+      if (CARRY && gsrc) {
+        pm = __ldcg(q);
+        pa = __ldcg(q + sstride);
+        pb = __ldcg(q + 2 * sstride);
+      } else {
+        pm = q[0];
+        pa = q[sstride];
+        pb = q[2 * sstride];
+      }
     }
     ph = (x >= 1 && x <= na) ? static_cast<int>(a[x - 1]) * kmul : 0;
   }
@@ -296,9 +318,17 @@ struct Tile {
     if (CK) {
       const int x = xb - r, y = y0 + r;
       if (x == 0) {  // the boundary column (alignment.c:51-81)
-        M = mn;
-        Ga = run(y);
-        Gb = mn;
+        if constexpr (CARRY) {  // the chunk's, carried in
+          if (y <= nb) {
+            M = bin[y];
+            Ga = bin[bstride + y];
+            Gb = bin[2 * bstride + y];
+          }
+        } else {
+          M = mn;
+          Ga = run(y);
+          Gb = mn;
+        }
       }
       valid = x >= 1 && x <= na && y <= nb;
     }
@@ -317,11 +347,16 @@ struct Tile {
     if (CK && valid) {
       if (DIRS) dj[row + y0 + r] = static_cast<uint8_t>(code[r]);
       if (MBYTES) mj[row + y0 + r] = static_cast<MT>(M);
-      if (!SW && xb - r == na && y0 + r == nb) {  // the NW corner
+      if (!SW && xb - r == (CARRY ? cx : na) && y0 + r == nb) {  // NW corner
         corner[3 * j] = M;
         corner[3 * j + 1] = Ga;
         corner[3 * j + 2] = Gb;
         scores[j] = fill::max3(M, Ga, Gb);
+      }
+      if (CARRY && xb - r == bcol) {  // the chunk's last column, out
+        bout[y0 + r] = M;
+        bout[bstride + y0 + r] = Ga;
+        bout[2 * bstride + y0 + r] = Gb;
       }
     }
     if (DIRS) {

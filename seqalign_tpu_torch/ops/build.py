@@ -5,9 +5,9 @@ parallel processes, and links them into one shared library with a plain C
 interface, loaded with ``ctypes`` (seconds to build; no PyTorch headers).
 The library lands in ``seqalign_tpu_torch/_build/`` under a name keyed by a
 hash of every file of ``csrc/`` (the headers ``fill_common.cuh``,
-``tile_fill.cuh`` and ``slab.cuh`` too) and the flags, is written to a
-temporary name first and
-then renamed, so a stale or half-written library is never loaded; the
+``tile_fill.cuh``, ``tile_carry.cuh`` and ``slab.cuh`` too) and the flags,
+is written to a temporary name first and then renamed, so a stale or
+half-written library is never loaded; the
 objects live in a temporary directory that is removed.  The build runs at
 first use; a failed build raises with nvcc's output.
 """
@@ -36,8 +36,9 @@ _COMMON = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
            _P, _P, _I, _P, _P)
 # then the schedule: order, slot, off, smem_lanes
 _FILL = _COMMON + (_P, _P, _P, _I)
-# then bin, bout, x_off, CA, code and M pair strides
-_CARRY = _COMMON + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong)
+# then bin, bout, x_off, CA, code and M pair strides, warps a block
+_CARRY = _COMMON + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+                    _I)
 _SIGNATURES = {
     "nw_scores_launch": _FILL,
     "nw_dirs_launch": _FILL,

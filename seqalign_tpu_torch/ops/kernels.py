@@ -12,9 +12,10 @@ widths), and the ALU probe ``vpu_chain``.
 
 The four fills' default-flag launches (``params.modes == 0``) run the
 register tiles of csrc/tile_fill.cuh (a warp a strip of 32 * ``TILE_R``
-lanes); their flagged launches, the matrix dump and the
-long pairs' chunks run fill_kernel / fill_carry_kernel of
-csrc/fill_common.cuh.
+lanes), the long pairs' default-flag chunks the same tiles from
+csrc/tile_carry.cuh (a round of a pair's lanes a block, :func:`carry_warps`
+warps); their flagged launches and the matrix dump run fill_kernel, the
+flagged chunks fill_carry_kernel, of csrc/fill_common.cuh.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -32,6 +33,7 @@ under its kernel's name, a launch across widths (a fill under a schedule,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -59,6 +61,46 @@ RAGGED_SMEM_LANES = 6400
 # round (a pair with more takes a round row of 3 * (LA+1) int32 in global
 # scratch), TILE_R lanes a thread.
 TILE_RING, TILE_LANES, TILE_R = 128, 2048, 4
+# The default-flag carry (csrc/tile_carry.cuh, WORD there): int32 between
+# two progress words of its round rows; and the fewest warps a block that
+# carry_warps picks.
+CARRY_WORD = 32
+CARRY_MIN_WARPS = 4
+
+
+def carry_rounds(LB: int, warps: int) -> int:
+    """Rounds of ``warps`` strips of 32 * ``TILE_R`` lanes that a pair of
+    ``LB`` lanes of b takes in a default-flag carry launch."""
+    strips = -(-max(LB, 1) // (32 * TILE_R))
+    return -(-strips // warps)
+
+
+def carry_warps(B: int, LB: int, sms: int) -> int:
+    """The warps a block of a default-flag carry launch over ``B`` pairs of
+    ``LB`` lanes of b on a card of ``sms`` SMs: the most, ``TILE_LANES`` /
+    (32 * ``TILE_R``), halved while B x rounds stays below ``sms`` and the
+    warps above ``CARRY_MIN_WARPS``, and no more than a pair's strips.
+    Each round is a block of its own, so fewer warps put a pair on more SMs
+    (PERF.md, section 6, gives the measurement)."""
+    strips = -(-max(LB, 1) // (32 * TILE_R))
+    w = TILE_LANES // (32 * TILE_R)
+    while w > CARRY_MIN_WARPS and B * carry_rounds(LB, w) < sms:
+        w //= 2
+    return max(1, min(w, strips))
+
+
+def carry_scratch_ints(B: int, LB: int, ca: int, warps: int) -> int:
+    """int32 of a default-flag carry launch's scratch (csrc/tile_carry.cuh,
+    Rounds): a progress word each ``CARRY_WORD`` int32 for each of the
+    B x (rounds - 1) round boundaries and one for the ticket counter, then
+    a row of 3 * (ca + 1) int32 for each boundary."""
+    rows = B * (carry_rounds(LB, warps) - 1)
+    return (rows + 1) * CARRY_WORD + rows * 3 * (ca + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class FillSchedule(NamedTuple):
@@ -216,28 +258,39 @@ def _check_sched(sched, B):
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
           dirs=None, mout=None, m16=False, sched=None, carry=None):
     """Launch one of the fill kernels.  The default-flag launches of the
-    four fills (``params.modes == 0``, not the matrix dump, not a carry)
-    run the register tiles of csrc/tile_fill.cuh: ``TILE_R`` lanes a
+    four fills (``params.modes == 0``, not the matrix dump) run the
+    register tiles of csrc/tile_fill.cuh: ``TILE_R`` lanes a
     thread, a warp's edge ring (12 * ``TILE_RING`` bytes) in shared
     memory, and a round row of 3 * (LA+1) int32 in scratch for each pair
     past ``TILE_LANES`` lanes of b (slice j without a schedule, the
-    schedule's ``wrap`` slot with one).  The others run fill_kernel
-    (csrc/fill_common.cuh): without a schedule the rolling diagonals (36
-    bytes per lane) of every pair take shared memory when LB+1 lanes fit
-    there, else a global scratch buffer; with one, a pair's take shared
-    memory when its own lanes fit the schedule's, else its slice of
-    scratch.  The table (4 bytes per entry, twice that with the is-match
-    table of no_mismatches) takes the shared memory left, else the
-    read-only global path.  ``carry``: the extra arguments of a carry
-    entry, which takes no schedule."""
+    schedule's ``wrap`` slot with one).  A default-flag carry runs
+    csrc/tile_carry.cuh: a block of :func:`carry_warps` warps for each
+    round of each pair, their rings in shared memory, and a scratch of
+    :func:`carry_scratch_ints` int32 for the round rows, their progress
+    words and the ticket counter.  The others run fill_kernel or
+    fill_carry_kernel (csrc/fill_common.cuh): without a schedule the
+    rolling diagonals (36 bytes per lane) of every pair take shared memory
+    when LB+1 lanes fit there, else a global scratch buffer; with one, a
+    pair's take shared memory when its own lanes fit the schedule's, else
+    its slice of scratch.  The table (4 bytes per entry, twice that with
+    the is-match table of no_mismatches) takes the shared memory left,
+    else the read-only global path.  ``carry``: the extra arguments of a
+    carry entry, which takes no schedule."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
         return
     dev = ac.device
-    tiles = (params.modes == 0 and carry is None
-             and not entry.endswith("_gab_launch"))
-    if tiles:
+    tiles = params.modes == 0 and not entry.endswith("_gab_launch")
+    warps = 0  # a carry's warps a block, read by the tiles only
+    if tiles and carry is not None:
+        lanes = 0  # not read
+        warps = carry_warps(B, LB, _sms(torch.cuda.current_device()
+                                        if dev.index is None else dev.index))
+        smem = 12 * TILE_RING * warps
+        scratch = torch.empty(carry_scratch_ints(B, LB, carry[3], warps),
+                              dtype=torch.int32, device=dev)
+    elif tiles:
         lanes = 0  # not read
         smem = 12 * TILE_RING * min(-(-LB // (32 * TILE_R)),
                                     TILE_LANES // (32 * TILE_R))
@@ -269,7 +322,7 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
                 (_ptr(sched.order), _ptr(sched.wrap if tiles else sched.slot),
                  _ptr(sched.off), lanes))
     else:
-        tail = carry
+        tail = (*carry, warps)
     rc = getattr(lib, entry)(
         _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
         _ptr(im), params.modes, kb, sub_n, table_smem, B, LA, LB,

@@ -1108,3 +1108,75 @@ def test_tile_fills_equal_plain_versions(dev, case, wide):
             assert after[k] - before[k] == want
             assert after[f"{k}[ragged]"] - before[f"{k}[ragged]"] == want
         del plain, v, pv
+
+
+# The default-flag carry on the register tiles (csrc/tile_carry.cuh), a
+# round of a pair's lanes a block: name -> (scoring, pairs, (CA, LA, LB),
+# warps a block or None for kernels.carry_warps).  Chunks narrower and
+# wider than the lanes; b of 3 and more rounds at 4 warps; 10,240 lanes;
+# 16 warps; one warp; BLOSUM62 with an empty seq_a and an empty seq_b (the
+# corners that F4's workaround guards); and 300 pairs at 2 warps, 1,800
+# blocks, more than the card holds at once, so that rounds wait on
+# producers that took their tickets earlier.
+TILE_CARRY_CASES = {
+    "narrow_chunk": ("equality", 4, (64, 700, 1500), None),
+    "wide_chunk": ("equality", 4, (2048, 3000, 600), None),
+    "lanes_10240": ("equality", 4, (1024, 2600, 10240), None),
+    "warps_16": ("equality", 4, (512, 1400, 6600), 16),
+    "warps_1": ("equality", 3, (256, 700, 900), 1),
+    "blosum62_empty": ("blosum62", 4, (256, 700, 1200), None),
+    "past_residency": ("equality", 300, (256, 520, 1500), 2),
+}
+
+
+@pytest.mark.parametrize("fill", ["nw", "sw_m16", "sw_m32"])
+@pytest.mark.parametrize("case", list(TILE_CARRY_CASES))
+def test_tile_carry_equals_plain_versions(dev, monkeypatch, case, fill):
+    """The default-flag carry kernels (csrc/tile_carry.cuh) against their
+    plain versions chunk by chunk at TILE_CARRY_CASES' shapes: codes of
+    every slab and SW M on the valid cells, bout on the lanes 1 .. nb of
+    the pairs that reach it, the NW corner or the SW best; one pair ends
+    on the last column of chunk 1, one in the middle of a chunk, and the
+    launch counters count one launch a chunk under the carry's name."""
+    sw, m16 = fill != "nw", fill == "sw_m16"
+    scoring, B, (ca, la, lb), warps = TILE_CARRY_CASES[case]
+    if warps is not None:
+        monkeypatch.setattr(kernels, "carry_warps", lambda *a: warps)
+    if scoring == "blosum62":
+        sc, alpha = scoring_system_BLOSUM62(), PROTEIN
+    else:
+        sc = scoring_system_sw_default() if sw else scoring_system_default()
+        alpha = "acgtACGT"
+    rng = np.random.default_rng(len(case) + 7 * sw + ca)
+    A, Bs = _text(rng, alpha, B, la // 2, la), _text(rng, alpha, B,
+                                                     lb // 2, lb)
+    A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
+    A[1] = A[1][:ca + ca // 2]  # ends inside chunk 1
+    if scoring == "blosum62":
+        A[2], Bs[3] = "", ""
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, la,
+                                    lb)
+    assert bp.modes == 0 and (bp.sub is not None) == (scoring != "equality")
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    nch = -(-la // ca)
+    m16 = m16 and m16_safe(sc, la, lb)
+    kfill = kernels.sw_fill_dirs_carry if sw else kernels.nw_fill_dirs_carry
+    pfill = sw_fill_dirs_carry_plain if sw else nw_fill_dirs_carry_plain
+    name = "sw_fill_dirs_carry" if sw else "nw_fill_dirs_carry"
+    before = kernel_launch_counts()[name]
+    got = _carry_run(kfill, (*t, bp), nch, ca, lb, B, dev, sw, m16)
+    torch.cuda.synchronize()
+    assert kernel_launch_counts()[name] == before + nch
+    want = _carry_run(pfill, (*t, bp), nch, ca, lb, B, dev, sw, m16)
+    na_t, nb_t = t[2], t[3]
+    y = torch.arange(lb + 1, device=dev)[None, None, :]
+    lanes = (y >= 1) & (y <= nb_t[:, None, None])
+    for c in range(nch):
+        v = _slab_valid(dev, ca + lb - 1, lb, c, ca, na_t, nb_t)
+        assert torch.equal(got[0][:, c][v], want[0][:, c][v]), c
+        if sw:
+            assert torch.equal(got[2][c][v], want[2][c][v]), c
+        keep = ((na_t >= (c + 1) * ca)[:, None, None] & lanes).expand(
+            -1, 3, -1)
+        assert torch.equal(got[1][c][keep], want[1][c][keep]), c
+    assert torch.equal(got[3], want[3])

@@ -16,7 +16,13 @@ It is held with tolerance 0 to the JAX package's ``dp.dp_fill`` (through
 ``dp.fill_batch``), NW and SW, equality and BLOSUM62, at R of 1, 4 and 8,
 b sides one lane short of a strip, a strip, one lane over, three and five
 strips, empty sides, the uniform layout and ragged planes at their own
-row strides, one round and several.  The kernel itself is held to the
+row strides, one round and several.  :func:`tile_carry_model` is the
+long pairs' carry on the same tiles (csrc/tile_carry.cuh): one chunk of
+columns with the boundary column in and out, each round of a pair's lanes
+a block that takes its (pair, round) by ticket, blocks running in a random
+order with 1 to 5 resident, and every read of a round row checked against
+what its producer has published; it is held chunk by chunk to the JAX
+package's ``dp.fill_chunked``.  The kernels themselves are held to the
 plain versions on the card by ``tests/test_torch_cuda.py``."""
 
 import functools
@@ -89,6 +95,37 @@ class Rec:
         self.pieces = []
 
 
+def cells(h, bcd, up, dg, p1, tab, scal, sw):
+    """One step's cells of a warp, (32, R) lanes, as the kernel's cell():
+    h the lanes' a codes (times kb under a table), bcd their b codes, up
+    the (M, Ga, Gb) at (y-1, x), dg at (y-1, x-1), p1 at (y, x-1).  Returns
+    (ss, M, Ga, Gb) before the boundary column."""
+    match, mismatch, go, ge = (int(v) for v in scal[:4])
+    mn = int(scal[5] if sw else scal[4])
+    gop = int(w32(go + ge))
+    ss = (tab[h + bcd] if tab is not None
+          else np.where(h == bcd, match, mismatch))
+    M = np.maximum(w32(dg.max(0) + ss), mn)
+    Ga = np.maximum.reduce([w32(up[0] + gop), w32(up[1] + ge),
+                            w32(up[2] + gop), np.full_like(M, mn)])
+    Gb = np.maximum.reduce([w32(p1[0] + gop), w32(p1[1] + gop),
+                            w32(p1[2] + ge), np.full_like(M, mn)])
+    return ss, M, Ga, Gb
+
+
+def cell_codes(ss, M, Ga, Gb, up, dg, p1, scal):
+    """The direction codes of :func:`cells`' lanes, as the kernel compares
+    them (p == v - c for add(p, c) == v)."""
+    ge = int(scal[3])
+    gop = int(w32(int(scal[2]) + ge))
+    tm = w32(M - ss)
+    return (pick(dg[1] == tm, dg[2] == tm, dg[0] == tm)
+            | pick(up[1] == w32(Ga - ge), up[2] == w32(Ga - gop),
+                   up[0] == w32(Ga - gop)) << 2
+            | pick(p1[1] == w32(Gb - gop), p1[2] == w32(Gb - ge),
+                   p1[0] == w32(Gb - gop)) << 4)
+
+
 def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
                     at, LBp, LA, rec, rng):
     """One pair's block of the tile fill: a, b its codes (the kernel's
@@ -96,9 +133,8 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
     ``kb`` its row length; codes (``dirs``) and M (``mbytes`` 2 or 4) go
     to ``rec`` at element ``at`` with rows of ``LBp`` lanes.  W: warps of
     the block.  Returns (corner or None, score)."""
-    match, mismatch, go, ge = (int(v) for v in scal[:4])
+    go, ge = int(scal[2]), int(scal[3])
     mn = int(scal[5] if sw else scal[4])
-    gop = int(w32(go + ge))
 
     def run(k):
         return np.zeros_like(k) if sw else w32(go + np.asarray(k) * ge)
@@ -176,14 +212,7 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
         fetch(st, w, s, i + 1, t)
         up = np.concatenate([u1[:, :, None], p1[:, :, :-1]], 2)
         dg = np.concatenate([st["u2"][:, :, None], p2[:, :, :-1]], 2)
-        bc = st["bcd"]
-        ss = (tab[h + bc] if tab is not None
-              else np.where(h == bc, match, mismatch))
-        M = np.maximum(w32(dg.max(0) + ss), mn)
-        Ga = np.maximum.reduce([w32(up[0] + gop), w32(up[1] + ge),
-                                w32(up[2] + gop), np.full_like(M, mn)])
-        Gb = np.maximum.reduce([w32(p1[0] + gop), w32(p1[1] + gop),
-                                w32(p1[2] + ge), np.full_like(M, mn)])
+        ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw)
         x = i - lanes * R - rr
         valid = (x >= 1) & (x <= na) & (y <= nb)
         if checked:
@@ -192,12 +221,7 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
                          np.where(b0, mn, Gb))
         else:
             assert valid.all()
-        tm = w32(M - ss)
-        code = (pick(dg[1] == tm, dg[2] == tm, dg[0] == tm)
-                | pick(up[1] == w32(Ga - ge), up[2] == w32(Ga - gop),
-                       up[0] == w32(Ga - gop)) << 2
-                | pick(p1[1] == w32(Gb - gop), p1[2] == w32(Gb - ge),
-                       p1[0] == w32(Gb - gop)) << 4)
+        code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal)
         if sw and valid.any():
             out["best"] = max(out["best"], int(M[valid].max()))
         base = at + (ys + i - 2) * LBp  # the row of diagonal d = ys + i
@@ -315,6 +339,212 @@ def model_launch(sc, A, B, sw, R, W, ragged, seed):
     return corners, scores, rec, off, na, nb, LB, mbytes
 
 
+def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
+                     bin, bout, rec, bw, corner, best, resident, rng):
+    """One default-flag carry launch (csrc/tile_carry.cuh) over a packed
+    batch, ``ac`` (B, LA) and ``bc`` (B, LB) its codes: the chunk of ``ca``
+    columns from ``x_off``, ``bin`` (B, 3, LB+1) the column x_off in,
+    ``bout`` the column x_off+ca out (``bw`` counts its writes); codes and
+    M go to ``rec`` (a :class:`Rec` of the (B, ca+LB-1, LB+1) slab),
+    ``corner`` (B, 3) and ``best`` (B,) change in place.  A block of W
+    warps fills one round of one pair; blocks take tickets in order,
+    ticket t being pair t mod B and round t // B, and at most ``resident``
+    blocks are alive.  One alive block at a time, picked at random, runs
+    its next macro step, its warps in a random order, unless warp 0 waits
+    for columns its round row has not published; when every alive block
+    waits, the launch has deadlocked and the model fails.  Every read of a
+    round row checks that the column was written and published, every
+    ring read that it was written in an earlier macro step; registers the
+    kernel never sets start as garbage."""
+    B, LA = ac.shape
+    LB = bc.shape[1]
+    LBp, D, S = LB + 1, ca + LB - 1, 32 * R
+    go, ge = int(scal[2]), int(scal[3])
+    mn = int(scal[5] if sw else scal[4])
+    kmul = kb if tab is not None else 1
+    rounds = -(-(-(-max(LB, 1) // S)) // W)
+    nrows = B * (rounds - 1)
+    garbage = functools.partial(rng.integers, -2 ** 31, 2 ** 31,
+                                dtype=np.int64)
+
+    def agarbage(shape):  # as in tile_fill_model
+        if tab is None:
+            return garbage(shape)
+        return rng.integers(0, len(tab) // kb, shape, dtype=np.int64) * kb
+
+    words = np.zeros(nrows, np.int64)
+    rows = garbage((nrows, 3, ca + 1))
+    rows_at = np.full((nrows, ca + 1), -1, np.int64)
+    lanes = np.arange(32)[:, None]
+    rr = np.arange(R)[None, :]
+
+    def run(k):
+        return np.zeros_like(k) if sw else w32(go + np.asarray(k) * ge)
+
+    def block(t):
+        j, r = t % B, t // B
+        naj, nbj = min(max(int(na[j]), 0), LA), min(max(int(nb[j]), 0), LB)
+        wa = max(0, min(ca, naj - x_off))
+        if not sw and r == 0:
+            if wa == 0 and naj == 0 and x_off == 0:  # the cell (nb, 0)
+                corner[j] = bin[j, :, nbj]
+            elif wa > 0 and nbj == 0 and naj <= x_off + ca:  # (0, na)
+                corner[j] = (mn, mn, int(run(naj)))
+        if wa == 0 or nbj == 0:
+            return
+        nstrips = -(-nbj // S)
+        Wj = min(W, nstrips - r * W)
+        if Wj <= 0:
+            return
+        a = ac[j, x_off:x_off + wa]
+        steps = -(-(wa + S) // R) * R
+        ndur = -(-steps // K)
+        last = nstrips - 1
+        none = -(1 << 40)  # a column no lane reaches
+        bcol = ca if wa == ca else none
+        cx = wa if naj <= x_off + ca else none
+        ulim = wa - 1 if wa == ca else wa
+        rin, rout = (r - 1) * B + j, r * B + j
+        ring = garbage((Wj, 3, RING))
+        ring_at = np.full((Wj, RING, 2), -1, np.int64)
+        state = [None] * Wj
+        blk = {"seen": 0, "best": 0}
+
+        def fetch(st, w, s, x, tt):
+            if s == 0:  # the global row-0 cell (0, x_off + x)
+                xg = x_off + x
+                st["p"] = (np.array([0, 0, 0]) if xg == 0 else
+                           np.array([mn, mn, int(run(xg))]))
+            elif w > 0:
+                if x <= wa:
+                    col, when = ring_at[w - 1, x % RING]
+                    assert col == x and when < tt, (w, x, col, when, tt)
+                st["p"] = ring[w - 1, :, x % RING].copy()
+            elif x <= wa:  # the round row, published up to "seen"
+                assert x < blk["seen"] and rows_at[rin, x] == x, (
+                    x, blk["seen"], rows_at[rin, x])
+                st["p"] = rows[rin, :, x].copy()
+            st["ph"] = (int(a[x - 1]) * kmul if 1 <= x <= wa
+                        else int(agarbage(())))
+
+        def begin(w, s, tt):
+            ys = s * S + 1
+            y = ys + lanes * R + rr
+            st = {"ys": ys, "y": y, "full": ys + S - 1 <= nbj,
+                  "bcd": np.where(y <= nbj, bc[j][np.minimum(y, nbj) - 1],
+                                  0),
+                  "h": agarbage((32, R)), "p1": garbage((3, 32, R)),
+                  "p2": garbage((3, 32, R)), "u2": garbage((3, 32))}
+            fetch(st, w, s, 0, tt)
+            state[w] = st
+
+        def step(w, s, i, checked, tt):
+            st = state[w]
+            ys, y, p1, p2 = st["ys"], st["y"], st["p1"], st["p2"]
+            send = p1[:, :, R - 1].copy()
+            send[:, 31] = st["p"]
+            u1 = np.roll(send, 1, axis=1)
+            sendh = st["h"][:, R - 1].copy()
+            sendh[31] = st["ph"]
+            h = np.concatenate([np.roll(sendh, 1)[:, None], st["h"][:, :-1]],
+                               1)
+            fetch(st, w, s, i + 1, tt)
+            up = np.concatenate([u1[:, :, None], p1[:, :, :-1]], 2)
+            dg = np.concatenate([st["u2"][:, :, None], p2[:, :, :-1]], 2)
+            ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw)
+            x = i - lanes * R - rr
+            valid = (x >= 1) & (x <= wa) & (y <= nbj)
+            if checked:  # lane x == 0 takes the carried column
+                b0 = (x == 0) & (y <= nbj)
+                yb = np.minimum(y, nbj)
+                M, Ga, Gb = (np.where(b0, bin[j, k, yb], v)
+                             for k, v in enumerate((M, Ga, Gb)))
+            else:
+                assert valid.all() and not (x == bcol).any()
+            code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal)
+            if sw and valid.any():
+                blk["best"] = max(blk["best"], int(M[valid].max()))
+            base = j * D * LBp + (ys + i - 2) * LBp
+            if checked:
+                tt_, r_ = np.nonzero(valid)
+                idx = base + y[tt_, r_]
+                write(idx, code[tt_, r_], M[tt_, r_])
+                out = valid & (x == bcol)
+                for k, v in enumerate((M, Ga, Gb)):
+                    bout[j, k, y[out]] = v[out]
+                bw[j, y[out]] += 1
+                hit = valid & (x == cx) & (y == nbj)
+                if not sw and hit.any():
+                    corner[j] = (int(M[hit][0]), int(Ga[hit][0]),
+                                 int(Gb[hit][0]))
+            else:
+                for tq in range(32):
+                    e0 = base + int(y[tq, 0])
+                    rec.pieces.append((e0, 1, store_pieces(e0, R, 1)))
+                write((base + y).ravel(), code.ravel(), M.ravel())
+            st["p2"] = p1
+            st["p1"] = np.stack([M, Ga, Gb])
+            st["u2"], st["h"] = u1, h
+            xo = i - S + 1  # thread 31's last lane, for the next strip
+            val = st["p1"][:, 31, R - 1]
+            if s < last and w < Wj - 1:
+                ring[w, :, xo % RING] = val
+                ring_at[w, xo % RING] = (xo, tt)
+            elif s < last and 0 <= xo <= wa:
+                rows[rout, :, xo] = val
+                rows_at[rout, xo] = xo
+
+        for tt in range((Wj - 1) * (R + 1) + ndur):
+            for w in rng.permutation(Wj):
+                q = tt - w * (R + 1)
+                if not 0 <= q < ndur:
+                    continue
+                if w == 0 and r > 0:  # columns up to (q + 1) K
+                    need = min((q + 1) * K, wa) + 1
+                    while blk["seen"] < need:
+                        if words[rin] >= need:
+                            blk["seen"] = int(words[rin])
+                        else:
+                            yield False
+                s = r * W + w
+                if q == 0:
+                    begin(w, s, tt)
+                for i0 in range(q * K, min(q * K + K, steps), R):
+                    unchecked = (state[w]["full"] and i0 >= S
+                                 and i0 + R - 1 <= ulim)
+                    for u in range(R):
+                        step(w, s, i0 + u, not unchecked, tt)
+                if s < last and w == Wj - 1:  # publish the written columns
+                    done = min((q + 1) * K - S + 1, wa + 1)
+                    if done > 0:
+                        words[rout] = done
+            yield True  # the block's barrier
+        if sw and blk["best"] > 0:
+            best[j] = max(int(best[j]), blk["best"])
+
+    def write(idx, codes, m):
+        rec.codes[idx] = codes
+        rec.m[idx] = m
+        rec.writes[idx] += 1
+
+    alive, nxt = [], 0
+    while True:
+        while len(alive) < resident and nxt < B * rounds:
+            alive.append(block(nxt))
+            nxt += 1
+        if not alive:
+            return
+        for k in rng.permutation(len(alive)):
+            try:
+                if next(alive[k]):
+                    break
+            except StopIteration:
+                alive.pop(k)
+                break
+        else:
+            raise AssertionError("every resident block waits: deadlock")
+
+
 @pytest.mark.parametrize("layout", ["uniform", "ragged"])
 @pytest.mark.parametrize("rounds", ["one", "several"])
 @pytest.mark.parametrize("scoring", ["equality", "blosum62"])
@@ -385,3 +615,148 @@ def test_fill_schedule_marks_the_pairs_past_one_round():
     nb = np.array([LANES, LANES + 1, 0, 9000, 2])
     s = kernels.fill_schedule(na, nb, "cpu")
     assert s.wrap.tolist() == [-1, 0, -1, 1, -1] and s.nwrap == 2
+
+
+def carry_pairs(regime, alpha, seed):
+    """The chunk width and pairs of a carry model case, for 512 lanes of b
+    a round (R = 1 at 16 warps, R = 4 at 4): ``narrow`` chunks of 48
+    columns, narrower than the lanes, over b of 1, 3 and 5 rounds (the last
+    pair ends on the last column of chunk 1), a pair that ends inside
+    chunk 1, one that ends before chunk 2, and empty sides; ``wide`` chunks
+    of 700 columns, wider than the b of 1 round, over b of 1 and 3 rounds,
+    a pair that ends on the last column of chunk 0 and one inside chunk
+    1."""
+    L = 512
+    if regime == "narrow":
+        ca = 48
+        lens = [(130, L - 7), (100, 2 * L + 37), (2 * ca, 4 * L + 5),
+                (70, 40), (30, L + 3), (0, 50), (40, 0), (0, 0)]
+    else:
+        ca = 700
+        lens = [(900, L - 7), (650, 2 * L + 37), (ca, 300), (760, 130)]
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(alpha))
+
+    def text(n):
+        return "".join(letters[rng.integers(0, len(letters), n)])
+
+    return ca, [text(n) for n, _ in lens], [text(m) for _, m in lens]
+
+
+@functools.lru_cache(maxsize=None)
+def carry_reference(kind, scoring, regime):
+    """The JAX package's ``dp.fill_chunked`` of :func:`carry_pairs`' pairs,
+    and ``dp.fill_batch``'s corners of the pairs with an empty seq_a (whose
+    corner fill_chunked leaves at 0)."""
+    make, alpha = SCORINGS[kind, scoring]
+    sc = make()
+    sw = kind == "sw"
+    ca, A, B = carry_pairs(regime, alpha, len(kind) + 3 * len(scoring)
+                           + len(regime))
+    ref = dp.fill_chunked(sc, A, B, is_sw=sw, chunk=ca, emit_dirs=True,
+                          emit_m=sw, validate=False)
+    empty = [i for i, a in enumerate(A) if not a]
+    corners = {}
+    if empty and not sw:
+        out, _, _ = dp.fill_batch(sc, [A[i] for i in empty],
+                                  [B[i] for i in empty], is_sw=False,
+                                  emit_dirs=False, pad_a=1,
+                                  pad_b=max(1, max(len(B[i]) for i in empty)),
+                                  validate=False)
+        corners = dict(zip(empty, np.asarray(out.corner).tolist()))
+    return sc, ca, A, B, ref, corners
+
+
+@pytest.mark.parametrize("scoring", ["equality", "blosum62"])
+@pytest.mark.parametrize("kind", ["nw", "sw"])
+@pytest.mark.parametrize("R,W,regime", [(1, 16, "narrow"), (4, 4, "narrow"),
+                                        (4, 4, "wide")],
+                         ids=["R1W16-narrow", "R4W4-narrow", "R4W4-wide"])
+def test_tile_carry_model_equals_fill_chunked(R, W, regime, kind, scoring):
+    """The carry model (:func:`tile_carry_model`), chunk by chunk with the
+    boundary column carried as the aligners carry it, against the JAX
+    package's ``dp.fill_chunked`` with tolerance 0: every valid cell of
+    every slab written once and nothing else, codes and SW M (int16 at
+    R = 1, int32 at R = 4) on them, bout on lanes 1 .. nb of the pairs that
+    reach a chunk's last column and nowhere else, the SW best and the NW
+    corner; rounds on blocks in a random order, 1 to 5 of them resident.
+    Chunks wider than a strip run unchecked step blocks (R = 4, wide)."""
+    from seqalign_tpu_torch.ops import dp as port_dp
+    from seqalign_tpu_torch.ops.pack import m16_safe
+
+    sw = kind == "sw"
+    sc, ca, A, B, ref, empty_corners = carry_reference(kind, scoring, regime)
+    corner_ref, best_ref, dch, mch, _, _ = ref
+    p = kernel_params(sc, "cpu")
+    LA, LB = max(1, max(map(len, A))), max(1, max(map(len, B)))
+    ac, bc, na, nb, bp = pack_batch(sc, p, A, B, LA, LB)
+    tab = None if bp.sub is None else bp.sub.numpy().ravel().astype(np.int64)
+    kb = 0 if bp.sub is None else bp.sub.shape[1]
+    m16 = sw and R == 1 and m16_safe(sc, LA, LB)
+    nB, D, LBp = len(A), ca + LB - 1, LB + 1
+    rng = np.random.default_rng(R * 7 + W + len(kind + scoring + regime))
+    bin = port_dp.boundary_column(bp, nB, LB, is_sw=sw).numpy().astype(
+        np.int64)
+    corner = np.zeros((nB, 3), np.int64)
+    best = np.zeros(nB, np.int64)
+    y = np.arange(LBp)[None, None, :]
+    xl = np.arange(D)[None, :, None] + 2 - y
+    unchecked = 0
+    assert len(dch) == -(-LA // ca)
+    for c in range(len(dch)):
+        rec = Rec(nB * D * LBp, np.int16 if m16 else np.int32)
+        bw = np.zeros((nB, LBp), np.int64)
+        bout = rng.integers(-2 ** 31, 2 ** 31, (nB, 3, LBp))
+        before = bout.copy()
+        tile_carry_model(ac, bc, na, nb, p.scal.numpy(), tab, kb, sw, R, W,
+                         c * ca, ca, bin, bout, rec, bw, corner, best,
+                         int(rng.choice([1, 2, 3, 5])), rng)
+        unchecked += len(rec.pieces)
+        v = ((y >= 1) & (y <= nb[:, None, None]) & (xl >= 1) & (xl <= ca)
+             & (xl + c * ca <= na[:, None, None]))
+        writes = rec.writes.reshape(nB, D, LBp)
+        np.testing.assert_array_equal(writes, v.astype(np.int64))
+        codes = rec.codes.reshape(nB, D, LBp)
+        np.testing.assert_array_equal(codes[v], np.asarray(dch[c])[v])
+        if sw:
+            m = rec.m.reshape(nB, D, LBp)
+            np.testing.assert_array_equal(m[v], np.asarray(mch[c])[v])
+        reach = (na >= (c + 1) * ca)[:, None] & (y[0] >= 1) & (
+            y[0] <= nb[:, None])
+        np.testing.assert_array_equal(bw, reach.astype(np.int64))
+        keep = np.broadcast_to(~reach[:, None, :], bout.shape)
+        np.testing.assert_array_equal(bout[keep], before[keep])
+        bin = bout
+    if sw:
+        np.testing.assert_array_equal(best, np.asarray(best_ref))
+    else:
+        for j in range(nB):
+            want = (empty_corners[j] if j in empty_corners
+                    else np.asarray(corner_ref)[j].tolist())
+            assert corner[j].tolist() == want, j
+    if regime == "wide":
+        assert unchecked, "no unchecked block ran"
+
+
+def test_carry_warps_and_scratch():
+    """The host's pick of a carry launch's warps a block (halved from 16
+    while B x rounds stays below the SMs, not below CARRY_MIN_WARPS, not
+    above a pair's strips), and the scratch it sizes, against the header's
+    progress-word stride."""
+    carry = (Path(kernels.__file__).parent.parent / "csrc" /
+             "tile_carry.cuh").read_text()
+    assert re.search(rf"constexpr int WORD = {kernels.CARRY_WORD};", carry)
+    S = 32 * kernels.TILE_R
+    assert kernels.carry_warps(4, 2048, 132) == 4  # 16 rounds of 4 pairs
+    assert kernels.carry_warps(64, 10000, 132) == 16  # 320 blocks
+    assert kernels.carry_warps(16, 10000, 132) == 8  # 160 blocks
+    assert kernels.carry_warps(1, 48000, 132) == kernels.CARRY_MIN_WARPS
+    assert kernels.carry_warps(300, 3 * S, 132) == 3  # a pair's strips
+    assert kernels.carry_warps(2, 1, 132) == 1
+    assert kernels.carry_rounds(10000, 8) == 10
+    assert kernels.carry_rounds(1, 16) == 1
+    # 4 pairs of 5 rounds: 16 boundaries, a word each and the counter,
+    # then 16 rows of 3 * (CA + 1)
+    assert kernels.carry_scratch_ints(4, 5 * 4 * S, 100, 4) == (
+        17 * kernels.CARRY_WORD + 16 * 3 * 101)
+    assert kernels.carry_scratch_ints(4, S, 100, 4) == kernels.CARRY_WORD
