@@ -5,7 +5,8 @@ Usage, from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab]
                           [--fills [--tree DIR]] [--harvest-ab [--tree DIR]]
-                          [--walls [--tree DIR]] [--sass [OLD_TREE]]
+                          [--walls [--tree DIR]] [--hits-long FILE
+                          [--tree DIR]] [--sass [OLD_TREE]]
 
 It builds the port's CUDA kernels from ``seqalign_tpu_torch/csrc`` and
 drives the main paths through the user entry points, with inputs made by
@@ -14,19 +15,19 @@ numpy from a fixed seed:
 1. each kernel and scoring mode against its plain PyTorch version on the
    same CUDA tensors (exact equality on the valid cells): ragged DNA and
    BLOSUM62 protein batches (B = 64), 1-10 kb pairs padded to the widths
-   the main path gives the kernels (2,048 and 6,144 lanes in opt-in shared
-   memory, 10,240 in global scratch), each batch's fills also as one
+   the main path gives the kernels (2,048 lanes in one round of the
+   tiles, 6,144 and 10,240 in several), each batch's fills also as one
    launch across widths (at 6,144 and 10,240 lanes every pair takes
    round rows of the register tiles' scratch), and the SW hit loop and
    walks on the harvested candidates; then kernel and plain timed with CUDA events at
    B = 256, L = 512; the carry fills of long pairs (rows ``*[carry]``) chunk
    by chunk on 4 pairs of 5,000-6,144 x 1,500-2,048 (equality, BLOSUM62
    with an empty side, nsg+neg) and at 10,240 lanes (4 pairs, and 16 of
-   path long's 6-10 kb of b, row ``nw_fill_dirs[carry,B16]``; at default
-   flags the
-   register tiles of csrc/tile_carry.cuh, a round of a pair's lanes a
-   block), and the walks over
-   their slabs (rows ``*[chunked]``); the four fills under each recurrence
+   path long's 6-10 kb of b at the default flags and under nsg+neg, rows
+   ``nw_fill_dirs[carry,B16]`` and ``nw_fill_dirs[carry,nsg+neg,B16]``;
+   the register tiles of csrc/tile_carry.cuh, a round of a pair's lanes a
+   block, under nsg+neg too, row ``nw_fill_dirs[carry,nsg+neg]``), and the
+   walks over their slabs (rows ``*[chunked]``); the four fills under each recurrence
    mode (the flag combinations of ``MODES`` and gap_open > 0; rows
    ``<kernel>[<mode>]``) at that shape and on ragged batches with empty
    sides, equality and BLOSUM62, and under flag combinations at 6,144 and
@@ -39,15 +40,15 @@ numpy from a fixed seed:
    pair's widths) on CLI job 1's mix of 256 pairs of 1-10 kb, against the
    uniform launches of its width buckets on every pair, kernel against
    kernel, and against the plain versions on 8 ragged pairs of up to
-   300 bp, timed beside the bucket launches at two shared-memory lane
-   counts; and the same for SW (rows ``sw_fill_dirs[ragged]``,
+   300 bp, timed beside the bucket launches; and the same for SW (rows ``sw_fill_dirs[ragged]``,
    ``sw_hits[ragged]``: codes and M in planes at each pair's widths, the
    hit loop over them) on the first sub-batch ``align_batch`` cuts of SW
-   job 3's mix; and the default-flag fills' register tiles
-   (csrc/tile_fill.cuh) on pairs at the strip edges (b of 31, 32R-1, 32R,
-   32R+1 and 2*32R+3 lanes for R lanes a thread, empty sides, one pair of
-   2,100 lanes whose strips take two rounds), NW and SW, equality and
-   BLOSUM62, uniform and across widths, M int16 and int32;
+   job 3's mix; and the fills' register tiles (csrc/tile_fill.cuh) on
+   pairs at the strip edges (b of 31, 32R-1, 32R, 32R+1 and 2*32R+3 lanes
+   for R lanes a thread, empty sides, one pair of 2,100 lanes whose
+   strips take two rounds), NW and SW, equality, BLOSUM62, nsg+neg and
+   the LCS recipe (the flags' instantiations), uniform and across widths,
+   M int16 and int32;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -122,14 +123,20 @@ long path's NW and SW ``align_batch`` at several chunk widths (the
 measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
 the four default fills at phase 1's B = 256, L = 512 and as one launch
 across widths (phase 1's ragged rows), NW's and SW's codes fills under
-BLOSUM62, ``sw_hits``, ``sw_fill_dirs`` under the LCS flags (``MODES``),
-``nw_fill_gab`` (``GAB``) and one carry chunk (on a tree with
+BLOSUM62, ``sw_hits``, ``sw_fill_dirs`` under the LCS flags and the NW
+fills under nsg+neg (``MODES``), ``nw_fill_gab`` (``GAB``) and one carry
+chunk, at the default flags and under nsg+neg (on a tree with
 ``kernels.carry_warps`` also carry chunks at 1 to 16 warps a block), and
 stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
 times the package of an older checkout in DIR in the same call.
 ``--walls [--tree DIR]`` instead times the stream, NW ``align_batch`` on
-1,024 pairs of 1-10 kb, CLI jobs 1-3, SW job 3 and path long's jobs 1, 2,
+1,024 pairs of 1-10 kb, CLI jobs 1-3, SW job 3, path modes' NW
+``align_batch`` under nsg+neg and its LCS job, and path long's jobs 1, 2,
 3, 5 and 6 (walls, and their fills by CUDA events) and stops.
+``--hits-long FILE [--tree DIR]`` instead runs path long's job 4 (SW, no
+hint, 8 hits) from a generator of its own, prints its wall and launch
+counts, writes its hit streams to FILE and stops: two trees' files
+compare pair by pair.
 ``--harvest-ab [--tree DIR]`` instead times SW job 3's and CLI job 2's
 alignments (walls; fills, harvests and hit loops by CUDA events) and
 stops: the measurement behind the ragged harvest's design and the hit
@@ -140,10 +147,11 @@ time and busy share and writes the ``key_averages`` tables to DIR.
 build's nvcc flags and stops: it prints the instruction mix of each probe
 kernel and of an add-then-max chain written here (both addmax forms give
 ``VIADDMNMX``), each tile fill's and tile carry's with its registers,
-spills and local memory instructions, and
-with an older checkout of the repository in OLD_TREE compares every fill
-instantiation the two trees share, instruction by instruction (the check
-that a template change left the other fills as they were).
+spills and local memory instructions (the flags' MODES ones among them),
+and with an older checkout of the repository in OLD_TREE compares every
+fill instantiation the two trees share, the tiles' default-flag ones
+matched by name without their MODES = false, instruction by instruction
+(the check that a template change left the other fills as they were).
 
 The second-to-last line is a JSON summary of the kernels and modes (each
 row with its launches on its path, its times, and the least time the card
@@ -196,6 +204,12 @@ KERNELS = {
     "sw_fill_dirs[carry]": ("sw_fill_dirs_carry", "sw_dirs.cu", _B4C),
     # the carry at path long's width: 16 pairs, b of 6-10 kb, many rounds
     "nw_fill_dirs[carry,B16]": ("nw_fill_dirs_carry", "nw_dirs.cu", _B4C),
+    # the carry under flags (MODES): its launches are long job 2's, 4
+    # pairs at their 2,048 lanes and 16 at path long's 10,240
+    "nw_fill_dirs[carry,nsg+neg]": ("nw_fill_dirs_carry", "nw_dirs.cu",
+                                    _B4C),
+    "nw_fill_dirs[carry,nsg+neg,B16]": ("nw_fill_dirs_carry", "nw_dirs.cu",
+                                        _B4C),
     "nw_walk[chunked]": ("nw_walk", "nw_walk.cu",
                          "seqalign_tpu/ops/traceback.py:515"),
     "sw_walk[chunked]": ("sw_walk", "sw_walk.cu", _SWW),
@@ -292,17 +306,14 @@ def alu_s(ops):
     """The least seconds the card takes for ``ops`` int32 operations:
     ``OPS_PER_INSTR`` an instruction at ``PEAK_INT32``."""
     return ops / OPS_PER_INSTR / PEAK_INT32
-# phase 1 at main-path widths (width, shortest, longest, pairs): 36 bytes
-# per lane of rolling diagonals are 73,764 B at 2,048 lanes (above 48 KB:
-# opt-in shared memory), 221,220 B at 6,144 (the widest bucket that fits
-# the 227 KB) and 368,676 B at 10,240 (global scratch)
+# phase 1 at main-path widths (width, shortest, longest, pairs): a pair's
+# strips take one round of the tiles at 2,048 lanes, several (their edge
+# through round rows in global scratch) at 6,144 and 10,240
 WIDE = ((2048, 1000, 2048, 4), (6144, 4097, 6144, 4), (10240, 7169, 10000, 4))
 SHORT_BATCH = 4096
 # the ragged rows: CLI job 1's chunk (256 pairs of 1-10 kb, one
-# align_batch call of the CLI); the launch timed at these shared-memory
-# lanes a block, the last the default (kernels.RAGGED_SMEM_LANES)
+# align_batch call of the CLI)
 RAGGED_PAIRS = 256
-RAGGED_LANES = (3072, 6400)
 STREAM_PAIRS = 16_384  # a quarter of BASELINE.json configs[4]'s 65,536
 ALIGN_LONG_PAIRS = 1024
 PROTEIN_PAIRS = 4096  # BASELINE.json configs[2]: 100-1,000 aa
@@ -316,11 +327,13 @@ AB_PAIRS = 64  # pairs of each SW align job in the walk-branch A/B
 PROTEIN_MIN_SCORE = 100  # random 1,000 x 1,000 aa pairs score 42-57
 # phase 1's carry rows: chunks of the JAX package's 2,048 columns; (label,
 # |a| range, |b| range, lanes, pairs): 4 pairs of up to 2,048 lanes (the
-# default flags' tiles in 4 rounds of 4 warps, the flags' diagonals in
-# opt-in shared memory), 4 at 10,240 lanes, and 16 pairs of path long's
-# 6-10 kb of b at 10,240 lanes (10 rounds of 8 warps; NW only, row
-# nw_fill_dirs[carry,B16]: the plain fill's diagonals are most of phase 1's
-# time, and the 4 pairs hold SW at this width)
+# tiles in 4 rounds of 4 warps, under nsg+neg too: row
+# nw_fill_dirs[carry,nsg+neg]), 4 at 10,240 lanes, and 16 pairs of path
+# long's 6-10 kb of b at 10,240 lanes, NW only, at the default flags (10
+# rounds of 8 warps, row nw_fill_dirs[carry,B16]) and under nsg+neg (long
+# job 2's launch shape: 10 rounds of 16 warps at 2 lanes a thread, row
+# nw_fill_dirs[carry,nsg+neg,B16]); the plain fill's diagonals are most of
+# phase 1's time, and the 4 pairs hold SW at this width
 CARRY_CA = 2048
 CARRY_CASES = (("equality", (5000, 6144), (1500, 2048), None, 4),
                ("BLOSUM62", (5000, 6144), (1500, 2048), None, 4),
@@ -659,9 +672,9 @@ def timed_plain(fn):
 
 
 def wide_modes_vs_plain(dev, rng):
-    """Flag combinations at the wide widths (free start and end gaps with
-    the diagonals in opt-in shared memory, all five flags with them in
-    global scratch): the four fills against one plain fill per family."""
+    """Flag combinations at the wide widths (free start and end gaps at
+    6,144 lanes, all five flags at 10,240: several rounds of the tiles):
+    the four fills against one plain fill per family."""
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import _fill
@@ -788,13 +801,18 @@ def carry_vs_plain(dev, rng, times, bounds):
     and SW, on 4 pairs of 5,000-6,144 x 1,500-2,048 in chunks of CARRY_CA
     (equality, BLOSUM62 with an empty seq_a and an empty seq_b, nsg+neg)
     and at 10,240 lanes (4 pairs, and, NW only, 16 of path long's 6-10 kb
-    of b): the codes of every slab on the valid cells, each chunk's bout
-    on the lanes 1 .. nb of the pairs that reach it, the corners or best
-    scores, SW M; at default flags each case crosses rounds of the tiles
-    (csrc/tile_carry.cuh: 4 rounds of 4 warps at 2,048 lanes, 20 of 4 and
-    10 of 8 at 10,240).  The middle chunk of the first equality pairs and
-    of the 16 pairs (row ``nw_fill_dirs[carry,B16]``) is timed: the kernel
-    with CUDA events, the plain version in the check's run.  Then the
+    of b at the default flags and under nsg+neg): the codes of every slab
+    on the valid cells, each chunk's bout on the lanes 1 .. nb of the
+    pairs that reach it, the corners or best scores, SW M; each case
+    crosses rounds of the tiles (csrc/tile_carry.cuh: at the default flags
+    4 rounds of 4 warps at 2,048 lanes, 20 of 4 and 10 of 8 at 10,240; under
+    the flags, 2 lanes a thread, 8 rounds of 4 warps at 2,048 lanes and 10
+    of 16 for the 16 pairs, long job 2's shape).  The middle chunk of the
+    first equality pairs, of the 16 pairs (rows ``nw_fill_dirs[carry,B16]``,
+    ``nw_fill_dirs[carry,nsg+neg,B16]``) and of the NW nsg+neg pairs (row
+    ``nw_fill_dirs[carry,nsg+neg]``, the flags' instantiation) is timed:
+    the kernel with CUDA events, the plain version in the check's run.
+    Then the
     walks over the first equality pairs' slabs against their plain
     versions (rows ``*[chunked]``).  Returns the errors and, for the long
     path's sample check, the equality pairs with their plain NW
@@ -824,11 +842,15 @@ def carry_vs_plain(dev, rng, times, bounds):
         A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
         if label == "BLOSUM62":  # the corners of empty sides
             A[2], B[3] = "", ""
-        for sw in (False,) if n == 16 else (False, True):
+        # (SW, flags): the 16 pairs NW only, at the default flags and under
+        # nsg+neg on the same pairs
+        runs = (((False, label), (False, "nsg+neg")) if n == 16
+                else ((False, label), (True, label)))
+        for sw, flags in runs:
             if label == "BLOSUM62":
                 sc = port.presets.scoring_system_BLOSUM62()
-            elif label == "nsg+neg":
-                sc = mode_scoring(label, sw)
+            elif flags == "nsg+neg":
+                sc = mode_scoring(flags, sw)
             else:
                 sc = (port.presets.scoring_system_sw_default() if sw
                       else port.presets.scoring_system_default())
@@ -839,6 +861,7 @@ def carry_vs_plain(dev, rng, times, bounds):
                     bp)
             m16 = sw and m16_safe(sc, la, lb)
             name = (f"{'sw' if sw else 'nw'}_fill_dirs[carry"
+                    f"{',nsg+neg' if flags == 'nsg+neg' and not sw else ''}"
                     f"{',B16' if n == 16 else ''}]")
             kfill = (kernels.sw_fill_dirs_carry if sw
                      else kernels.nw_fill_dirs_carry)
@@ -859,7 +882,8 @@ def carry_vs_plain(dev, rng, times, bounds):
                     e = max(e, max_abs((got[2][c][v], want[2][c][v])))
             err[name] = max(err.get(name, 0), e)
             worst = max(worst, e)
-            if label == "equality" and (not lanes or n == 16):
+            if (flags == "equality" and (not lanes or n == 16)
+                    or flags == "nsg+neg" and not sw):
                 # the middle chunk: the kernel launched again, the plain
                 # version's run above
                 bin = want[1][0]
@@ -873,12 +897,14 @@ def carry_vs_plain(dev, rng, times, bounds):
                 wa = np.clip(na - ca, 0, ca)
                 bounds[name] = fill_bound(
                     wa, nb, sw, True, (2 if m16 else 4) * sw,
+                    flags=flags_of(sc),
                     extra_bytes=2 * 12 * (lb + 1) * len(na))
-                if not lanes:
+                if flags == "equality" and not lanes:
                     ref[sw] = (sc, A, B, args, got)
             del got, want
         torch.cuda.synchronize()
-        log(f"phase 1: carry fills vs plain, {label}, {n} pairs of "
+        log(f"phase 1: carry fills vs plain, "
+            f"{' and '.join(dict.fromkeys(f for _, f in runs))}, {n} pairs of "
             f"{ra[0]}-{ra[1]} x {rb[0]}-{rb[1]} at {lanes or 'their'} lanes "
             f"in chunks of {ca}: max |diff| {worst} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -1180,9 +1206,10 @@ def phase1(scs, rng, dev):
                              f"{wide}, {err}")
     for k, (t, tp) in times.items():
         b, by = bounds[k]
-        shape = ("4 pairs, one chunk of 2048" if "[carry]" in k else
+        shape = ("4 pairs, one chunk of 2048" if k.endswith(
+                    ("[carry]", "[carry,nsg+neg]")) else
                  "16 pairs, one chunk of 2048 at 10240 lanes"
-                 if "[carry,B16]" in k else
+                 if k.endswith(",B16]") else
                  "4 pairs' slabs" if "[chunked]" in k else
                  f"SW job 3's first sub-batch (plain: 8 pairs of 0-300 bp)"
                  if k.startswith("sw") and "[ragged]" in k else
@@ -1207,15 +1234,17 @@ def tile_edges(rng, alpha, R):
 
 
 def tiles_vs_plain(scs, dev):
-    """The default-flag fills on the register tiles against their plain
-    versions on :func:`tile_edges`' pairs: NW and SW, equality and
-    BLOSUM62, uniform and under a schedule with planes, SW M int16 and
-    int32; codes and M on the valid cells (the ragged M's other cells 0),
-    scores, corners.  One plain fill with codes (and int32 M) holds both
-    layouts and both M types (the plain int16 M is its int32 M cast).
+    """The fills on the register tiles against their plain versions on
+    :func:`tile_edges`' pairs: NW and SW, equality and BLOSUM62, and under
+    the flags (NW and SW under nsg+neg, the LCS recipe: the MODES
+    instantiations), uniform and under a schedule with planes, SW M int16
+    and int32; codes and M on the valid cells (the ragged M's other cells
+    0), scores, corners.  One plain fill with codes (and int32 M) holds
+    both layouts and both M types (the plain int16 M is its int32 M cast).
     Returns the max |diff| by row: the uniform launches under their
-    kernel's row (or ``[table]``), the equality launches across widths
-    under ``[ragged]``."""
+    kernel's row (or ``[table]``, ``[<mode>]``), the equality launches
+    across widths under ``[ragged]``, the others under the uniform's."""
+    import seqalign_tpu_torch as port
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
@@ -1227,34 +1256,43 @@ def tiles_vs_plain(scs, dev):
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 9)
     err = {}
-    for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
-        sc = scs[key]
+    # (NW config, SW config, alphabet, row suffix, row suffix across widths)
+    cases = ((scs["nw"], None, DNA, "", "[ragged]"),
+             (None, scs["sw"], DNA, "", "[ragged]"),
+             (scs["table"], scs["table"], AMINO, "[table]", "[table]"),
+             (mode_scoring("nsg+neg"), mode_scoring("nsg+neg", True), DNA,
+              "[nsg+neg]", "[nsg+neg]"),
+             (None, port.lcs_aligner().scoring, DNA, "[nga+ngb+nmm]",
+              "[nga+ngb+nmm]"))
+    for nw_sc, sw_sc, alpha, mode, rag in cases:
         A, B = tile_edges(rng, alpha, kernels.TILE_R)
-        ac, bc, na, nb, bp = pack_batch(
-            sc, kernel_params(sc, dev), A, B, max(map(len, A)),
-            max(map(len, B)))
-        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
-        sched = kernels.fill_schedule(na, nb, dev, planes=True)
-        pv = plane_valid(sched.off, t[2], t[3])
-        mode = "[table]" if key == "table" else ""
-        rag = "[ragged]" if key != "table" else "[table]"
-        if key in ("nw", "table"):
-            sp, cp = nw_scores_plain(*t, bp)
-            dp_, dcp = nw_fill_dirs_plain(*t, bp)
-            v = valid_cells(dp_, t[2], t[3])
-            d, dc = kernels.nw_fill_dirs(*t, bp)
-            f, fc = kernels.nw_fill_dirs(*t, bp, sched)
-            merge(err, {
-                "nw_scores" + mode: max_abs(
-                    *zip(kernels.nw_scores(*t, bp), (sp, cp))),
-                "nw_scores" + rag: max_abs(
-                    *zip(kernels.nw_scores(*t, bp, sched), (sp, cp))),
-                "nw_fill_dirs" + mode: max_abs((d[v], dp_[v]),
-                                               (dc, dcp)),
-                "nw_fill_dirs" + rag: max_abs(
-                    *on_planes(f, sched.off, t[2], t[3], dp_), (fc, dcp))})
-            del dp_, d, f, v
-        if key in ("sw", "table"):
+        for sc, sw in ((nw_sc, False), (sw_sc, True)):
+            if sc is None:
+                continue
+            ac, bc, na, nb, bp = pack_batch(
+                sc, kernel_params(sc, dev), A, B, max(map(len, A)),
+                max(map(len, B)))
+            t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+            sched = kernels.fill_schedule(na, nb, dev, planes=True)
+            pv = plane_valid(sched.off, t[2], t[3])
+            if not sw:
+                sp, cp = nw_scores_plain(*t, bp)
+                dp_, dcp = nw_fill_dirs_plain(*t, bp)
+                v = valid_cells(dp_, t[2], t[3])
+                d, dc = kernels.nw_fill_dirs(*t, bp)
+                f, fc = kernels.nw_fill_dirs(*t, bp, sched)
+                merge(err, {
+                    "nw_scores" + mode: max_abs(
+                        *zip(kernels.nw_scores(*t, bp), (sp, cp))),
+                    "nw_scores" + rag: max_abs(
+                        *zip(kernels.nw_scores(*t, bp, sched), (sp, cp))),
+                    "nw_fill_dirs" + mode: max_abs((d[v], dp_[v]),
+                                                   (dc, dcp)),
+                    "nw_fill_dirs" + rag: max_abs(
+                        *on_planes(f, sched.off, t[2], t[3], dp_),
+                        (fc, dcp))})
+                del dp_, d, f, v
+                continue
             bestp = sw_scores_plain(*t, bp)
             merge(err, {
                 "sw_scores" + mode: max_abs(
@@ -1278,8 +1316,8 @@ def tiles_vs_plain(scs, dev):
             del dp_, mp32, v
     torch.cuda.synchronize()
     log(f"phase 1: tile fills at R = {kernels.TILE_R} on the strip edges, NW "
-        f"and SW, equality and BLOSUM62, uniform and across widths, M int16 "
-        f"and int32, vs plain: max |diff| {err} "
+        f"and SW, equality, BLOSUM62, nsg+neg and the LCS recipe, uniform "
+        f"and across widths, M int16 and int32, vs plain: max |diff| {err} "
         f"({time.perf_counter() - t0:.1f} s)")
     return err
 
@@ -1293,9 +1331,8 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     versions on 8 ragged pairs of up to 300 bp with an empty side (codes,
     corners, scores, and ``nw_walk`` over the planes; the plain versions
     hold such launches of 1-10 kb pairs in :func:`kernels_vs_plain`);
-    timed with CUDA
-    events at each of ``RAGGED_LANES`` beside the sum of the bucket
-    launches.  Returns the max |diff| of each row."""
+    timed with CUDA events beside the sum of the bucket launches.  Returns
+    the max |diff| of each row."""
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import nw_fill_dirs_plain, nw_scores_plain
     from seqalign_tpu_torch.ops.pack import pack_batch, pad_width
@@ -1306,9 +1343,7 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     ac, bc, na_h, nb_h, bp = pack_batch(sc, params, A, B, max(map(len, A)),
                                         max(map(len, B)))
     t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
-    scheds = {lanes: kernels.fill_schedule(na_h, nb_h, dev, lanes, True)
-              for lanes in sorted({*RAGGED_LANES, kernels.RAGGED_SMEM_LANES})}
-    sched = scheds[kernels.RAGGED_SMEM_LANES]
+    sched = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
     flat, corner = kernels.nw_fill_dirs(*t, bp, sched)
     s, c = kernels.nw_scores(*t, bp, sched)
     err = {"nw_fill_dirs[ragged]": 0, "nw_scores[ragged]": 0}
@@ -1341,16 +1376,13 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
             lambda: kernels.nw_scores(*tb, g[4]), 1)
         del d
     del flat
-    ms = {}
-    for lanes, sd in scheds.items():
-        ms[lanes] = (cuda_ms(lambda: kernels.nw_fill_dirs(*t, bp, sd), 3),
-                     cuda_ms(lambda: kernels.nw_scores(*t, bp, sd), 3))
+    ms = (cuda_ms(lambda: kernels.nw_fill_dirs(*t, bp, sched), 3),
+          cuda_ms(lambda: kernels.nw_scores(*t, bp, sched), 3))
     log(f"phase 1: ragged rows on {RAGGED_PAIRS} pairs of 1-10 kb in "
         f"{len(groups)} width buckets: one launch (nw_fill_dirs, "
-        f"nw_scores) " + ", ".join(f"{ms[k][0]:.3f}, {ms[k][1]:.3f} ms at "
-                                   f"{k} shared-memory lanes" for k in ms)
-        + f"; the {len(groups)} bucket launches "
-        f"{bucket_ms['nw_fill_dirs']:.3f}, {bucket_ms['nw_scores']:.3f} ms")
+        f"nw_scores) {ms[0]:.3f}, {ms[1]:.3f} ms; the {len(groups)} bucket "
+        f"launches {bucket_ms['nw_fill_dirs']:.3f}, "
+        f"{bucket_ms['nw_scores']:.3f} ms")
     # the plain versions on 8 ragged pairs of up to 300 bp
     As, Bs = dna(rng, 8, 1, 300), dna(rng, 8, 1, 300)
     As[1] = ""
@@ -1378,9 +1410,8 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
         *zip(kernels.nw_walk(fk, ck, ts[2], ts[3], cap, small.off),
              nw_walk_plain(fp, cp, ts[2], ts[3], cap, small.off))),
         "nw_scores[ragged]": max_abs((sk, sp), (csk, cps))})
-    lanes = kernels.RAGGED_SMEM_LANES
-    times["nw_fill_dirs[ragged]"] = (ms[lanes][0], plain_fill)
-    times["nw_scores[ragged]"] = (ms[lanes][1], plain_scores)
+    times["nw_fill_dirs[ragged]"] = (ms[0], plain_fill)
+    times["nw_scores[ragged]"] = (ms[1], plain_scores)
     bounds["nw_fill_dirs[ragged]"] = fill_bound(na_h, nb_h, False, True)
     bounds["nw_scores[ragged]"] = fill_bound(na_h, nb_h, False, False)
     torch.cuda.synchronize()
@@ -1477,9 +1508,9 @@ def sw_ragged_vs_buckets(sc, params, dev, times, bounds):
     kernel against kernel (the best scores; codes and M on the valid cells
     of each pair's planes; the hits of each pair from the bucket's
     harvest); to the plain versions on 4 of its pairs at their sizes (the
-    widest side b, past the schedule's shared-memory lanes, the fewest
-    cells, the most, and one more; hit masks in shared and in global
-    memory) and on 8 ragged pairs of up to 300 bp with an empty side
+    widest side b, past one round of the tiles, the fewest cells, the
+    most, and one more; hit masks in shared and in global memory) and on 8
+    ragged pairs of up to 300 bp with an empty side
     (``sw_ragged_vs_plain``); timed beside the sum of the bucket launches.
     Returns the max |diff| of each row."""
     from seqalign_tpu_torch import aligners
@@ -1576,9 +1607,9 @@ def sw_ragged_vs_buckets(sc, params, dev, times, bounds):
                                  torch.from_numpy(nb4).to(dev),
                                  kernels.SMEM_MAX)
     spans = (moff[1:] - moff[:-1]).tolist()
-    if not (int(nb4.max()) + 1 > kernels.RAGGED_SMEM_LANES and any(spans)):
+    if not (int(nb4.max()) > kernels.TILE_LANES and any(spans)):
         raise AssertionError(f"the 4 pairs {list(zip(np4, nb4))} miss a "
-                             f"scratch slice or a mask in global memory")
+                             f"round row or a mask in global memory")
     e4, _ = sw_ragged_vs_plain(sc, params, *P, m16, k, dev)
     merge(err, e4)
     log(f"phase 1: SW ragged rows vs plain on 4 pairs of "
@@ -2384,7 +2415,8 @@ def phase_long(rng, dev, gpu, jobs, sample):
     job once (``long_job``).  Launch counts are read by the caller right
     after this returns the check to run; the checks (every pair against
     the scores kernels and the numpy witnesses, a sample against the plain
-    versions) run after the counts are read.  Returns that check."""
+    versions) run after the counts are read.  Returns that check and the
+    carry launches of job 2 (the flags' carry)."""
     import seqalign_tpu_torch as port
     from seqalign_tpu_torch import aligners
 
@@ -2415,11 +2447,13 @@ def phase_long(rng, dev, gpu, jobs, sample):
     out["nw"] = long_job(f"long job 1: nw align_batch {LONG_NW} x 20-40kb "
                          f"x 6-10kb", lambda: nw.align_batch(A, B),
                          cells_of(A, B), LONG_NW, gpu, jobs)
+    c0 = port.kernel_launch_counts()["nw_fill_dirs_carry"]
     out["nsg"] = long_job(
         f"long job 2: nw[nsg+neg] align_batch {n16} x 20-40kb x 6-10kb",
         lambda: nwf.align_batch(A[:n16], B[:n16]), cells_of(A[:n16],
                                                             B[:n16]),
         n16, gpu)
+    flagged = port.kernel_launch_counts()["nw_fill_dirs_carry"] - c0
     out["sw"] = long_job(
         f"long job 3: sw align_batch {LONG_SW} x 20-40kb x 6-10kb, 2 kb "
         f"planted, min_score best - 10, first {k} hits",
@@ -2516,7 +2550,7 @@ def phase_long(rng, dev, gpu, jobs, sample):
             f"branch, ref_mask_compat took the host branch, the sample "
             f"equals the plain versions ({time.perf_counter() - t0:.1f} s)")
 
-    return check
+    return check, flagged
 
 
 def phase_vpu(err, times, bounds):
@@ -3025,9 +3059,11 @@ def fills_only(scs, rng, dev, gpu):
     shape, 256 pairs of 512 bp, the four default fills, NW's and SW's
     codes fill under BLOSUM62 on protein, ``sw_hits`` on the hint-less SW
     candidates (k = 16, phase 1's row), ``sw_fill_dirs`` under the LCS
-    flags (the ``MODES`` instantiation) and ``nw_fill_gab`` (``GAB``);
+    flags and ``nw_scores``, ``nw_fill_dirs`` under free start and end
+    gaps (the flags' instantiations) and ``nw_fill_gab`` (``GAB``);
     ``nw_fill_dirs_carry`` on one chunk of 2,048 columns of 4 pairs of
-    5,000-6,144 x 1,500-2,048 (phase 1's carry row), and, on a tree with
+    5,000-6,144 x 1,500-2,048 (phase 1's carry row), the same under free
+    start and end gaps, and, on a tree with
     ``kernels.carry_warps``, that chunk, one of 2,048 columns of 16 of path
     long's pairs and one of 16,384 of its 48 kb x 48 kb pair at 1, 2, 4, 8
     and 16 warps a block (the measurement behind the rule); and the four
@@ -3041,9 +3077,11 @@ def fills_only(scs, rng, dev, gpu):
     from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch
 
     rows = {}  # name -> (shape, fn, reps)
-    for key in ("nw", "sw", "nw[table]", "sw[table]", "sw[nga+ngb+nmm]"):
+    for key in ("nw", "sw", "nw[table]", "sw[table]", "sw[nga+ngb+nmm]",
+                "nw[nsg+neg]"):
         sc = (scs["table"] if key.endswith("[table]") else
               mode_scoring("nga+ngb+nmm", sw=True) if key.endswith("nmm]")
+              else mode_scoring("nsg+neg") if key.endswith("neg]")
               else scs[key])
         alpha = AMINO if key.endswith("[table]") else DNA
         (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
@@ -3064,6 +3102,9 @@ def fills_only(scs, rng, dev, gpu):
         elif key.startswith("nw"):
             rows["nw_fill_dirs" + key[2:]] = (
                 lambda f=f: kernels.nw_fill_dirs(*f))
+            if key.endswith("neg]"):
+                rows["nw_scores" + key[2:]] = (
+                    lambda f=f: kernels.nw_scores(*f))
         else:
             rows["sw_fill_dirs" + key[2:]] = (
                 lambda f=f: kernels.sw_fill_dirs(*f, True))
@@ -3083,6 +3124,12 @@ def fills_only(scs, rng, dev, gpu):
     rows["nw_fill_dirs[carry]"] = lambda: kernels.nw_fill_dirs_carry(
         *t, bp, CARRY_CA, bin, bout, slab, corner)
     shape["nw_fill_dirs[carry]"] = "4 pairs, one chunk of 2048"
+    # the same chunk under free start and end gaps (the flags' carry)
+    bpf = kernel_params(mode_scoring("nsg+neg"), dev)  # the same codes
+    binf = boundary_column(bpf, 4, 2048, is_sw=False)
+    rows["nw_fill_dirs[carry,nsg+neg]"] = lambda: kernels.nw_fill_dirs_carry(
+        *t, bpf, CARRY_CA, binf, bout, slab, corner)
+    shape["nw_fill_dirs[carry,nsg+neg]"] = "4 pairs, one chunk of 2048"
     reps = {}
     if hasattr(kernels, "carry_warps"):
         # the tile carry's warps a block (csrc/tile_carry.cuh): the 4 pairs
@@ -3176,10 +3223,14 @@ def walls_ab(gpu):
     jobs 2 (``smith_waterman`` under BLOSUM62 on ``CLI_SW_PAIRS`` protein
     pairs) and 3 (``needleman_wunsch`` under the free end gaps, a flagged
     fill, on ``CLI_READS`` reads against references), in-process as job
-    1; path long's jobs 1, 2, 3, 5a, 5b and 6 (``long_walls``); each from a
-    generator of its own; one warm-up (on 64 pairs, or 1-2 long ones),
-    then one timed run each, with the fills' milliseconds by CUDA
-    events."""
+    1; path modes' NW ``align_batch`` under nsg+neg on ``MODE_B`` pairs of
+    ``MODE_L`` bp and its LCS ``align_batch`` (nga+ngb+nmm) on
+    ``LCS_SEQS`` sequences of 512-2,048 bp against themselves, first 8
+    hits; path long's jobs 1, 2, 3, 5a, 5b and 6 (``long_walls``); each
+    from a generator of its own; one warm-up (on 16 or 64 pairs, or 1-2
+    long ones), then one timed run each, with the fills' milliseconds by
+    CUDA events (their sum and the first launch's; for CLI job 3's first
+    launch, 256 pairs as the CLI calls ``align_batch``, its bound)."""
     import tempfile
 
     import seqalign_tpu_torch as port
@@ -3243,7 +3294,26 @@ def walls_ab(gpu):
                                 out),
                 lambda: run_cli("nw", CLI_JOB3_ARGS + ["--file", fa3], out),
                 (kernels, "nw_fill_dirs"))}
+        nwf = port.NeedlemanWunsch(mode_scoring("nsg+neg"), device="cuda")
+        lcs = port.lcs_aligner(case_sensitive=False)
+        mrng = np.random.default_rng(SEED + 16)
+        MA, MB = (dna(mrng, MODE_B, MODE_L, MODE_L),
+                  dna(mrng, MODE_B, MODE_L, MODE_L))
+        LS = dna(mrng, LCS_SEQS, 512, 2048)
+        jobs.update({
+            f"modes[nsg+neg] nw align_batch {MODE_B} x {MODE_L}": (
+                lambda: nwf.align_batch(MA[:16], MB[:16]),
+                lambda: nwf.align_batch(MA, MB), (kernels, "nw_fill_dirs")),
+            f"modes[nga+ngb+nmm] lcs align_batch {LCS_SEQS} x 512-2048, "
+            f"first 8 hits": (
+                lambda: consume(lcs, LS[:16], LS[:16], None, 8),
+                lambda: consume(lcs, LS, LS, None, 8),
+                (kernels, "sw_fill_dirs"))})
         jobs.update(long_walls(nw, sw, kernels))
+        na3 = np.array([len(r) for r in refs[:HARVEST_AB_CHUNK]])
+        nb3 = np.array([len(r) for r in reads[:HARVEST_AB_CHUNK]])
+        log(f"walls: cli job 3's first launch, {HARVEST_AB_CHUNK} pairs: "
+            f"bound {fill_bound(na3, nb3, False, True, flags=('nsg', 'neg'))}")
         for label, (warm, job, target) in jobs.items():
             warm()
             torch.cuda.synchronize()
@@ -3255,7 +3325,7 @@ def walls_ab(gpu):
                                      f"{res[1][-500:]}")
             fills = ms[target[1]]
             log(f"walls: {label}: {secs:.4f} s; {target[1]} x{len(fills)} "
-                f"{sum(fills):.3f} ms [{gpu}]")
+                f"{sum(fills):.3f} ms, the first {fills[0]:.3f} ms [{gpu}]")
 
 
 def long_walls(nw, sw, kernels):
@@ -3367,6 +3437,37 @@ def harvest_ab(gpu):
             log(f"harvest A/B {label}, hit masks {v}: wall {secs:.4f} s; "
                 + "; ".join(f"{n} x{len(t)} {sum(t):.3f} ms"
                             for n, t in ms.items()) + f" [{gpu}]")
+
+
+def hits_long(out_path, gpu):
+    """Path long's job 4 alone: SW ``align_batch`` on ``LONG_HINTLESS``
+    pairs of 20-40 kb x 6-10 kb with a planted 2 kb segment, no hint, the
+    first 8 hits of each, from a generator of its own and through the
+    entry points only, so that ``--tree`` runs an older tree's package:
+    its wall and its kernel launches (``kernel_launch_counts``), and its
+    hit streams written to ``out_path`` as JSON, pair by pair, to be
+    compared with another tree's."""
+    import dataclasses
+
+    import seqalign_tpu_torch as port
+
+    sw = port.SmithWaterman(device="cuda")
+    rng = np.random.default_rng(SEED + 17)
+    SA = dna(rng, LONG_HINTLESS, *LONG_A)
+    SB = [plant(rng, a, b, LONG_SEG, LONG_SUB)
+          for a, b in zip(SA, dna(rng, LONG_HINTLESS, *LONG_B))]
+    port.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = [[list(dataclasses.astuple(h)) for h in itertools.islice(it, 8)]
+            for it in sw.align_batch(SA, SB)]
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in port.kernel_launch_counts().items() if v}
+    with open(out_path, "w") as f:
+        json.dump(hits, f)
+    log(f"hits-long: long job 4, {len(SA)} pairs, no hint, first 8 hits: "
+        f"{secs:.4f} s, {sum(map(len, hits))} hits, launches {counts}; "
+        f"streams in {out_path} [{gpu}]")
 
 
 CHUNK_AB = (2048, 4096, 8192, 16384, 32768)  # LONG_CHUNK candidates
@@ -3542,9 +3643,10 @@ def sass_report(old, gpu):
     """``--sass``: the probe kernels' and the add-then-max chains' opcode
     mixes, each tile fill's (csrc/tile_fill.cuh) and tile carry's
     (csrc/tile_carry.cuh) with its registers, spills and local memory
-    instructions (LDL, STL), and, with an older tree ``old``, the fill
-    instantiations both trees share compared instruction by
-    instruction."""
+    instructions (LDL, STL), the flags' (MODES) instantiations among them,
+    and, with an older tree ``old``, the default-flag tile instantiations
+    and the other fill instantiations both trees share compared
+    instruction by instruction."""
     import re
     import tempfile
     from pathlib import Path
@@ -3595,12 +3697,38 @@ def sass_report(old, gpu):
                                                     "LDL", "STL"))
                 + f": {opcode_mix(ins, 16)}")
     if old:
+        # the tiles' default-flag instantiations: their names here carry
+        # MODES = false (and the two arguments of the flags) beside the
+        # older tree's
+        def base(n, strip):  # the name with its template arguments
+            d = demangle(n)
+            k = d[:d.find(">(") + 1] if ">(" in d else d
+            return re.sub(r", (?:false|\(bool\)0)>$", ">", k) if strip else k
+
+        def tile(n):
+            return "tile_fill_kernel" in n or "tile_carry_kernel" in n
+
+        olds = {base(n, False): n for n in prev if tile(n)}
+        pairs = [(n, olds[base(n, True)]) for n in sorted(new)
+                 if tile(n) and base(n, True) in olds]
+        same = [n for n, o in pairs if new[n] == prev[o]]
+        log(f"sass: {len(pairs)} default-flag tile instantiations in both "
+            f"trees, {len(same)} identical instruction by instruction; "
+            f"{sum(tile(n) for n in new) - len(pairs)} tile instantiations "
+            f"only in this tree (MODES)")
+        for n, o in pairs:
+            if n not in same:
+                k = next((i for i, (a, b) in enumerate(zip(new[n], prev[o]))
+                          if a != b), min(len(new[n]), len(prev[o])))
+                log(f"sass: differs: {base(n, True)}: {len(new[n])} against "
+                    f"{len(prev[o])} instructions, first at {k}: "
+                    f"{new[n][k:k + 3]} against {prev[o][k:k + 3]}")
         common = sorted(set(new) & set(prev))
         fills = [n for n in common if "fill_kernel" in n]
         same = [n for n in fills if new[n] == prev[n]]
-        log(f"sass: {len(fills)} fill_kernel instantiations in both trees, "
-            f"{len(same)} identical instruction by instruction; differing: "
-            f"{[n for n in fills if n not in same]}")
+        log(f"sass: {len(fills)} other fill_kernel instantiations in both "
+            f"trees, {len(same)} identical instruction by instruction; "
+            f"differing: {[n for n in fills if n not in same]}")
         others = [n for n in common if n not in fills]
         only = [n for n in set(new) - set(prev) if "addmax_plain" not in n]
         log(f"sass: other kernels in both trees: {len(others)}, identical "
@@ -3621,10 +3749,11 @@ def main() -> int:
                     help="only time SW job 3 and CLI job 2's alignments: "
                          "walls, fills, harvests and hit loops")
     ap.add_argument("--walls", action="store_true",
-                    help="only time the stream, NW align_batch, CLI job 1 "
-                         "and SW job 3: walls and fills")
+                    help="only time the fill-bound jobs of the paths: "
+                         "walls and fills")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --fills, --harvest-ab or --walls: import "
+                    help="with --fills, --harvest-ab, --walls or "
+                         "--hits-long: import "
                          "seqalign_tpu_torch from the checkout in DIR (an "
                          "older tree, for an A/B)")
     ap.add_argument("--chunk-ab", action="store_true",
@@ -3632,6 +3761,9 @@ def main() -> int:
     ap.add_argument("--walk-ab", action="store_true",
                     help="only time the SW align jobs' first pairs under "
                          "both walk branches")
+    ap.add_argument("--hits-long", metavar="FILE",
+                    help="only run path long's job 4 and write its hit "
+                         "streams to FILE")
     ap.add_argument("--sass", metavar="OLD_TREE", nargs="?", const="",
                     help="only print the kernels' SASS instruction mixes and "
                          "compare the fills with an older checkout's")
@@ -3640,8 +3772,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    if args.tree and not (args.fills or args.harvest_ab or args.walls):
-        ap.error("--tree goes with --fills, --harvest-ab or --walls")
+    if args.tree and not (args.fills or args.harvest_ab or args.walls
+                          or args.hits_long):
+        ap.error("--tree goes with --fills, --harvest-ab, --walls or "
+                 "--hits-long")
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else
                     os.path.dirname(os.path.abspath(__file__)))
     import seqalign_tpu_torch as port
@@ -3683,6 +3817,9 @@ def main() -> int:
     if args.walls:
         walls_ab(gpu)
         return 0
+    if args.hits_long:
+        hits_long(args.hits_long, gpu)
+        return 0
     # the plain versions are bound by per-operation overhead on the host;
     # inference mode trims it (phase 1 only: the main paths run as a user
     # calls them)
@@ -3714,7 +3851,7 @@ def main() -> int:
     t0 = time.perf_counter()
     port.reset_kernel_launch_counts()
     with PlainGuard():
-        check = phase_long(rng, dev, gpu, jobs, sample)
+        check, long_flagged = phase_long(rng, dev, gpu, jobs, sample)
     launches["long"] = port.kernel_launch_counts()
     counted("long", launches["long"])
     check()
@@ -3740,6 +3877,8 @@ def main() -> int:
             n = vpu_launches[name][counter]
         elif name.endswith("_fill_gab"):
             n = launches["cli"][counter]
+        elif mode.startswith("carry,nsg+neg"):  # long job 2
+            n = long_flagged
         elif mode.startswith("carry") or mode == "chunked":
             n = launches["long"][counter]
         elif mode in ("", "ragged"):  # the default flags: a row a shape

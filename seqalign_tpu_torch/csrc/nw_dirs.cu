@@ -1,7 +1,6 @@
 // NW fill with direction codes, equality or substitution-table scoring,
-// every combination of the scoring flags: the default flags on the
-// register tiles of tile_fill.cuh, the flagged recurrence on
-// fill_common.cuh's fill_kernel.
+// every combination of the scoring flags, on the register tiles of
+// tile_fill.cuh (the flags as its MODES instantiations).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
 // pallas_fill_dirs2) in NW mode with its constrained modes, and the NW
@@ -22,12 +21,11 @@
 // chunked pallas_dp.py:_dirs_kernel that fill_dirs_long drives): the
 // boundary column comes in as bin and the chunk's last column goes out as
 // bout, the codes land in the chunk's slab, and the corner is written by
-// the chunk that holds x = na; the default flags on the register tiles of
-// tile_carry.cuh, a round of a pair's lanes a block, the flags on
-// fill_common.cuh's fill_carry_kernel (CARRY).
+// the chunk that holds x = na; on the register tiles of tile_carry.cuh, a
+// round of a pair's lanes a block, under any flags.
 //
 // nw_dirs_gab_launch is the same fill with the three matrices for the
-// matrix dump (the GAB mode of fill_common.cuh; replaces the emit_gab
+// matrix dump (fill_common.cuh's fill_kernel; replaces the emit_gab
 // planes of seqalign_tpu/ops/dp.py:dp_fill, a lax.scan): M, Ga and Gb as
 // int32 into three skewed planes beside the codes, 13 bytes a cell, which
 // bounds it (bytes) more than the barrier does at the dump's sizes.
@@ -37,27 +35,15 @@
 #include "tile_fill.cuh"
 
 FILL_ENTRY(nw_dirs_launch) {
-  if (modes == 0) {
-    return tile::launch<true, false, 0>(TILE_ARGS);
-  }
-  return fill::launch_table<true, false, 0, true, false>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, nullptr, scratch, stream, SCHED_ARGS,
-      fill::Carry{});
+  mout = nullptr;
+  return tile::launch_modes<true, false, 0>(TILE_ARGS);
 }
 
 CARRY_ENTRY(nw_dirs_carry_launch) {
-  if (modes == 0) {
-    return tile::carry<false, 0>(TILE_CARRY_ARGS);
-  }
-  return fill::launch_table<true, false, 0, true, true>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, nullptr, scratch, stream, fill::Sched{},
-      CARRY_ARGS);
+  mout = nullptr;
+  return tile::carry_modes<false, 0>(TILE_CARRY_ARGS);
 }
 
 FILL_ENTRY(nw_dirs_gab_launch) {
-  return fill::launch_mode<true, false, 12>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, dirs, mout, scratch, stream, SCHED_ARGS);
+  return fill::gab<false>(GAB_ARGS);
 }

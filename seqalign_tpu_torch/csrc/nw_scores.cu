@@ -1,6 +1,6 @@
 // NW scores, equality or substitution-table scoring, every combination of
-// the scoring flags: the default flags on the register tiles of
-// tile_fill.cuh, the flagged recurrence on fill_common.cuh's fill_kernel.
+// the scoring flags, on the register tiles of tile_fill.cuh (the flags as
+// its MODES instantiations).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
 // pallas_scores2) in NW mode, equality and packed-LUT scoring, with its
@@ -21,13 +21,8 @@
 #include "tile_fill.cuh"
 
 FILL_ENTRY(nw_scores_launch) {
-  if (modes == 0) {
-    return tile::launch<false, false, 0>(TILE_ARGS);
-  }
-  return fill::launch_table<false, false, 0, true, false>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, corner, nullptr, nullptr, scratch, stream, SCHED_ARGS,
-      fill::Carry{});
+  dirs = mout = nullptr;
+  return tile::launch_modes<false, false, 0>(TILE_ARGS);
 }
 
 extern "C" const char* nw_error_string(int code) {

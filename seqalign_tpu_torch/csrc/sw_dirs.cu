@@ -1,7 +1,7 @@
 // SW fill with direction codes and the M matrix, equality or
-// substitution-table scoring, every combination of the scoring flags: the
-// default flags on the register tiles of tile_fill.cuh, the flagged
-// recurrence on fill_common.cuh's fill_kernel.
+// substitution-table scoring, every combination of the scoring flags, on
+// the register tiles of tile_fill.cuh (the flags as its MODES
+// instantiations).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_dirs_kernel2 (called through
 // pallas_fill_dirs2 with is_sw and emit_m, M emission at :977-999) and the
@@ -24,55 +24,31 @@
 // sw_dirs_carry_launch fills one chunk of a long pair: codes into the
 // chunk's slab, M into a plane of the chunk alone (harvested and freed
 // before the next chunk), the boundary column carried through bin / bout,
-// the pair's best raised in place; the default flags on the register tiles
-// of tile_carry.cuh, a round of a pair's lanes a block, the flags on
-// fill_common.cuh's fill_carry_kernel (CARRY).
+// the pair's best raised in place; on the register tiles of
+// tile_carry.cuh, a round of a pair's lanes a block, under any flags.
 //
 // sw_dirs_gab_launch is the fill with the three matrices for the matrix
-// dump (the GAB mode; replaces the SW emit_gab planes of dp_fill): M, Ga
-// and Gb as int32 into three skewed planes, the first of which the hit
-// harvest reads as M.
+// dump (fill_common.cuh's fill_kernel; replaces the SW emit_gab planes of
+// dp_fill): M, Ga and Gb as int32 into three skewed planes, the first of
+// which the hit harvest reads as M.
 
 #include "fill_common.cuh"
 #include "tile_carry.cuh"
 #include "tile_fill.cuh"
 
 FILL_ENTRY(sw_dirs_launch) {
-  if (modes == 0) {
-    return m16 ? tile::launch<true, true, 2>(TILE_ARGS)
-               : tile::launch<true, true, 4>(TILE_ARGS);
-  }
-  if (m16) {
-    return fill::launch_table<true, true, 2, true, false>(
-        ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS,
-        fill::Carry{});
-  }
-  return fill::launch_table<true, true, 4, true, false>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS,
-      fill::Carry{});
+  corner = nullptr;
+  return m16 ? tile::launch_modes<true, true, 2>(TILE_ARGS)
+             : tile::launch_modes<true, true, 4>(TILE_ARGS);
 }
 
 CARRY_ENTRY(sw_dirs_carry_launch) {
-  if (modes == 0) {
-    return m16 ? tile::carry<true, 2>(TILE_CARRY_ARGS)
-               : tile::carry<true, 4>(TILE_CARRY_ARGS);
-  }
-  if (m16) {
-    return fill::launch_table<true, true, 2, true, true>(
-        ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-        LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
-        CARRY_ARGS);
-  }
-  return fill::launch_table<true, true, 4, true, true>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream, fill::Sched{},
-      CARRY_ARGS);
+  corner = nullptr;
+  return m16 ? tile::carry_modes<true, 2>(TILE_CARRY_ARGS)
+             : tile::carry_modes<true, 4>(TILE_CARRY_ARGS);
 }
 
 FILL_ENTRY(sw_dirs_gab_launch) {
-  return fill::launch_mode<true, true, 12>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, dirs, mout, scratch, stream, SCHED_ARGS);
+  corner = nullptr;
+  return fill::gab<true>(GAB_ARGS);
 }

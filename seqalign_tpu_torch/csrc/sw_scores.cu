@@ -1,6 +1,6 @@
 // SW best scores, equality or substitution-table scoring, every combination
-// of the scoring flags: the default flags on the register tiles of
-// tile_fill.cuh, the flagged recurrence on fill_common.cuh's fill_kernel.
+// of the scoring flags, on the register tiles of tile_fill.cuh (the flags
+// as its MODES instantiations).
 //
 // Replaces seqalign_tpu/ops/pallas_dp2.py:_kernel2 (called through
 // pallas_scores2 with is_sw) in SW mode, equality and packed-LUT scoring,
@@ -20,11 +20,6 @@
 #include "tile_fill.cuh"
 
 FILL_ENTRY(sw_scores_launch) {
-  if (modes == 0) {
-    return tile::launch<false, true, 0>(TILE_ARGS);
-  }
-  return fill::launch_table<false, true, 0, true, false>(
-      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA,
-      LB, scores, nullptr, nullptr, nullptr, scratch, stream, SCHED_ARGS,
-      fill::Carry{});
+  corner = dirs = mout = nullptr;
+  return tile::launch_modes<false, true, 0>(TILE_ARGS);
 }

@@ -1,28 +1,29 @@
 // One chunk of a long pair's fill on the register tiles of tile_fill.cuh,
-// each round of a pair's lanes on a block of its own: the default-flag
-// carry fills of nw_dirs.cu and sw_dirs.cu (modes == 0; codes, and SW M as
-// int16 or int32), equality or substitution-table scoring.  The flagged
-// chunks stay on fill_common.cuh's fill_carry_kernel.
+// each round of a pair's lanes on a block of its own: the carry fills of
+// nw_dirs.cu and sw_dirs.cu (codes, and SW M as int16 or int32), the
+// default recurrence or any combination of the scoring flags (MODES, as
+// tile_fill.cuh applies them), equality or substitution-table scoring.
 //
-// Replaces, for the default flags, the chunked mode of seqalign_tpu/ops/
-// pallas_dp.py:_dirs_kernel as fill_dirs_long drives it with _next_bcol
-// (pallas_dp.py:1199-1334), and computes what fill_carry_kernel computes
-// with modes == 0, bit for bit (fill_common.cuh, CARRY): the columns
-// x_off+1 .. x_off+CA of the global DP, local x = 1 .. min(CA, na - x_off)
-// with `a` read at global x; row 0 computed as the global row-0 cells at
-// x_off + x (strip 0's source); the lane at local x == 0 taking bin[y] for
-// the closed-form boundary, the cell (0, x_off) being the origin or a
-// row-0 cell; the column x_off + CA to bout on lanes 1 .. nb when the pair
-// reaches it; codes and M at slab row xl + y - 2 at the caller's pair
-// strides (Carry.dstride, Carry.mstride), so that slab.cuh's rule and the
-// walks are unchanged; the NW corner written by the chunk that holds na
-// (an empty seq_a's from bin[nb] by the chunk at x_off = 0, an empty
-// seq_b's as the row-0 cell (0, na)); SW raising scores[j] by atomicMax
-// across launches, never resetting it.  Only the valid cells of the chunk
-// (1 <= y <= nb, 1 <= xl <= its width) are written, the cells
-// fill_carry_kernel writes, and nothing but lanes 1 .. nb of bout.  Lane
-// 0 of bin is read only for the corner of a pair with both sides empty; no
-// row-0 cell is carried.
+// Replaces the chunked mode of seqalign_tpu/ops/pallas_dp.py:_dirs_kernel
+// as fill_dirs_long drives it with _next_bcol (pallas_dp.py:1199-1334),
+// and computes what the JAX package's dp.fill_chunked computes, chunk by
+// chunk, bit for bit: the columns x_off+1 .. x_off+CA of the global DP,
+// local x = 1 .. min(CA, na - x_off) with `a` read at global x; row 0
+// computed as the global row-0 cells at x_off + x (strip 0's source; no
+// gap run under NSG); the lane at local x == 0 taking bin[y] for the
+// closed-form boundary, the cell (0, x_off) being the origin or a row-0
+// cell; the flags' last column and x == 1 guard at global x (local
+// na - x_off and 1 - x_off); the column x_off + CA to bout on lanes 1 ..
+// nb when the pair reaches it; codes and M at slab row xl + y - 2 at the
+// caller's pair strides (Carry.dstride, Carry.mstride), so that
+// slab.cuh's rule and the walks are unchanged; the NW corner written by
+// the chunk that holds na (an empty seq_a's from bin[nb] by the chunk at
+// x_off = 0, an empty seq_b's as the row-0 cell (0, na)); SW raising
+// scores[j] by atomicMax across launches, never resetting it.  Only the
+// valid cells of the chunk (1 <= y <= nb, 1 <= xl <= its width) are
+// written, and nothing but lanes 1 .. nb of bout.  Lane 0 of bin is read
+// only for the corner of a pair with both sides empty; no row-0 cell is
+// carried.
 //
 // Layout.  A block is W warps, a warp a strip of S = 32 * R lanes of b, as
 // in tile_fill.cuh; round r of pair j is strips r*W .. r*W + W-1, and every
@@ -71,6 +72,12 @@ namespace tile {
 // int32 between two progress words (a 128-byte line each), and the
 // longest a warp waits for one before it traps
 constexpr int WORD = 32;
+// R of the flags' carry (MODES): at THREAD_LANES its instantiations
+// spilled past the 128 registers a thread of 16 warps a block; at 2 lanes a
+// thread, 16 lanes of registers fewer, they do not.  A carry block has at
+// most warps_max<THREAD_LANES>() warps, whatever its R.
+constexpr int MODES_LANES = 2;
+constexpr int CARRY_WARPS = warps_max<THREAD_LANES>();
 constexpr unsigned long long SPIN_NS = 10000000000ull;
 
 // The round rows of one carry launch, in the scratch the wrapper gives:
@@ -115,10 +122,11 @@ static __device__ __noinline__ int wait_for(const int* p, int need) {
   return __reduce_min_sync(FULL, v);
 }
 
-// scal, sub, scores, corner, dirs, mout as fill_carry_kernel's; the chunk
-// in cr; the rounds' rows, words and counter in rd.
-template <bool SW, bool TABLE, int MBYTES, int R>
-__global__ void __launch_bounds__(32 * warps_max<R>())
+// scal, sub, im, modes, scores, corner, dirs, mout as tile_fill_kernel's;
+// the chunk in cr; the rounds' rows, words and counter in rd.  im and
+// modes are read under MODES only, and come last, as there.
+template <bool SW, bool TABLE, int MBYTES, int R, bool MODES = false>
+__global__ void __launch_bounds__(32 * CARRY_WARPS)
     tile_carry_kernel(const uint8_t* __restrict__ ac,
                       const uint8_t* __restrict__ bc,
                       const int* __restrict__ na_,
@@ -128,8 +136,9 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
                       int table_smem, int B, int LA, int LB,
                       int* __restrict__ scores, int* __restrict__ corner,
                       uint8_t* __restrict__ dirs, void* __restrict__ mout,
-                      Rounds rd, fill::Carry cr) {
-  using T = Tile<true, SW, TABLE, MBYTES, R, true>;
+                      Rounds rd, fill::Carry cr, const int* __restrict__ im,
+                      int modes) {
+  using T = Tile<true, SW, TABLE, MBYTES, R, true, MODES>;
   constexpr int S = T::S;
   extern __shared__ int smem[];
   __shared__ int ticket;
@@ -169,10 +178,21 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
                        j * static_cast<size_t>(cr.mstride)
                  : nullptr;
   tl.tab = sub;
+  if constexpr (MODES) {
+    tl.modes = modes;
+    tl.im = im;
+  }
   if (TABLE && table_smem) {
     int* t = smem + W * 3 * RING;
     for (int i = threadIdx.x; i < sub_n; i += blockDim.x) t[i] = sub[i];
     tl.tab = t;
+    if constexpr (MODES) {
+      if (tl.flag(fill::NMM)) {  // the is-match table behind it
+        for (int i = threadIdx.x; i < sub_n; i += blockDim.x)
+          t[sub_n + i] = im[i];
+        tl.im = t + sub_n;
+      }
+    }
   }
   tl.best = 0;
   tl.x0 = xo;
@@ -211,8 +231,11 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
   const size_t out = static_cast<size_t>(r) * B + j;
   const bool producer = warp == Wj - 1 && s < nstrips - 1;
   // a block of R steps runs unchecked only where every cell is valid, and
-  // left of the column that goes out
-  const int ulim = reach ? cr.CA - 1 : wa;
+  // left of the column that goes out; under MODES, also off the flags'
+  // columns, global x == 1 and the pair's last, cx (past wa where the
+  // pair goes on: left of wa in both cases)
+  constexpr int ulo = MODES ? S + R : S;
+  const int ulim = MODES ? wa - 1 : (reach ? cr.CA - 1 : wa);
   int seen = 0;  // warp 0: columns of its round row seen published
   for (int t = 0; t < Ttot; ++t) {
     const int q = t - warp * (R + 1);
@@ -255,11 +278,18 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
       }
       const int iend = min(q * K + K, steps);
       for (int i0 = q * K; i0 < iend; i0 += R) {
-        if (tl.full && i0 >= S && i0 + R - 1 <= ulim) {
+        if (tl.full && i0 >= ulo && i0 + R - 1 <= ulim) {
+          if constexpr (MODES) {  // rolled: unrolled, it spilled
+#pragma unroll 1
+            for (int u = 0; u < R; ++u)
+              tl.template step<false>(m1, a1, b1, m2, a2, b2, h, bcd,
+                                      i0 + u, corner, scores, j);
+          } else {
 #pragma unroll
-          for (int u = 0; u < R; ++u)
-            tl.template step<false>(m1, a1, b1, m2, a2, b2, h, bcd, i0 + u,
-                                    corner, scores, j);
+            for (int u = 0; u < R; ++u)
+              tl.template step<false>(m1, a1, b1, m2, a2, b2, h, bcd,
+                                      i0 + u, corner, scores, j);
+          }
         } else {  // rolled: unrolled, the NW carry spilled at 128 registers
 #pragma unroll 1
           for (int u = 0; u < R; ++u)
@@ -283,19 +313,20 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
   }
 }
 
-// One default-flag carry launch at W warps a block (1 .. warps_max):
-// zeroes the words and the counter of `scratch`, then launches B x rounds
-// blocks.  The scratch holds ops/kernels.py:carry_scratch_ints(B, LB, CA,
-// W) int32.
-template <bool SW, int MBYTES>
+// One carry launch at W warps a block (1 .. CARRY_WARPS): zeroes the
+// words and the counter of `scratch`, then launches B x rounds blocks.
+// The scratch holds ops/kernels.py:carry_scratch_ints(B, LB, CA, W, R)
+// int32.  MODES for a flag word `modes` != 0, at R = MODES_LANES (`im`
+// read only under NMM with a table).
+template <bool SW, int MBYTES, bool MODES>
 int carry(const void* ac, const void* bc, const void* na, const void* nb,
-          const void* scal, const void* sub, int Kb, int sub_n,
-          int table_smem, int B, int LA, int LB, void* scores, void* corner,
-          void* dirs, void* mout, void* scratch, void* stream,
-          const fill::Carry& cr, int W) {
-  constexpr int R = THREAD_LANES;
+          const void* scal, const void* sub, const void* im, int modes,
+          int Kb, int sub_n, int table_smem, int B, int LA, int LB,
+          void* scores, void* corner, void* dirs, void* mout, void* scratch,
+          void* stream, const fill::Carry& cr, int W) {
+  constexpr int R = MODES ? MODES_LANES : THREAD_LANES;
   constexpr int S = 32 * R;
-  if (W < 1 || W > warps_max<R>() || cr.CA < 1 || !scratch)
+  if (W < 1 || W > CARRY_WARPS || cr.CA < 1 || !scratch)
     return cudaErrorInvalidValue;
   const int rounds = ((max(LB, 1) + S - 1) / S + W - 1) / W;
   const int nrows = B * (rounds - 1);
@@ -306,9 +337,12 @@ int carry(const void* ac, const void* bc, const void* na, const void* nb,
   cudaError_t e = cudaMemsetAsync(
       words, 0, static_cast<size_t>(nrows + 1) * WORD * sizeof(int), st);
   if (e != cudaSuccess) return e;
+  const int* imp =
+      sub && (modes & fill::NMM) ? static_cast<const int*>(im) : nullptr;
   const size_t smem =
       static_cast<size_t>(W) * 3 * RING * 4 +
-      (sub && table_smem ? static_cast<size_t>(4) * sub_n : 0);
+      (sub && table_smem ? static_cast<size_t>(4) * sub_n * (imp ? 2 : 1)
+                         : 0);
   auto run = [&](auto kernel) -> int {
     if (smem > 48 * 1024) {
       const cudaError_t a = cudaFuncSetAttribute(
@@ -321,16 +355,35 @@ int carry(const void* ac, const void* bc, const void* na, const void* nb,
         static_cast<const int*>(na), static_cast<const int*>(nb),
         static_cast<const int*>(scal), static_cast<const int*>(sub), Kb,
         sub_n, table_smem, B, LA, LB, static_cast<int*>(scores),
-        static_cast<int*>(corner), static_cast<uint8_t*>(dirs), mout, rd, cr);
+        static_cast<int*>(corner), static_cast<uint8_t*>(dirs), mout, rd, cr,
+        imp, modes);
     return cudaGetLastError();
   };
-  if (sub) return run(tile_carry_kernel<SW, true, MBYTES, R>);
-  return run(tile_carry_kernel<SW, false, MBYTES, R>);
+  if (sub) return run(tile_carry_kernel<SW, true, MBYTES, R, MODES>);
+  return run(tile_carry_kernel<SW, false, MBYTES, R, MODES>);
+}
+
+// The default flags (modes == 0) or the flags' instantiations (MODES).
+template <bool SW, int MBYTES>
+int carry_modes(const void* ac, const void* bc, const void* na,
+                const void* nb, const void* scal, const void* sub,
+                const void* im, int modes, int Kb, int sub_n, int table_smem,
+                int B, int LA, int LB, void* scores, void* corner, void* dirs,
+                void* mout, void* scratch, void* stream,
+                const fill::Carry& cr, int W) {
+  return modes ? carry<SW, MBYTES, true>(ac, bc, na, nb, scal, sub, im, modes,
+                                         Kb, sub_n, table_smem, B, LA, LB,
+                                         scores, corner, dirs, mout, scratch,
+                                         stream, cr, W)
+               : carry<SW, MBYTES, false>(ac, bc, na, nb, scal, sub, im,
+                                          modes, Kb, sub_n, table_smem, B, LA,
+                                          LB, scores, corner, dirs, mout,
+                                          scratch, stream, cr, W);
 }
 
 }  // namespace tile
 
-// The two carry entries call tile::carry with these arguments.
+// The two carry entries call tile::carry_modes with these arguments.
 #define TILE_CARRY_ARGS                                                    \
-  ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,     \
-      corner, dirs, mout, scratch, stream, CARRY_ARGS, warps
+  ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,  \
+      scores, corner, dirs, mout, scratch, stream, CARRY_ARGS, warps

@@ -1,19 +1,21 @@
-// Gotoh fill as register tiles on the anti-diagonal: the default-flag fills
-// of nw_scores.cu, nw_dirs.cu, sw_scores.cu and sw_dirs.cu (modes == 0, no
-// GAB planes), equality or substitution-table scoring, uniform or under a
-// fill schedule (one launch across widths); the long pairs' default-flag
-// chunks run the same Tile from tile_carry.cuh.  The flagged fills
-// (MODES) and the matrix dump (GAB) stay on fill_common.cuh's fill_kernel,
-// the flagged chunks on its fill_carry_kernel.
+// Gotoh fill as register tiles on the anti-diagonal: the fills of
+// nw_scores.cu, nw_dirs.cu, sw_scores.cu and sw_dirs.cu (all but the
+// matrix dump, GAB, which stays on fill_common.cuh's fill_kernel), the
+// default recurrence or any combination of the five scoring flags (MODES),
+// equality or substitution-table scoring, uniform or under a fill schedule
+// (one launch across widths); the long pairs' chunks run the same Tile
+// from tile_carry.cuh.
 //
-// Replaces, for the default flags, the recurrence of seqalign_tpu/ops/
-// pallas_dp2.py:_kernel2 (scores: NW corner, SW best) and :_dirs_kernel2
-// (packed direction codes, SW M as int16 or int32), and the duties of
-// pallas_dp.py:_kernel / :_dirs_kernel at other alphabets and widths; it
-// computes what fill_kernel computes with modes == 0, bit for bit: the same
-// scores, corner, codes and M at the same addresses (the uniform (B,
-// LA+LB-1, LB+1) layout, cell (y, x) at [x+y-2][y], or pair j's ragged
-// plane from off[j] with rows of max(nb, 1) + 1 lanes).
+// Replaces the recurrence of seqalign_tpu/ops/pallas_dp2.py:_kernel2
+// (scores: NW corner, SW best) and :_dirs_kernel2 (packed direction codes,
+// SW M as int16 or int32) with their flag branches, and the duties of
+// pallas_dp.py:_kernel / :_dirs_kernel at other alphabets and widths (the
+// both-no-gaps fills, the SW constrained modes); it computes what
+// seqalign_tpu/ops/dp.py:dp_fill computes (alignment.c:28-168), bit for
+// bit, as fill_kernel does: the same scores, corner, codes and M at the
+// same addresses (the uniform (B, LA+LB-1, LB+1) layout, cell (y, x) at
+// [x+y-2][y], or pair j's ragged plane from off[j] with rows of
+// max(nb, 1) + 1 lanes).
 //
 // Layout.  A pair's lanes y = 1 .. nb are cut into strips of S = 32 * R
 // lanes; strip s, lanes ys = S*s + 1 .. ys + S - 1, is one warp, and thread
@@ -64,6 +66,20 @@
 // stores, and stores go lane by lane.  SW reduces the best M of the valid
 // cells per thread, then per warp, then one atomicMax per warp; NW writes
 // the corner from the thread holding lane nb at x == na.
+//
+// Modes.  The flags follow fill_kernel's rules (fill_common.cuh, the
+// modes), each where it costs least.  NSG changes only the boundary (run()
+// is 0: the x == 0 lanes and row 0 from fetch).  NMM pins M to the floor
+// off an is-match, one compare of the codes a lane holds (under a table a
+// second lookup, hc + bcd[r], into the is-match table behind it).  NEG,
+// NGA and NGB act on the last column x == na, the last row y == nb and
+// the guards of x == 1 and y == 1: the rows are the lanes' own (a thread
+// tests y0 + r), and under MODES a step block runs unchecked only where no
+// cell lies on the columns x == 1 or x == na, so that the columns are
+// tested in checked blocks only (two more checked blocks a strip).  The NW
+// corner, the SW best and a carry's column out are taken after the flags.
+// With MODES false every flag branch is dead code: the default flags'
+// instantiations compile as they did before the flags came here.
 //
 // What bounds it on an H100: integer issue (the cells' instructions at 64
 // int32 lanes an SM and clock), with the code stores (one byte a cell, 3
@@ -187,9 +203,10 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[R]) {
 // reference (as members of this struct nvcc kept them in local memory).
 // CARRY: one chunk of a long pair (tile_carry.cuh); na is then the chunk's
 // local width, and the members below the CARRY line take the duties of the
-// closed-form boundary.
+// closed-form boundary.  MODES: the scoring flags of the word `modes`, read
+// at run time (see Modes above); the members below the MODES line.
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, int R,
-          bool CARRY = false>
+          bool CARRY = false, bool MODES = false>
 struct Tile {
   using MT = typename std::conditional<MBYTES == 2, int16_t, int>::type;
   static constexpr int S = 32 * R;
@@ -222,9 +239,27 @@ struct Tile {
   const int* bin;
   int* bout;
   bool gsrc;
+  // MODES: the flag word; the is-match table under NMM with a
+  // substitution table (behind `tab` where the tiles keep it).  The
+  // pair's last column (global x == na) is the NW corner's column, na or,
+  // in a chunk that holds it, cx (a valid cell of no other chunk lies on
+  // it)
+  int modes;
+  const int* im;
 
+  __device__ __forceinline__ bool flag(int f) const {
+    return MODES && (modes & f);
+  }
+
+  // the gap run of a boundary cell k away from the origin; the default
+  // flags' branch kept as it was, so that their instantiations compile as
+  // before (a flag branch folded away late moved NW's SASS)
   __device__ __forceinline__ int run(int k) const {
-    return SW ? 0 : add(go, k * ge);
+    if constexpr (MODES) {
+      return (SW || flag(fill::NSG)) ? 0 : add(go, k * ge);
+    } else {
+      return SW ? 0 : add(go, k * ge);
+    }
   }
 
   // thread 31: thread 0's up neighbour at column x, and its a code
@@ -314,6 +349,23 @@ struct Tile {
     int Gb = max(add(m1[r], gop), mn);
     Gb = max(add(a1[r], gop), Gb);
     Gb = max(add(b1[r], ge), Gb);
+    // the flags (fill_common.cuh, the modes); an unchecked block holds no
+    // cell of the columns of global x == 1 and x == na, so only checked
+    // ones test them; the rows y == 1 and y == nb are the lanes' own
+    bool lcol = false, lrow = false, xone = false, yone = false;
+    if constexpr (MODES) {
+      lcol = CK && xb - r == (CARRY ? cx : na);
+      xone = CK && (CARRY ? x0 + xb - r : xb - r) == 1;  // global x
+      lrow = y0 + r == nb;
+      yone = r == 0 && y0 == 1;
+      if (flag(fill::NMM) &&
+          !(TABLE ? im[hc + bcd[r]] != 0 : hc == bcd[r]))
+        M = mn;
+      if (flag(fill::NEG) && lcol) Ga = __vimax3_s32(upm, upa, upb);
+      if (flag(fill::NGA) && !lcol) Ga = mn;
+      if (flag(fill::NEG) && lrow) Gb = __vimax3_s32(m1[r], a1[r], b1[r]);
+      if (flag(fill::NGB) && !lrow) Gb = mn;
+    }
     bool valid = true;
     if (CK) {
       const int x = xb - r, y = y0 + r;
@@ -332,7 +384,24 @@ struct Tile {
       }
       valid = x >= 1 && x <= na && y <= nb;
     }
-    if (DIRS) {
+    if constexpr (DIRS && MODES) {
+      // the guards and the end gaps' penalty 0 of the flags
+      // (fill_common.cuh, fill_kernel)
+      const bool nga = flag(fill::NGA), ngb = flag(fill::NGB);
+      const bool diag_a = !nga || xone, diag_b = !ngb || yone;
+      const bool up_a = !nga || lcol, left_b = !ngb || lrow;
+      const bool ea = flag(fill::NEG) && lcol, eb = flag(fill::NEG) && lrow;
+      const int tm = sub(M, ss);
+      const int tae = ea ? Ga : sub(Ga, ge), tao = ea ? Ga : sub(Ga, gop);
+      const int tbo = eb ? Gb : sub(Gb, gop), tbe = eb ? Gb : sub(Gb, ge);
+      const int dm = pick(diag_a && da_ == tm, diag_b && db_ == tm,
+                          dm_ == tm);
+      const int dga = pick(up_a && upa == tae, diag_b && upb == tao,
+                           upm == tao);
+      const int dgb = pick(diag_a && a1[r] == tbo, left_b && b1[r] == tbe,
+                           m1[r] == tbo);
+      code[r] = dm | (dga << 2) | (dgb << 4);
+    } else if (DIRS) {
       // fill_kernel's compares, add(p, c) == v written as p == v - c
       const int tm = sub(M, ss);
       const int tae = sub(Ga, ge), tao = sub(Ga, gop);
@@ -417,11 +486,14 @@ struct Tile {
   }
 };
 
-// scal, sub, scores, corner, dirs, mout as fill_kernel's (fill_common.cuh);
+// scal, sub, im, modes, scores, corner, dirs as fill_kernel's
+// (fill_common.cuh); mout: M (MBYTES 2 or 4), in the layout of dirs;
 // scratch: the round rows, 3 * (LA+1) int32 a pair that needs one (pair
-// j's at slice sc.slot[j] under a schedule, else j); sc.smem_lanes is not
-// read.
-template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R>
+// j's at slice sc.wrap[j] under a schedule, else j).  im and modes are
+// read under MODES only, and come last, so that the default flags'
+// instantiations read their arguments where they did before MODES.
+template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R,
+          bool MODES = false>
 __global__ void __launch_bounds__(32 * warps_max<R>())
     tile_fill_kernel(const uint8_t* __restrict__ ac,
                      const uint8_t* __restrict__ bc,
@@ -431,8 +503,9 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
                      int table_smem, int LA, int LB,
                      int* __restrict__ scores, int* __restrict__ corner,
                      uint8_t* __restrict__ dirs, void* __restrict__ mout,
-                     int* __restrict__ scratch, fill::Sched sc) {
-  using T = Tile<DIRS, SW, TABLE, MBYTES, R>;
+                     int* __restrict__ scratch, fill::Sched sc,
+                     const int* __restrict__ im, int modes) {
+  using T = Tile<DIRS, SW, TABLE, MBYTES, R, false, MODES>;
   constexpr int S = T::S;
   extern __shared__ int smem[];
   const int j = SCHED ? sc.order[blockIdx.x] : blockIdx.x;
@@ -461,10 +534,21 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
   tl.dj = DIRS ? dirs + at_j : nullptr;
   tl.mj = MBYTES ? static_cast<typename T::MT*>(mout) + at_j : nullptr;
   tl.tab = sub;
+  if constexpr (MODES) {
+    tl.modes = modes;
+    tl.im = im;
+  }
   if (TABLE && table_smem) {
     int* t = smem + W * 3 * RING;
     for (int i = threadIdx.x; i < sub_n; i += blockDim.x) t[i] = sub[i];
     tl.tab = t;
+    if constexpr (MODES) {
+      if (tl.flag(fill::NMM)) {  // the is-match table behind it
+        for (int i = threadIdx.x; i < sub_n; i += blockDim.x)
+          t[sub_n + i] = im[i];
+        tl.im = t + sub_n;
+      }
+    }
   }
   tl.best = 0;
   if (threadIdx.x == 0) {
@@ -491,9 +575,13 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
   const int lastS = nstrips - 1;
   const int Ttot = lastS / Wj * P + lastS % Wj * (R + 1) + ndur;
   int* rows = nstrips > Wj
-                  ? scratch + static_cast<size_t>(SCHED ? sc.slot[j] : j) *
+                  ? scratch + static_cast<size_t>(SCHED ? sc.wrap[j] : j) *
                                   3 * (LA + 1)
                   : nullptr;
+  // a block of R steps runs unchecked only where every cell is valid and,
+  // under MODES, none lies on the columns x == 1 and x == na of the flags
+  constexpr int ulo = MODES ? S + R : S;
+  const int uhi = MODES ? na - 1 : na;
   for (int t = 0; t < Ttot; ++t) {
     const int rel = t - warp * (R + 1);
     if (rel >= 0) {
@@ -533,17 +621,18 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
         }
         const int iend = min(q * K + K, steps);
         for (int i0 = q * K; i0 < iend; i0 += R) {
-          if (tl.full && i0 >= S && i0 + R - 1 <= na) {
+          if (tl.full && i0 >= ulo && i0 + R - 1 <= uhi) {
 #pragma unroll
             for (int u = 0; u < R; ++u)
               tl.template step<false>(m1, a1, b1, m2, a2, b2, h, bcd, i0 + u,
                                       corner, scores, j);
-          } else if constexpr (MBYTES == 0) {
+          } else if constexpr (MBYTES == 0 && !(DIRS && MODES)) {
 #pragma unroll
             for (int u = 0; u < R; ++u)
               tl.template step<true>(m1, a1, b1, m2, a2, b2, h, bcd, i0 + u,
                                      corner, scores, j);
-          } else {  // unrolled, the codes-and-M fills measured slower
+          } else {  // unrolled, the codes-and-M fills measured slower, and
+                    // the flagged codes fills spilled
 #pragma unroll 1
             for (int u = 0; u < R; ++u)
               tl.template step<true>(m1, a1, b1, m2, a2, b2, h, bcd, i0 + u,
@@ -560,18 +649,20 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
   }
 }
 
-template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R>
+template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R,
+          bool MODES>
 int start(const void* ac, const void* bc, const void* na, const void* nb,
-          const void* scal, const void* sub, int Kb, int sub_n,
-          int table_smem, int B, int LA, int LB, void* scores, void* corner,
-          void* dirs, void* mout, void* scratch, void* stream,
-          const fill::Sched& sc) {
+          const void* scal, const void* sub, const void* im, int modes,
+          int Kb, int sub_n, int table_smem, int B, int LA, int LB,
+          void* scores, void* corner, void* dirs, void* mout, void* scratch,
+          void* stream, const fill::Sched& sc) {
   constexpr int S = 32 * R;
   const int W = min((max(LB, 1) + S - 1) / S, warps_max<R>());
   const size_t smem =
       static_cast<size_t>(W) * 3 * RING * 4 +
-      (TABLE && table_smem ? static_cast<size_t>(4) * sub_n : 0);
-  auto kernel = tile_fill_kernel<DIRS, SW, TABLE, MBYTES, SCHED, R>;
+      (TABLE && table_smem ? static_cast<size_t>(4) * sub_n * (im ? 2 : 1)
+                           : 0);
+  auto kernel = tile_fill_kernel<DIRS, SW, TABLE, MBYTES, SCHED, R, MODES>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -584,42 +675,64 @@ int start(const void* ac, const void* bc, const void* na, const void* nb,
       static_cast<const int*>(scal), static_cast<const int*>(sub), Kb, sub_n,
       table_smem, LA, LB, static_cast<int*>(scores),
       static_cast<int*>(corner), static_cast<uint8_t*>(dirs), mout,
-      static_cast<int*>(scratch), sc);
+      static_cast<int*>(scratch), sc, static_cast<const int*>(im), modes);
   return cudaGetLastError();
 }
 
-// A default-flag fill launch: the table or none, a schedule or none, at
-// THREAD_LANES lanes a thread.
-template <bool DIRS, bool SW, int MBYTES>
+// A fill launch: the table or none, a schedule or none, at THREAD_LANES
+// lanes a thread; MODES for a flag word `modes` != 0 (`im`, the is-match
+// table, passed on only under NMM with a table).
+template <bool DIRS, bool SW, int MBYTES, bool MODES>
 int launch(const void* ac, const void* bc, const void* na, const void* nb,
-           const void* scal, const void* sub, int Kb, int sub_n,
-           int table_smem, int B, int LA, int LB, void* scores, void* corner,
-           void* dirs, void* mout, void* scratch, void* stream,
-           const fill::Sched& sc) {
+           const void* scal, const void* sub, const void* im, int modes,
+           int Kb, int sub_n, int table_smem, int B, int LA, int LB,
+           void* scores, void* corner, void* dirs, void* mout, void* scratch,
+           void* stream, const fill::Sched& sc) {
   constexpr int R = THREAD_LANES;
   if (sub) {
-    return sc.order ? start<DIRS, SW, true, MBYTES, true, R>(
-                          ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem,
-                          B, LA, LB, scores, corner, dirs, mout, scratch,
-                          stream, sc)
-                    : start<DIRS, SW, true, MBYTES, false, R>(
-                          ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem,
-                          B, LA, LB, scores, corner, dirs, mout, scratch,
-                          stream, sc);
+    const void* imp = (modes & fill::NMM) ? im : nullptr;
+    return sc.order ? start<DIRS, SW, true, MBYTES, true, R, MODES>(
+                          ac, bc, na, nb, scal, sub, imp, modes, Kb, sub_n,
+                          table_smem, B, LA, LB, scores, corner, dirs, mout,
+                          scratch, stream, sc)
+                    : start<DIRS, SW, true, MBYTES, false, R, MODES>(
+                          ac, bc, na, nb, scal, sub, imp, modes, Kb, sub_n,
+                          table_smem, B, LA, LB, scores, corner, dirs, mout,
+                          scratch, stream, sc);
   }
-  return sc.order ? start<DIRS, SW, false, MBYTES, true, R>(
-                        ac, bc, na, nb, scal, nullptr, 0, 0, 0, B, LA, LB,
-                        scores, corner, dirs, mout, scratch, stream, sc)
-                  : start<DIRS, SW, false, MBYTES, false, R>(
-                        ac, bc, na, nb, scal, nullptr, 0, 0, 0, B, LA, LB,
-                        scores, corner, dirs, mout, scratch, stream, sc);
+  return sc.order ? start<DIRS, SW, false, MBYTES, true, R, MODES>(
+                        ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0,
+                        0, B, LA, LB, scores, corner, dirs, mout, scratch,
+                        stream, sc)
+                  : start<DIRS, SW, false, MBYTES, false, R, MODES>(
+                        ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0,
+                        0, B, LA, LB, scores, corner, dirs, mout, scratch,
+                        stream, sc);
+}
+
+// The default flags (modes == 0) or the flags' instantiations (MODES).
+template <bool DIRS, bool SW, int MBYTES>
+int launch_modes(const void* ac, const void* bc, const void* na,
+                 const void* nb, const void* scal, const void* sub,
+                 const void* im, int modes, int Kb, int sub_n,
+                 int table_smem, int B, int LA, int LB, void* scores,
+                 void* corner, void* dirs, void* mout, void* scratch,
+                 void* stream, const fill::Sched& sc) {
+  return modes ? launch<DIRS, SW, MBYTES, true>(
+                     ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n,
+                     table_smem, B, LA, LB, scores, corner, dirs, mout,
+                     scratch, stream, sc)
+               : launch<DIRS, SW, MBYTES, false>(
+                     ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n,
+                     table_smem, B, LA, LB, scores, corner, dirs, mout,
+                     scratch, stream, sc);
 }
 
 #undef TILE_LANES_ARGS
 
 }  // namespace tile
 
-// The four default-flag entries call tile::launch with these arguments.
+// The four fill entries call tile::launch_modes with these arguments.
 #define TILE_ARGS                                                          \
-  ac, bc, na, nb, scal, sub, Kb, sub_n, table_smem, B, LA, LB, scores,     \
-      corner, dirs, mout, scratch, stream, SCHED_ARGS
+  ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,  \
+      scores, corner, dirs, mout, scratch, stream, SCHED_ARGS

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 # scores, corner, dirs, mout, m16, scratch, stream (csrc/fill_common.cuh)
 _COMMON = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
            _P, _P, _I, _P, _P)
-# then the schedule: order, slot, off, smem_lanes
-_FILL = _COMMON + (_P, _P, _P, _I)
+# then the schedule: order, wrap, off
+_FILL = _COMMON + (_P, _P, _P)
 # then bin, bout, x_off, CA, code and M pair strides, warps a block
 _CARRY = _COMMON + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
                     _I)

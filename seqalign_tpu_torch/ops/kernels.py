@@ -10,12 +10,11 @@ fills ``nw_fill_gab`` and ``sw_fill_gab``, the long-pair chunk fills
 code plane, a long pair's chunk slabs, or the planes of one launch across
 widths), and the ALU probe ``vpu_chain``.
 
-The four fills' default-flag launches (``params.modes == 0``) run the
-register tiles of csrc/tile_fill.cuh (a warp a strip of 32 * ``TILE_R``
-lanes), the long pairs' default-flag chunks the same tiles from
-csrc/tile_carry.cuh (a round of a pair's lanes a block, :func:`carry_warps`
-warps); their flagged launches and the matrix dump run fill_kernel, the
-flagged chunks fill_carry_kernel, of csrc/fill_common.cuh.
+The four fills run the register tiles of csrc/tile_fill.cuh (a warp a
+strip of 32 * ``TILE_R`` lanes), the long pairs' chunks the same tiles
+from csrc/tile_carry.cuh (a round of a pair's lanes a block,
+:func:`carry_warps` warps), under any scoring flags (``params.modes``); the
+matrix dump runs fill_kernel of csrc/fill_common.cuh.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -49,52 +48,50 @@ from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
 
 # dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
 SMEM_MAX = 227 * 1024
-# lanes of rolling diagonals (36 bytes each) a block of a flagged fill
-# (fill_kernel) across widths keeps in shared memory; a pair with more
-# lanes takes a slice of global scratch.  6,400 lanes hold every pair of
-# up to 6,399 bp on side b at one block an SM (PERF.md: chip_smoke.py's
-# ragged rows time the choices).
-RAGGED_SMEM_LANES = 6400
-# What the sizing of the default-flag fills' register tiles needs of
+# What the sizing of the fills' register tiles needs of
 # csrc/tile_fill.cuh (RING, LANES, THREAD_LANES there): an edge ring of
 # TILE_RING entries a warp, TILE_LANES lanes of b a block covers in one
 # round (a pair with more takes a round row of 3 * (LA+1) int32 in global
 # scratch), TILE_R lanes a thread.
 TILE_RING, TILE_LANES, TILE_R = 128, 2048, 4
-# The default-flag carry (csrc/tile_carry.cuh, WORD there): int32 between
-# two progress words of its round rows; and the fewest warps a block that
-# carry_warps picks.
+# The carry (csrc/tile_carry.cuh, WORD and MODES_LANES there): int32
+# between two progress words of its round rows; the lanes a thread of the
+# flags' carry (``params.modes``; at ``TILE_R`` its instantiations spilled);
+# and the fewest warps a block that carry_warps picks.
 CARRY_WORD = 32
+CARRY_MODES_R = 2
 CARRY_MIN_WARPS = 4
 
 
-def carry_rounds(LB: int, warps: int) -> int:
-    """Rounds of ``warps`` strips of 32 * ``TILE_R`` lanes that a pair of
-    ``LB`` lanes of b takes in a default-flag carry launch."""
-    strips = -(-max(LB, 1) // (32 * TILE_R))
+def carry_rounds(LB: int, warps: int, r: int = TILE_R) -> int:
+    """Rounds of ``warps`` strips of 32 * ``r`` lanes that a pair of ``LB``
+    lanes of b takes in a carry launch at ``r`` lanes a thread."""
+    strips = -(-max(LB, 1) // (32 * r))
     return -(-strips // warps)
 
 
-def carry_warps(B: int, LB: int, sms: int) -> int:
-    """The warps a block of a default-flag carry launch over ``B`` pairs of
-    ``LB`` lanes of b on a card of ``sms`` SMs: the most, ``TILE_LANES`` /
-    (32 * ``TILE_R``), halved while B x rounds stays below ``sms`` and the
-    warps above ``CARRY_MIN_WARPS``, and no more than a pair's strips.
-    Each round is a block of its own, so fewer warps put a pair on more SMs
-    (PERF.md, section 6, gives the measurement)."""
-    strips = -(-max(LB, 1) // (32 * TILE_R))
+def carry_warps(B: int, LB: int, sms: int, r: int = TILE_R) -> int:
+    """The warps a block of a carry launch over ``B`` pairs of ``LB`` lanes
+    of b on a card of ``sms`` SMs, at ``r`` lanes a thread: the most,
+    ``TILE_LANES`` / (32 * ``TILE_R``), halved while B x rounds stays below
+    ``sms`` and the warps above ``CARRY_MIN_WARPS``, and no more than a
+    pair's strips.  Each round is a block of its own, so fewer warps put a
+    pair on more SMs (PERF.md, section 6, gives the measurement)."""
+    strips = -(-max(LB, 1) // (32 * r))
     w = TILE_LANES // (32 * TILE_R)
-    while w > CARRY_MIN_WARPS and B * carry_rounds(LB, w) < sms:
+    while w > CARRY_MIN_WARPS and B * carry_rounds(LB, w, r) < sms:
         w //= 2
     return max(1, min(w, strips))
 
 
-def carry_scratch_ints(B: int, LB: int, ca: int, warps: int) -> int:
-    """int32 of a default-flag carry launch's scratch (csrc/tile_carry.cuh,
+def carry_scratch_ints(B: int, LB: int, ca: int, warps: int,
+                       r: int = TILE_R) -> int:
+    """int32 of a carry launch's scratch (csrc/tile_carry.cuh,
     Rounds): a progress word each ``CARRY_WORD`` int32 for each of the
     B x (rounds - 1) round boundaries and one for the ticket counter, then
-    a row of 3 * (ca + 1) int32 for each boundary."""
-    rows = B * (carry_rounds(LB, warps) - 1)
+    a row of 3 * (ca + 1) int32 for each boundary, at ``r`` lanes a
+    thread."""
+    rows = B * (carry_rounds(LB, warps, r) - 1)
     return (rows + 1) * CARRY_WORD + rows * 3 * (ca + 1)
 
 
@@ -105,50 +102,34 @@ def _sms(index: int) -> int:
 
 class FillSchedule(NamedTuple):
     """How one fill launch across widths runs (csrc/fill_common.cuh,
-    Sched): built on the host by :func:`fill_schedule`.
+    Sched; csrc/tile_fill.cuh): built on the host by
+    :func:`fill_schedule`.
 
     order: (B,) int32 on the device, block i fills pair order[i]: the pairs
       by cells, largest first, so that the longest start first.
-    slot: (B,) int32, the pair's slice of global scratch for its rolling
-      diagonals, -1 when they fit ``smem_lanes``.
-    nslots: slices of scratch the launch allocates.
-    smem_lanes: lanes of rolling diagonals in shared memory per block.
+    wrap: (B,) int32, the pair's round row in scratch, -1 when its nb fits
+      one round, ``TILE_LANES``.
+    nwrap: round rows the launch allocates.
     off: with planes, (B+1,) int64 on the device, ``pack.ragged_planes``:
       ``nw_fill_dirs`` and ``sw_fill_dirs`` write pair j's codes (and M)
       at its own widths from ``off[j]`` into 1-d tensors of ``total``
       elements.
-    wrap: (B,) int32, the pair's round row in scratch for a default-flag
-      fill (csrc/tile_fill.cuh), -1 when its nb fits ``TILE_LANES``.
-    nwrap: round rows the default-flag fills allocate.
-    slot and nslots serve the flagged fills (``params.modes``), wrap and
-    nwrap the default ones.
     """
 
     order: torch.Tensor
-    slot: torch.Tensor
-    nslots: int
-    smem_lanes: int
+    wrap: torch.Tensor
+    nwrap: int
     off: Optional[torch.Tensor] = None
     total: int = 0
-    wrap: Optional[torch.Tensor] = None
-    nwrap: int = 0
 
 
-def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
-                  planes: bool = False) -> FillSchedule:
+def fill_schedule(na, nb, device, planes: bool = False) -> FillSchedule:
     """The schedule of one fill launch over pairs of lengths ``na``,
-    ``nb`` (host arrays), on ``device``: ``smem_lanes`` (default
-    ``RAGGED_SMEM_LANES``) lanes of shared memory a block, and with
-    ``planes`` the ragged planes of ``nw_fill_dirs`` / ``sw_fill_dirs``."""
-    lanes = RAGGED_SMEM_LANES if smem_lanes is None else int(smem_lanes)
-    if not 0 <= 36 * lanes <= SMEM_MAX:
-        raise ValueError(f"{lanes} lanes of diagonals do not fit shared "
-                         f"memory")
+    ``nb`` (host arrays), on ``device``; with ``planes`` the ragged planes
+    of ``nw_fill_dirs`` / ``sw_fill_dirs``."""
     na = np.asarray(na, np.int64)
     nb = np.asarray(nb, np.int64)
     order = np.argsort(-(na * nb), kind="stable")
-    need = np.maximum(nb, 1) + 1 > lanes
-    slot = np.where(need, np.cumsum(need) - 1, -1)
     rounds = nb > TILE_LANES
     wrap = np.where(rounds, np.cumsum(rounds) - 1, -1)
 
@@ -156,11 +137,10 @@ def fill_schedule(na, nb, device, smem_lanes: Optional[int] = None,
         return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
 
     off = ragged_planes(na, nb) if planes else None
-    return FillSchedule(dev(order, np.int32), dev(slot, np.int32),
-                        int(need.sum()), lanes,
+    return FillSchedule(dev(order, np.int32), dev(wrap, np.int32),
+                        int(rounds.sum()),
                         None if off is None else dev(off, np.int64),
-                        0 if off is None else int(off[-1]),
-                        dev(wrap, np.int32), int(rounds.sum()))
+                        0 if off is None else int(off[-1]))
 
 
 # a launch across widths (a fill under a schedule, sw_hits over its
@@ -250,48 +230,45 @@ def _launched(name, lib, rc):
 
 
 def _check_sched(sched, B):
-    if sched is not None and not (sched.order.shape[0] == sched.slot.shape[0]
+    if sched is not None and not (sched.order.shape[0] == sched.wrap.shape[0]
                                   == B):
         raise ValueError("the schedule must hold one entry per pair")
 
 
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
           dirs=None, mout=None, m16=False, sched=None, carry=None):
-    """Launch one of the fill kernels.  The default-flag launches of the
-    four fills (``params.modes == 0``, not the matrix dump) run the
-    register tiles of csrc/tile_fill.cuh: ``TILE_R`` lanes a
-    thread, a warp's edge ring (12 * ``TILE_RING`` bytes) in shared
+    """Launch one of the fill kernels.  The four fills run the register
+    tiles of csrc/tile_fill.cuh under any scoring flags: ``TILE_R`` lanes
+    a thread, a warp's edge ring (12 * ``TILE_RING`` bytes) in shared
     memory, and a round row of 3 * (LA+1) int32 in scratch for each pair
     past ``TILE_LANES`` lanes of b (slice j without a schedule, the
-    schedule's ``wrap`` slot with one).  A default-flag carry runs
-    csrc/tile_carry.cuh: a block of :func:`carry_warps` warps for each
-    round of each pair, their rings in shared memory, and a scratch of
+    schedule's ``wrap`` slot with one).  A carry (``carry``: the extra
+    arguments of a carry entry, which takes no schedule) runs
+    csrc/tile_carry.cuh, at ``CARRY_MODES_R`` lanes a thread under flags:
+    a block of :func:`carry_warps` warps for each round of each pair,
+    their rings in shared memory, and a scratch of
     :func:`carry_scratch_ints` int32 for the round rows, their progress
-    words and the ticket counter.  The others run fill_kernel or
-    fill_carry_kernel (csrc/fill_common.cuh): without a schedule the
-    rolling diagonals (36 bytes per lane) of every pair take shared memory
-    when LB+1 lanes fit there, else a global scratch buffer; with one, a
-    pair's take shared memory when its own lanes fit the schedule's, else
-    its slice of scratch.  The table (4 bytes per entry, twice that with
+    words and the ticket counter.  The matrix dump runs fill_kernel
+    (csrc/fill_common.cuh), a block a pair: its rolling diagonals (36
+    bytes per lane) take shared memory when LB+1 lanes fit there, else a
+    global scratch buffer.  The table (4 bytes per entry, twice that with
     the is-match table of no_mismatches) takes the shared memory left,
-    else the read-only global path.  ``carry``: the extra arguments of a
-    carry entry, which takes no schedule."""
+    else the read-only global path."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
         return
     dev = ac.device
-    tiles = params.modes == 0 and not entry.endswith("_gab_launch")
-    warps = 0  # a carry's warps a block, read by the tiles only
-    if tiles and carry is not None:
-        lanes = 0  # not read
+    warps = 0  # a carry's warps a block
+    if carry is not None:
+        r = CARRY_MODES_R if params.modes else TILE_R
         warps = carry_warps(B, LB, _sms(torch.cuda.current_device()
-                                        if dev.index is None else dev.index))
+                                        if dev.index is None else dev.index),
+                            r)
         smem = 12 * TILE_RING * warps
-        scratch = torch.empty(carry_scratch_ints(B, LB, carry[3], warps),
+        scratch = torch.empty(carry_scratch_ints(B, LB, carry[3], warps, r),
                               dtype=torch.int32, device=dev)
-    elif tiles:
-        lanes = 0  # not read
+    elif not entry.endswith("_gab_launch"):
         smem = 12 * TILE_RING * min(-(-LB // (32 * TILE_R)),
                                     TILE_LANES // (32 * TILE_R))
         if sched is None:
@@ -301,14 +278,9 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
         scratch = (torch.empty((nscratch, 3, LA + 1), dtype=torch.int32,
                                device=dev) if nscratch else None)
     else:
-        if sched is None:
-            lanes = LB + 1 if 36 * (LB + 1) <= SMEM_MAX else 0
-            nscratch = 0 if lanes else B
-        else:
-            lanes, nscratch = min(sched.smem_lanes, LB + 1), sched.nslots
-        smem = 36 * lanes
-        scratch = (torch.empty((nscratch, 9, LB + 1), dtype=torch.int32,
-                               device=dev) if nscratch else None)
+        smem = 36 * (LB + 1) if 36 * (LB + 1) <= SMEM_MAX else 0
+        scratch = (None if smem else
+                   torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev))
     sub = params.sub
     im = params.im if sub is not None and params.modes & NMM else None
     kb = sub_n = table_smem = 0
@@ -318,9 +290,8 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
         table_smem = int(smem + tables <= SMEM_MAX)
     lib = library()
     if carry is None:
-        tail = ((None, None, None, lanes) if sched is None else
-                (_ptr(sched.order), _ptr(sched.wrap if tiles else sched.slot),
-                 _ptr(sched.off), lanes))
+        tail = ((None, None, None) if sched is None else
+                (_ptr(sched.order), _ptr(sched.wrap), _ptr(sched.off)))
     else:
         tail = (*carry, warps)
     rc = getattr(lib, entry)(

@@ -634,24 +634,21 @@ def test_vpu_chain_equals_plain_version(dev, dtype, lanes):
                           4, "add")
 
 
-def _sched_fills(fill, t, bp, lanes, planes=False):
-    """``fill`` over the batch ``t`` under a schedule of ``lanes`` lanes of
-    shared memory a block (its planes with ``planes``)."""
+def _sched_fills(fill, t, bp, planes=False):
+    """``fill`` over the batch ``t`` under a schedule (its planes with
+    ``planes``)."""
     na, nb = (v.cpu().numpy() for v in t[2:4])
-    return fill(*t, bp, kernels.fill_schedule(na, nb, t[0].device, lanes,
-                                              planes))
+    return fill(*t, bp, kernels.fill_schedule(na, nb, t[0].device, planes))
 
 
 @pytest.mark.parametrize("case", ["default", "nsg_neg", "table"])
 def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
     """One fill launch across widths (ragged code planes, blocks largest
-    first, each pair's diagonals in shared memory or its scratch slice)
-    against the uniform launch of each width bucket, kernel against
-    kernel; against the plain ragged fill; and nw_walk over the planes
-    against the walk over the bucket planes.  The scores fills under the
-    same schedules equal their uniform launches.  Shared-memory lanes 0
-    (every pair in scratch), 700 and the default; a pair of 6,600 lanes
-    takes scratch under the default."""
+    first, on the register tiles under every flag; a pair of 6,600 lanes
+    takes round rows of scratch) against the uniform launch of each width
+    bucket, kernel against kernel; against the plain ragged fill; and
+    nw_walk over the planes against the walk over the bucket planes.  The
+    scores fills under the same schedule equal their uniform launches."""
     from seqalign_tpu_torch.ops.pack import pad_width
 
     if case == "table":
@@ -672,25 +669,18 @@ def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
     t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
     cap = int((na + nb).max())
     before = kernel_launch_counts()
-    outs = [_sched_fills(kernels.nw_fill_dirs, t, bp, lanes, True)
-            for lanes in (0, 700, kernels.RAGGED_SMEM_LANES)]
+    flat, corner = _sched_fills(kernels.nw_fill_dirs, t, bp, True)
     s_nw, c_nw = kernels.nw_scores(*t, bp)
     s_sw = kernels.sw_scores(*t, bp)
-    for lanes in (0, 700, kernels.RAGGED_SMEM_LANES):
-        s, c = _sched_fills(kernels.nw_scores, t, bp, lanes)
-        assert torch.equal(s, s_nw) and torch.equal(c, c_nw)
-        assert torch.equal(_sched_fills(kernels.sw_scores, t, bp, lanes),
-                           s_sw)
+    s, c = _sched_fills(kernels.nw_scores, t, bp)
+    assert torch.equal(s, s_nw) and torch.equal(c, c_nw)
+    assert torch.equal(_sched_fills(kernels.sw_scores, t, bp), s_sw)
     off = kernels.fill_schedule(na, nb, dev, planes=True).off
-    walk = kernels.nw_walk(outs[0][0], outs[0][1], t[2], t[3], cap, off)
-    for flat, corner in outs[1:]:
-        assert torch.equal(corner, outs[0][1])
-        got = kernels.nw_walk(flat, corner, t[2], t[3], cap, off)
-        assert all(torch.equal(g, w) for g, w in zip(got, walk))
+    walk = kernels.nw_walk(flat, corner, t[2], t[3], cap, off)
     after = kernel_launch_counts()
     assert after["nw_fill_dirs[ragged]"] == \
-        before["nw_fill_dirs[ragged]"] + 3
-    assert after["nw_walk"] == before["nw_walk"] + 3
+        before["nw_fill_dirs[ragged]"] + 1
+    assert after["nw_walk"] == before["nw_walk"] + 1
     offs = off.tolist()
     buckets = {}
     for j, (a, b) in enumerate(zip(A, Bs)):
@@ -704,14 +694,13 @@ def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
         ops, score = kernels.nw_walk(d, c, tb[2], tb[3], cap)
         for i, j in enumerate(idx):
             lanes = max(int(nb[j]), 1) + 1
-            for flat, corner in outs:
-                plane = flat[offs[j]:offs[j + 1]].view(-1, lanes)
-                assert torch.equal(corner[j], c[i])
-                v = _valid(dev, tb[2][i:i + 1], tb[3][i:i + 1], wa,
-                           wb)[0][:, :lanes]
-                rows = plane.shape[0]
-                assert torch.equal(plane[v[:rows]], d[i, :rows, :lanes][
-                    v[:rows]])
+            plane = flat[offs[j]:offs[j + 1]].view(-1, lanes)
+            assert torch.equal(corner[j], c[i])
+            v = _valid(dev, tb[2][i:i + 1], tb[3][i:i + 1], wa,
+                       wb)[0][:, :lanes]
+            rows = plane.shape[0]
+            assert torch.equal(plane[v[:rows]], d[i, :rows, :lanes][
+                v[:rows]])
             assert torch.equal(walk[0][j], ops[i])
             assert walk[1][j] == score[i]
     # the plain ragged fill, on 8 pairs of up to 300 bp
@@ -719,7 +708,7 @@ def test_ragged_fill_equals_bucket_kernels_and_plain(dev, case):
     As[1] = ""
     g = pack_batch(sc, p, As, Bss, 300, 300)
     ts = [torch.from_numpy(v).to(dev) for v in g[:4]]
-    flat, corner = _sched_fills(kernels.nw_fill_dirs, ts, g[4], 700, True)
+    flat, corner = _sched_fills(kernels.nw_fill_dirs, ts, g[4], True)
     offs = kernels.fill_schedule(g[2], g[3], dev, planes=True).off
     fp, cp = nw_fill_dirs_plain(*ts, g[4], offs)
     assert torch.equal(corner, cp)
@@ -910,7 +899,7 @@ def test_ragged_sw_fill_equals_bucket_kernels_and_plain(dev, case, m16):
     As[1], Bss[4] = "", ""
     g = pack_batch(sc, p, As, Bss, 300, 300)
     ts = [torch.from_numpy(v).to(dev) for v in g[:4]]
-    small = kernels.fill_schedule(g[2], g[3], dev, 200, planes=True)
+    small = kernels.fill_schedule(g[2], g[3], dev, planes=True)
     fk, mk = kernels.sw_fill_dirs(*ts, g[4], m16, small)
     fp, mp = sw_fill_dirs_plain(*ts, g[4], m16, small.off)
     v = _plane_valid(small.off, g[2], g[3], dev)
@@ -1039,19 +1028,50 @@ def _tile_batch(alpha, R, seed, wide=False):
     return A, B
 
 
+NSG_NEG = dict(no_start_gap_penalty=True, no_end_gap_penalty=True)
+NGA_NGB_NMM = dict(no_gaps_in_a=True, no_gaps_in_b=True, no_mismatches=True)
+ALL_FLAGS = dict(NSG_NEG, **NGA_NGB_NMM)
+
+
+def _flagged(flags, sw=False, table=False):
+    """NW 1/-2/-4/-1, SW 2/-2/-2/-1 or BLOSUM62 under the scoring flags."""
+    if table:
+        sc = scoring_system_BLOSUM62()
+        for k, v in flags.items():
+            setattr(sc, k, v)
+        sc._luts = None
+        return sc
+    return ScoringConfig(*((2, -2, -2, -1) if sw else (1, -2, -4, -1)),
+                         **flags)
+
+
+def _makers(flags, table=False):
+    """(NW config maker, SW config maker) under ``flags``."""
+    return (lambda: _flagged(flags, False, table),
+            lambda: _flagged(flags, True, table))
+
+
+# name -> (NW config maker, SW config maker, alphabet): the default flags,
+# and the flags' instantiations (MODES) of the same tiles
 TILE_CASES = {"equality": (scoring_system_default, scoring_system_sw_default,
                            "acgtACGT"),
               "blosum62": (scoring_system_BLOSUM62, scoring_system_BLOSUM62,
-                           PROTEIN)}
+                           PROTEIN),
+              "nsg_neg": (*_makers(NSG_NEG), "acgtACGT"),
+              "nga_ngb_nmm": (*_makers(NGA_NGB_NMM), "acgtACGT"),
+              "all_flags": (*_makers(ALL_FLAGS), "acgtACGT"),
+              "blosum62_all_flags": (*_makers(ALL_FLAGS, True), PROTEIN)}
 _TILE_PLAIN: dict = {}  # the plain fills of the wide batches
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["edges", "rounds"])
 @pytest.mark.parametrize("case", list(TILE_CASES))
 def test_tile_fills_equal_plain_versions(dev, case, wide):
-    """The default-flag fills on the register tiles (nw_scores,
-    nw_fill_dirs, sw_scores, sw_fill_dirs with int16 and int32 M), uniform
-    and under a schedule with planes, against their plain versions: pairs
+    """The fills on the register tiles (nw_scores, nw_fill_dirs,
+    sw_scores, sw_fill_dirs with int16 and int32 M) at the default flags
+    and under flags (nsg+neg, nga+ngb+nmm, all five; under BLOSUM62 with
+    its is-match table), uniform and under a schedule with planes, against
+    their plain versions: pairs
     at the strip edges of R = kernels.TILE_R lanes a thread (b of 31 and
     32R-1, 32R, 32R+1 and 2*32R+3 lanes), empty sides, and b sides of 6,000
     to 10,240 lanes whose strips take several rounds.  Codes and M on the
@@ -1110,14 +1130,16 @@ def test_tile_fills_equal_plain_versions(dev, case, wide):
         del plain, v, pv
 
 
-# The default-flag carry on the register tiles (csrc/tile_carry.cuh), a
-# round of a pair's lanes a block: name -> (scoring, pairs, (CA, LA, LB),
-# warps a block or None for kernels.carry_warps).  Chunks narrower and
-# wider than the lanes; b of 3 and more rounds at 4 warps; 10,240 lanes;
-# 16 warps; one warp; BLOSUM62 with an empty seq_a and an empty seq_b (the
-# corners that F4's workaround guards); and 300 pairs at 2 warps, 1,800
-# blocks, more than the card holds at once, so that rounds wait on
-# producers that took their tickets earlier.
+# The carry on the register tiles (csrc/tile_carry.cuh), a round of a
+# pair's lanes a block: name -> (scoring, pairs, (CA, LA, LB), warps a
+# block or None for kernels.carry_warps).  Chunks narrower and wider than
+# the lanes; b of 3 and more rounds at 4 warps; 10,240 lanes; 16 warps;
+# one warp; BLOSUM62 with an empty seq_a and an empty seq_b (the corners
+# of empty sides); 300 pairs at 2 warps, 1,800 blocks, more than the card
+# holds at once, so that rounds wait on producers that took their tickets
+# earlier; and the flags (MODES): nsg+neg, nga+ngb+nmm and all five
+# (BLOSUM62 too, its is-match table beside the table), with a pair that
+# ends on the first column of chunk 1.
 TILE_CARRY_CASES = {
     "narrow_chunk": ("equality", 4, (64, 700, 1500), None),
     "wide_chunk": ("equality", 4, (2048, 3000, 600), None),
@@ -1126,37 +1148,54 @@ TILE_CARRY_CASES = {
     "warps_1": ("equality", 3, (256, 700, 900), 1),
     "blosum62_empty": ("blosum62", 4, (256, 700, 1200), None),
     "past_residency": ("equality", 300, (256, 520, 1500), 2),
+    "nsg_neg": ("nsg_neg", 5, (256, 700, 1500), None),
+    # the flags' carry at long job 2's launch shape: 16 warps of 2 lanes
+    # a thread, b of 6,600 lanes in 4 rounds
+    "nsg_neg_warps_16": ("nsg_neg", 5, (512, 1400, 6600), 16),
+    "nga_ngb_nmm_wide_chunk": ("nga_ngb_nmm", 5, (2048, 3000, 600), None),
+    "all_flags": ("all_flags", 5, (512, 1400, 2600), None),
+    "blosum62_all_flags_empty": ("blosum62_all_flags", 5, (256, 700, 1200),
+                                 None),
 }
+CARRY_FLAGS = {"nsg_neg": NSG_NEG, "nga_ngb_nmm": NGA_NGB_NMM,
+               "all_flags": ALL_FLAGS, "blosum62_all_flags": ALL_FLAGS}
 
 
 @pytest.mark.parametrize("fill", ["nw", "sw_m16", "sw_m32"])
 @pytest.mark.parametrize("case", list(TILE_CARRY_CASES))
 def test_tile_carry_equals_plain_versions(dev, monkeypatch, case, fill):
-    """The default-flag carry kernels (csrc/tile_carry.cuh) against their
-    plain versions chunk by chunk at TILE_CARRY_CASES' shapes: codes of
-    every slab and SW M on the valid cells, bout on the lanes 1 .. nb of
-    the pairs that reach it, the NW corner or the SW best; one pair ends
-    on the last column of chunk 1, one in the middle of a chunk, and the
-    launch counters count one launch a chunk under the carry's name."""
+    """The carry kernels (csrc/tile_carry.cuh) against their plain
+    versions chunk by chunk at TILE_CARRY_CASES' shapes: codes of every
+    slab and SW M on the valid cells, bout on the lanes 1 .. nb of the
+    pairs that reach it, the NW corner or the SW best; one pair ends on
+    the last column of chunk 1, one in the middle of a chunk (under flags
+    a fifth on the first column of chunk 1), and the launch counters
+    count one launch a chunk under the carry's name."""
     sw, m16 = fill != "nw", fill == "sw_m16"
     scoring, B, (ca, la, lb), warps = TILE_CARRY_CASES[case]
     if warps is not None:
         monkeypatch.setattr(kernels, "carry_warps", lambda *a: warps)
-    if scoring == "blosum62":
-        sc, alpha = scoring_system_BLOSUM62(), PROTEIN
+    table = scoring.startswith("blosum62")
+    if scoring in CARRY_FLAGS:
+        sc = _flagged(CARRY_FLAGS[scoring], sw, table)
+    elif table:
+        sc = scoring_system_BLOSUM62()
     else:
         sc = scoring_system_sw_default() if sw else scoring_system_default()
-        alpha = "acgtACGT"
+    alpha = PROTEIN if table else "acgtACGT"
     rng = np.random.default_rng(len(case) + 7 * sw + ca)
     A, Bs = _text(rng, alpha, B, la // 2, la), _text(rng, alpha, B,
                                                      lb // 2, lb)
     A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
     A[1] = A[1][:ca + ca // 2]  # ends inside chunk 1
-    if scoring == "blosum62":
+    if table:
         A[2], Bs[3] = "", ""
+    if scoring in CARRY_FLAGS:  # ends on the first column of chunk 1
+        A[4] = _text(rng, alpha, 1, ca + 1, ca + 1)[0]
     ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, la,
                                     lb)
-    assert bp.modes == 0 and (bp.sub is not None) == (scoring != "equality")
+    assert (bp.modes != 0) == (scoring in CARRY_FLAGS)
+    assert (bp.sub is not None) == table
     t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
     nch = -(-la // ca)
     m16 = m16 and m16_safe(sc, la, lb)

@@ -126,20 +126,20 @@ def test_nw_walk_plain_on_ragged_planes():
 
 def test_fill_schedule():
     """Blocks take the pairs by cells, largest first (ties in pair
-    order); a pair whose lanes pass the shared-memory lanes takes a
-    scratch slice; the planes are ``ragged_planes``."""
+    order); a pair whose b passes one round of the tiles
+    (``kernels.TILE_LANES`` lanes) takes a round row of scratch, in pair
+    order; the planes are ``ragged_planes``."""
     na, nb = np.array([10, 300, 0, 300, 50]), np.array([20, 100, 9, 100, 80])
-    s = kernels.fill_schedule(na, nb, "cpu", smem_lanes=90, planes=True)
+    s = kernels.fill_schedule(na, nb, "cpu", planes=True)
     assert s.order.tolist() == [1, 3, 4, 0, 2]
-    assert s.slot.tolist() == [-1, 0, -1, 1, -1] and s.nslots == 2
-    assert s.smem_lanes == 90
+    assert s.wrap.tolist() == [-1] * 5 and s.nwrap == 0
     assert s.off.tolist() == ragged_planes(na, nb).tolist()
     assert s.total == int(ragged_planes(na, nb)[-1])
-    s = kernels.fill_schedule(na, nb, "cpu")
-    assert s.off is None and s.smem_lanes == kernels.RAGGED_SMEM_LANES
-    assert s.nslots == 0
-    with pytest.raises(ValueError):
-        kernels.fill_schedule(na, nb, "cpu", smem_lanes=7000)
+    s = kernels.fill_schedule(na, nb + [0, kernels.TILE_LANES, 0,
+                                        kernels.TILE_LANES, 0], "cpu")
+    assert s.off is None and s.total == 0
+    assert s.order.tolist() == [1, 3, 4, 0, 2]
+    assert s.wrap.tolist() == [-1, 0, -1, 1, -1] and s.nwrap == 2
 
 
 @pytest.fixture

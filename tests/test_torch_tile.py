@@ -1,5 +1,6 @@
-"""The order of work of the default-flag fill's register tiles
-(csrc/tile_fill.cuh), checked on the CPU.  :func:`tile_fill_model` is
+"""The order of work of the fills' register tiles (csrc/tile_fill.cuh),
+checked on the CPU at the default flags (tests/test_torch_tile_modes.py
+runs the same models under the scoring flags).  :func:`tile_fill_model` is
 that order in numpy: a pair's lanes cut into strips of 32*R lanes, a warp
 a strip and R lanes a thread, one anti-diagonal a step; the a codes
 shifting one lane a step, thread 0 taking its up neighbour and a code from
@@ -28,6 +29,7 @@ plain versions on the card by ``tests/test_torch_cuda.py``."""
 import functools
 import re
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import pytest
@@ -42,7 +44,9 @@ from seqalign_tpu.scoring.presets import (  # noqa: E402
 )
 from seqalign_tpu_torch import kernel_params  # noqa: E402
 from seqalign_tpu_torch.ops import kernels  # noqa: E402
-from seqalign_tpu_torch.ops.pack import pack_batch, ragged_planes  # noqa
+from seqalign_tpu_torch.ops.pack import (  # noqa: E402
+    NEG, NGA, NGB, NMM, NSG, pack_batch, ragged_planes,
+)
 
 HEADER = (Path(kernels.__file__).parent.parent / "csrc" /
           "tile_fill.cuh").read_text()
@@ -95,11 +99,31 @@ class Rec:
         self.pieces = []
 
 
-def cells(h, bcd, up, dg, p1, tab, scal, sw):
+class Flags(NamedTuple):
+    """The scoring flags of a launch of the MODES instantiations (the
+    kernels' ``modes`` word, never 0: the default flags run without one),
+    and under NMM with a table the flat is-match table, as ``tab``."""
+
+    modes: int
+    im: Optional[np.ndarray] = None
+
+
+def flags_of(bp):
+    """:class:`Flags` of a packed batch's params, or None at the default
+    flags."""
+    if not bp.modes:
+        return None
+    im = (bp.im.numpy().ravel().astype(np.int64) if bp.im is not None
+          else None)
+    return Flags(bp.modes, im)
+
+
+def cells(h, bcd, up, dg, p1, tab, scal, sw, fl=None, at=None):
     """One step's cells of a warp, (32, R) lanes, as the kernel's cell():
     h the lanes' a codes (times kb under a table), bcd their b codes, up
-    the (M, Ga, Gb) at (y-1, x), dg at (y-1, x-1), p1 at (y, x-1).  Returns
-    (ss, M, Ga, Gb) before the boundary column."""
+    the (M, Ga, Gb) at (y-1, x), dg at (y-1, x-1), p1 at (y, x-1); with
+    the flags ``fl`` where ``at`` (:func:`where_flags`) says they act.
+    Returns (ss, M, Ga, Gb) before the boundary column."""
     match, mismatch, go, ge = (int(v) for v in scal[:4])
     mn = int(scal[5] if sw else scal[4])
     gop = int(w32(go + ge))
@@ -110,34 +134,76 @@ def cells(h, bcd, up, dg, p1, tab, scal, sw):
                             w32(up[2] + gop), np.full_like(M, mn)])
     Gb = np.maximum.reduce([w32(p1[0] + gop), w32(p1[1] + gop),
                             w32(p1[2] + ge), np.full_like(M, mn)])
+    if fl is not None:
+        if fl.modes & NMM:
+            ism = fl.im[h + bcd] != 0 if tab is not None else h == bcd
+            M = np.where(ism, M, mn)
+        if fl.modes & NEG:  # no penalty, no floor
+            Ga = np.where(at["lcol"], up.max(0), Ga)
+            Gb = np.where(at["lrow"], p1.max(0), Gb)
+        if fl.modes & NGA:
+            Ga = np.where(at["lcol"], Ga, mn)
+        if fl.modes & NGB:
+            Gb = np.where(at["lrow"], Gb, mn)
     return ss, M, Ga, Gb
 
 
-def cell_codes(ss, M, Ga, Gb, up, dg, p1, scal):
+def cell_codes(ss, M, Ga, Gb, up, dg, p1, scal, fl=None, at=None):
     """The direction codes of :func:`cells`' lanes, as the kernel compares
-    them (p == v - c for add(p, c) == v)."""
+    them (p == v - c for add(p, c) == v); with the flags, their guards
+    and the end gaps' penalty 0."""
     ge = int(scal[3])
     gop = int(w32(int(scal[2]) + ge))
     tm = w32(M - ss)
-    return (pick(dg[1] == tm, dg[2] == tm, dg[0] == tm)
-            | pick(up[1] == w32(Ga - ge), up[2] == w32(Ga - gop),
-                   up[0] == w32(Ga - gop)) << 2
-            | pick(p1[1] == w32(Gb - gop), p1[2] == w32(Gb - ge),
-                   p1[0] == w32(Gb - gop)) << 4)
+    if fl is None:
+        return (pick(dg[1] == tm, dg[2] == tm, dg[0] == tm)
+                | pick(up[1] == w32(Ga - ge), up[2] == w32(Ga - gop),
+                       up[0] == w32(Ga - gop)) << 2
+                | pick(p1[1] == w32(Gb - gop), p1[2] == w32(Gb - ge),
+                       p1[0] == w32(Gb - gop)) << 4)
+    neg, nga, ngb = (bool(fl.modes & f) for f in (NEG, NGA, NGB))
+    ea, eb = neg & at["lcol"], neg & at["lrow"]
+    tae, tao = np.where(ea, Ga, w32(Ga - ge)), np.where(ea, Ga, w32(Ga - gop))
+    tbo, tbe = np.where(eb, Gb, w32(Gb - gop)), np.where(eb, Gb, w32(Gb - ge))
+    diag_a, diag_b = (not nga) | at["xone"], (not ngb) | at["yone"]
+    up_a, left_b = (not nga) | at["lcol"], (not ngb) | at["lrow"]
+    return (pick(diag_a & (dg[1] == tm), diag_b & (dg[2] == tm), dg[0] == tm)
+            | pick(up_a & (up[1] == tae), diag_b & (up[2] == tao),
+                   up[0] == tao) << 2
+            | pick(diag_a & (p1[1] == tbo), left_b & (p1[2] == tbe),
+                   p1[0] == tbo) << 4)
+
+
+def where_flags(fl, x, y, lc, x1, nb, checked):
+    """Where the flags act on one step's (32, R) lanes at local columns x
+    and rows y, as the kernel's cell() tests them: the pair's last column
+    (local lc) and the column x1 of global x == 1 in checked step blocks
+    only (an unchecked block holds neither: asserted, the widened test of
+    the kernel's step blocks), the rows y == nb and y == 1 in every
+    block.  None without flags."""
+    if fl is None:
+        return None
+    if not checked:
+        assert not ((x == lc) | (x == x1)).any(), "a flag's column unchecked"
+    return {"lcol": checked & (x == lc), "xone": checked & (x == x1),
+            "lrow": y == nb, "yone": y == 1}
 
 
 def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
-                    at, LBp, LA, rec, rng):
+                    at, LBp, LA, rec, rng, fl=None):
     """One pair's block of the tile fill: a, b its codes (the kernel's
     inputs), ``tab`` the flat substitution table or None (equality),
     ``kb`` its row length; codes (``dirs``) and M (``mbytes`` 2 or 4) go
     to ``rec`` at element ``at`` with rows of ``LBp`` lanes.  W: warps of
-    the block.  Returns (corner or None, score)."""
+    the block; ``fl``: the scoring flags (:class:`Flags`) of a MODES
+    instantiation, or None.  Returns (corner or None, score)."""
     go, ge = int(scal[2]), int(scal[3])
     mn = int(scal[5] if sw else scal[4])
+    nsg = fl is not None and bool(fl.modes & NSG)
 
     def run(k):
-        return np.zeros_like(k) if sw else w32(go + np.asarray(k) * ge)
+        return (np.zeros_like(k) if sw or nsg
+                else w32(go + np.asarray(k) * ge))
 
     if na == 0 or nb == 0:
         if sw:
@@ -153,6 +219,9 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
     P = max(ndur + R + 1, Wj * (R + 1))
     last = nstrips - 1
     ttot = last // Wj * P + last % Wj * (R + 1) + ndur
+    # the step blocks that run unchecked: under flags none holds a cell of
+    # the columns x == 1 or x == na
+    ulo, uhi = (S, na) if fl is None else (S + R, na - 1)
     garbage = functools.partial(rng.integers, -2 ** 31, 2 ** 31,
                                 dtype=np.int64)
 
@@ -212,8 +281,10 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
         fetch(st, w, s, i + 1, t)
         up = np.concatenate([u1[:, :, None], p1[:, :, :-1]], 2)
         dg = np.concatenate([st["u2"][:, :, None], p2[:, :, :-1]], 2)
-        ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw)
         x = i - lanes * R - rr
+        fa = where_flags(fl, x, y, na, 1, nb, checked)
+        ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw, fl,
+                              fa)
         valid = (x >= 1) & (x <= na) & (y <= nb)
         if checked:
             b0 = x == 0
@@ -221,7 +292,7 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
                          np.where(b0, mn, Gb))
         else:
             assert valid.all()
-        code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal)
+        code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal, fl, fa)
         if sw and valid.any():
             out["best"] = max(out["best"], int(M[valid].max()))
         base = at + (ys + i - 2) * LBp  # the row of diagonal d = ys + i
@@ -270,7 +341,7 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
                 begin(w, s, t)
             for i0 in range(q * K, min(q * K + K, steps), R):
                 st = state[w]
-                unchecked = st["full"] and i0 >= S and i0 + R - 1 <= na
+                unchecked = st["full"] and i0 >= ulo and i0 + R - 1 <= uhi
                 for u in range(R):
                     step(w, i0 + u, not unchecked, t)
     if sw:
@@ -321,6 +392,7 @@ def model_launch(sc, A, B, sw, R, W, ragged, seed):
     ac, bc, na, nb, bp = pack_batch(sc, p, A, B, LA, LB)
     tab = None if bp.sub is None else bp.sub.numpy().ravel().astype(np.int64)
     kb = 0 if bp.sub is None else bp.sub.shape[1]
+    fl = flags_of(bp)
     if ragged:
         off = ragged_planes(na, nb)
     else:
@@ -333,15 +405,16 @@ def model_launch(sc, A, B, sw, R, W, ragged, seed):
         LBp = max(int(nb[j]), 1) + 1 if ragged else LB + 1
         c, s = tile_fill_model(ac[j], bc[j], int(na[j]), int(nb[j]),
                                p.scal.numpy(), tab, kb, sw, True, mbytes, R,
-                               W, int(off[j]), LBp, LA, rec, rng)
+                               W, int(off[j]), LBp, LA, rec, rng, fl)
         corners.append(c)
         scores.append(s)
     return corners, scores, rec, off, na, nb, LB, mbytes
 
 
 def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
-                     bin, bout, rec, bw, corner, best, resident, rng):
-    """One default-flag carry launch (csrc/tile_carry.cuh) over a packed
+                     bin, bout, rec, bw, corner, best, resident, rng,
+                     fl=None):
+    """One carry launch (csrc/tile_carry.cuh) over a packed
     batch, ``ac`` (B, LA) and ``bc`` (B, LB) its codes: the chunk of ``ca``
     columns from ``x_off``, ``bin`` (B, 3, LB+1) the column x_off in,
     ``bout`` the column x_off+ca out (``bw`` counts its writes); codes and
@@ -355,7 +428,9 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
     waits, the launch has deadlocked and the model fails.  Every read of a
     round row checks that the column was written and published, every
     ring read that it was written in an earlier macro step; registers the
-    kernel never sets start as garbage."""
+    kernel never sets start as garbage.  ``fl``: the scoring flags
+    (:class:`Flags`) of a MODES instantiation, or None; their last column
+    and x == 1 at global x (local na - x_off and 1 - x_off)."""
     B, LA = ac.shape
     LB = bc.shape[1]
     LBp, D, S = LB + 1, ca + LB - 1, 32 * R
@@ -378,8 +453,11 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
     lanes = np.arange(32)[:, None]
     rr = np.arange(R)[None, :]
 
+    nsg = fl is not None and bool(fl.modes & NSG)
+
     def run(k):
-        return np.zeros_like(k) if sw else w32(go + np.asarray(k) * ge)
+        return (np.zeros_like(k) if sw or nsg
+                else w32(go + np.asarray(k) * ge))
 
     def block(t):
         j, r = t % B, t // B
@@ -403,7 +481,10 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
         none = -(1 << 40)  # a column no lane reaches
         bcol = ca if wa == ca else none
         cx = wa if naj <= x_off + ca else none
-        ulim = wa - 1 if wa == ca else wa
+        # the unchecked step blocks: left of the column out, and under
+        # flags off the columns of global x == 1 and x == na
+        ulo, ulim = (S, wa - 1 if wa == ca else wa) if fl is None else (
+            S + R, wa - 1)
         rin, rout = (r - 1) * B + j, r * B + j
         ring = garbage((Wj, 3, RING))
         ring_at = np.full((Wj, RING, 2), -1, np.int64)
@@ -451,8 +532,10 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
             fetch(st, w, s, i + 1, tt)
             up = np.concatenate([u1[:, :, None], p1[:, :, :-1]], 2)
             dg = np.concatenate([st["u2"][:, :, None], p2[:, :, :-1]], 2)
-            ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw)
             x = i - lanes * R - rr
+            fa = where_flags(fl, x, y, naj - x_off, 1 - x_off, nbj, checked)
+            ss, M, Ga, Gb = cells(h, st["bcd"], up, dg, p1, tab, scal, sw, fl,
+                                  fa)
             valid = (x >= 1) & (x <= wa) & (y <= nbj)
             if checked:  # lane x == 0 takes the carried column
                 b0 = (x == 0) & (y <= nbj)
@@ -461,7 +544,7 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                              for k, v in enumerate((M, Ga, Gb)))
             else:
                 assert valid.all() and not (x == bcol).any()
-            code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal)
+            code = cell_codes(ss, M, Ga, Gb, up, dg, p1, scal, fl, fa)
             if sw and valid.any():
                 blk["best"] = max(blk["best"], int(M[valid].max()))
             base = j * D * LBp + (ys + i - 2) * LBp
@@ -510,7 +593,7 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                 if q == 0:
                     begin(w, s, tt)
                 for i0 in range(q * K, min(q * K + K, steps), R):
-                    unchecked = (state[w]["full"] and i0 >= S
+                    unchecked = (state[w]["full"] and i0 >= ulo
                                  and i0 + R - 1 <= ulim)
                     for u in range(R):
                         step(w, s, i0 + u, not unchecked, tt)
@@ -552,12 +635,22 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
 @pytest.mark.parametrize("R", [1, 4, 8])
 def test_tile_model_equals_dp_fill(R, kind, scoring, rounds, layout):
     sc, A, B, out, jna, jnb = reference(kind, scoring, R)
-    sw = kind == "sw"
     # one round: the kernel's block (LANES lanes); several: 2 warps, so
     # that the three-strip pair hands its edge over through the row
     W = LANES // (32 * R) if rounds == "one" else 2
+    assert_model_launch(sc, A, B, out, kind == "sw", R, W, layout == "ragged",
+                        R + len(kind))
+
+
+def assert_model_launch(sc, A, B, out, sw, R, W, ragged, seed):
+    """:func:`model_launch` of the pairs A, B under ``sc`` against the JAX
+    package's fill ``out`` of them (``dp.fill_batch``), tolerance 0: every
+    valid cell written once and nothing else, its code and SW M, the SW
+    best and the NW corner; unchecked step blocks ran where a pair has
+    room for them."""
+    layout = "ragged" if ragged else "uniform"
     corners, scores, rec, off, na, nb, LB, mbytes = model_launch(
-        sc, A, B, sw, R, W, layout == "ragged", R + len(kind))
+        sc, A, B, sw, R, W, ragged, seed)
     dirs = np.asarray(out.dirs)
     mm = np.asarray(out.mmat) if sw else None
     for j in range(len(A)):
@@ -622,15 +715,24 @@ def carry_pairs(regime, alpha, seed):
     a round (R = 1 at 16 warps, R = 4 at 4): ``narrow`` chunks of 48
     columns, narrower than the lanes, over b of 1, 3 and 5 rounds (the last
     pair ends on the last column of chunk 1), a pair that ends inside
-    chunk 1, one that ends before chunk 2, and empty sides; ``wide`` chunks
+    chunk 1, one that ends before chunk 2, one on the first column of
+    chunk 1, and empty sides; ``wide`` chunks
     of 700 columns, wider than the b of 1 round, over b of 1 and 3 rounds,
     a pair that ends on the last column of chunk 0 and one inside chunk
-    1."""
+    1; ``flags`` chunks of 200 columns, wider than a strip of R = 4, over
+    b of 1, 2 and 3 rounds of R = 4 at 4 warps, pairs that end on the last
+    column of chunk 1, on its first, inside chunk 0 and on its last, and
+    empty sides."""
     L = 512
-    if regime == "narrow":
+    if regime == "flags":  # the flagged carry's: chunks of 200 columns
+        ca = 200
+        lens = [(2 * ca, L + 3), (ca + 1, 2 * L + 37), (130, L - 7),
+                (ca, 300), (70, 40), (0, 50), (40, 0), (0, 0)]
+    elif regime == "narrow":
         ca = 48
         lens = [(130, L - 7), (100, 2 * L + 37), (2 * ca, 4 * L + 5),
-                (70, 40), (30, L + 3), (0, 50), (40, 0), (0, 0)]
+                (70, 40), (30, L + 3), (0, 50), (40, 0), (0, 0),
+                (ca + 1, 300)]
     else:
         ca = 700
         lens = [(900, L - 7), (650, 2 * L + 37), (ca, 300), (760, 130)]
@@ -644,12 +746,13 @@ def carry_pairs(regime, alpha, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def carry_reference(kind, scoring, regime):
+def carry_reference(kind, scoring, regime, make=None):
     """The JAX package's ``dp.fill_chunked`` of :func:`carry_pairs`' pairs,
     and ``dp.fill_batch``'s corners of the pairs with an empty seq_a (whose
-    corner fill_chunked leaves at 0)."""
-    make, alpha = SCORINGS[kind, scoring]
-    sc = make()
+    corner fill_chunked leaves at 0); under ``make()``'s config when given,
+    else the default of ``kind`` and ``scoring``."""
+    default, alpha = SCORINGS[kind, scoring]
+    sc = (make or default)()
     sw = kind == "sw"
     ca, A, B = carry_pairs(regime, alpha, len(kind) + 3 * len(scoring)
                            + len(regime))
@@ -681,20 +784,27 @@ def test_tile_carry_model_equals_fill_chunked(R, W, regime, kind, scoring):
     reach a chunk's last column and nowhere else, the SW best and the NW
     corner; rounds on blocks in a random order, 1 to 5 of them resident.
     Chunks wider than a strip run unchecked step blocks (R = 4, wide)."""
+    assert_carry_model(carry_reference(kind, scoring, regime), kind == "sw",
+                       R, W, regime, R * 7 + W + len(kind + scoring + regime))
+
+
+def assert_carry_model(reference, sw, R, W, regime, seed):
+    """The checks of :func:`test_tile_carry_model_equals_fill_chunked` on
+    one :func:`carry_reference`."""
     from seqalign_tpu_torch.ops import dp as port_dp
     from seqalign_tpu_torch.ops.pack import m16_safe
 
-    sw = kind == "sw"
-    sc, ca, A, B, ref, empty_corners = carry_reference(kind, scoring, regime)
+    sc, ca, A, B, ref, empty_corners = reference
     corner_ref, best_ref, dch, mch, _, _ = ref
     p = kernel_params(sc, "cpu")
     LA, LB = max(1, max(map(len, A))), max(1, max(map(len, B)))
     ac, bc, na, nb, bp = pack_batch(sc, p, A, B, LA, LB)
     tab = None if bp.sub is None else bp.sub.numpy().ravel().astype(np.int64)
     kb = 0 if bp.sub is None else bp.sub.shape[1]
+    fl = flags_of(bp)
     m16 = sw and R == 1 and m16_safe(sc, LA, LB)
     nB, D, LBp = len(A), ca + LB - 1, LB + 1
-    rng = np.random.default_rng(R * 7 + W + len(kind + scoring + regime))
+    rng = np.random.default_rng(seed)
     bin = port_dp.boundary_column(bp, nB, LB, is_sw=sw).numpy().astype(
         np.int64)
     corner = np.zeros((nB, 3), np.int64)
@@ -710,7 +820,7 @@ def test_tile_carry_model_equals_fill_chunked(R, W, regime, kind, scoring):
         before = bout.copy()
         tile_carry_model(ac, bc, na, nb, p.scal.numpy(), tab, kb, sw, R, W,
                          c * ca, ca, bin, bout, rec, bw, corner, best,
-                         int(rng.choice([1, 2, 3, 5])), rng)
+                         int(rng.choice([1, 2, 3, 5])), rng, fl)
         unchecked += len(rec.pieces)
         v = ((y >= 1) & (y <= nb[:, None, None]) & (xl >= 1) & (xl <= ca)
              & (xl + c * ca <= na[:, None, None]))
@@ -734,7 +844,7 @@ def test_tile_carry_model_equals_fill_chunked(R, W, regime, kind, scoring):
             want = (empty_corners[j] if j in empty_corners
                     else np.asarray(corner_ref)[j].tolist())
             assert corner[j].tolist() == want, j
-    if regime == "wide":
+    if regime in ("wide", "flags"):  # chunks wider than a strip
         assert unchecked, "no unchecked block ran"
 
 
@@ -746,6 +856,15 @@ def test_carry_warps_and_scratch():
     carry = (Path(kernels.__file__).parent.parent / "csrc" /
              "tile_carry.cuh").read_text()
     assert re.search(rf"constexpr int WORD = {kernels.CARRY_WORD};", carry)
+    assert re.search(rf"constexpr int MODES_LANES = {kernels.CARRY_MODES_R};",
+                     carry)
+    # the flags' carry, 2 lanes a thread: the same 16 warps at most, a
+    # pair's strips of 64 lanes
+    assert kernels.carry_warps(16, 10000, 132, 2) == 16  # 160 blocks
+    assert kernels.carry_warps(4, 2048, 132, 2) == 4  # 8 rounds of 4 pairs
+    assert kernels.carry_rounds(10000, 16, 2) == 10
+    assert kernels.carry_scratch_ints(4, 5 * 4 * 64, 100, 4, 2) == (
+        17 * kernels.CARRY_WORD + 16 * 3 * 101)
     S = 32 * kernels.TILE_R
     assert kernels.carry_warps(4, 2048, 132) == 4  # 16 rounds of 4 pairs
     assert kernels.carry_warps(64, 10000, 132) == 16  # 320 blocks
