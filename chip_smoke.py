@@ -4,7 +4,8 @@
 Usage, from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab]
-                          [--fills [--tree DIR]] [--harvest-ab [--tree DIR]]
+                          [--fills [--tree DIR]] [--walks [--tree DIR]]
+                          [--harvest-ab [--tree DIR]]
                           [--walls [--tree DIR]] [--hits-long FILE
                           [--tree DIR]] [--sass [OLD_TREE]]
 
@@ -43,7 +44,11 @@ numpy from a fixed seed:
    300 bp, timed beside the bucket launches; and the same for SW (rows ``sw_fill_dirs[ragged]``,
    ``sw_hits[ragged]``: codes and M in planes at each pair's widths, the
    hit loop over them) on the first sub-batch ``align_batch`` cuts of SW
-   job 3's mix; and the fills' register tiles (csrc/tile_fill.cuh) on
+   job 3's mix; the walks over those planes (rows ``nw_walk[ragged]``,
+   ``sw_walk[ragged]``: CLI job 1's 256 pairs, the hits of SW job 3's
+   sub-batch) against their plain versions on every walk, each walk row
+   with its longest walk's steps and ns a step; and the fills' register
+   tiles (csrc/tile_fill.cuh) on
    pairs at the strip edges (b of 31, 32R-1, 32R, 32R+1 and 2*32R+3 lanes
    for R lanes a thread, empty sides, one pair of 2,100 lanes whose
    strips take two rounds), NW and SW, equality, BLOSUM62, nsg+neg and
@@ -129,10 +134,12 @@ chunk, at the default flags and under nsg+neg (on a tree with
 ``kernels.carry_warps`` also carry chunks at 1 to 16 warps a block), and
 stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
 times the package of an older checkout in DIR in the same call.
+``--walks [--tree DIR]`` instead times each walk row at its shape through
+the wrappers' API (``walks_only``) and stops.
 ``--walls [--tree DIR]`` instead times the stream, NW ``align_batch`` on
 1,024 pairs of 1-10 kb, CLI jobs 1-3, SW job 3, path modes' NW
 ``align_batch`` under nsg+neg and its LCS job, and path long's jobs 1, 2,
-3, 5 and 6 (walls, and their fills by CUDA events) and stops.
+3, 5 and 6 (walls, and their fills and walks by CUDA events) and stops.
 ``--hits-long FILE [--tree DIR]`` instead runs path long's job 4 (SW, no
 hint, 8 hits) from a generator of its own, prints its wall and launch
 counts, writes its hit streams to FILE and stops: two trees' files
@@ -146,8 +153,9 @@ time and busy share and writes the ``key_averages`` tables to DIR.
 ``--sass [OLD_TREE]`` instead compiles ``csrc/*.cu`` to SASS with the
 build's nvcc flags and stops: it prints the instruction mix of each probe
 kernel and of an add-then-max chain written here (both addmax forms give
-``VIADDMNMX``), each tile fill's and tile carry's with its registers,
-spills and local memory instructions (the flags' MODES ones among them),
+``VIADDMNMX``), each tile fill's, tile carry's and walk's with its
+registers, spills and local memory instructions (the flags' MODES ones
+among them),
 and with an older checkout of the repository in OLD_TREE compares every
 fill instantiation the two trees share, the tiles' default-flag ones
 matched by name without their MODES = false, instruction by instruction
@@ -224,6 +232,10 @@ KERNELS = {
     "sw_scores[ragged]": ("sw_scores[ragged]", "sw_scores.cu", _B1),
     "sw_fill_dirs[ragged]": ("sw_fill_dirs[ragged]", "sw_dirs.cu", _B2),
     "sw_hits[ragged]": ("sw_hits[ragged]", "sw_hits.cu", _SWH),
+    # the walks over the planes of one launch across widths
+    "nw_walk[ragged]": ("nw_walk", "nw_walk.cu",
+                        "seqalign_tpu/ops/traceback.py:515"),
+    "sw_walk[ragged]": ("sw_walk", "sw_walk.cu", _SWW),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
@@ -530,11 +542,18 @@ def fill_bound(na_h, nb_h, sw, dirs, mbytes=0, table=0, flags=(),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def walk_bound(ops, per_step, fixed):
-    """The bound of a walk kernel from the trace it wrote: every step taken
-    reads ``per_step`` bytes (a code, and for SW two letters) and does about
-    8 int32 operations (``alu_s``); the whole trace is written once, and ``fixed`` bytes
-    of starts and corners are read."""
+# walk row -> the steps of its longest walk (``walk_bound``): a launch takes
+# at least that walk's chain of dependent reads, whatever its bound
+WALK_STEPS: dict = {}
+
+
+def walk_bound(name, ops, per_step, fixed):
+    """The bound of walk row ``name`` from the trace its kernel wrote: every
+    step taken reads ``per_step`` bytes (a code, and for SW two letters)
+    and does about 8 int32 operations (``alu_s``); the whole trace is
+    written once, and ``fixed`` bytes of starts and corners are read.  The
+    longest walk's steps go to ``WALK_STEPS``."""
+    WALK_STEPS[name] = int((ops >= 0).sum(1).max()) if len(ops) else 0
     steps = int((ops >= 0).sum())
     t_ops = alu_s(8 * steps)
     t_bytes = (per_step * steps + ops.numel() + fixed) / PEAK_BYTES
@@ -751,7 +770,8 @@ def walks_under_modes(dev, rng, times, bounds):
                                                    *starts, bp, 2 * MODE_L))
         err[f"sw_walk[{tag}]"] = max_abs((o, op))
         times[f"sw_walk[{tag}]"] = (t0, t1)
-        bounds[f"sw_walk[{tag}]"] = walk_bound(o, 3, 16 * len(jw))
+        bounds[f"sw_walk[{tag}]"] = walk_bound(f"sw_walk[{tag}]", o, 3,
+                                               16 * len(jw))
         log(f"phase 1: sw_hits / sw_walk under {tag}: {int(nhits.sum())} "
             f"hits of {len(args[5])} candidates traced")
     return err
@@ -918,7 +938,8 @@ def carry_vs_plain(dev, rng, times, bounds):
     err["nw_walk[chunked]"] = max_abs(*zip(o, op))
     times["nw_walk[chunked]"] = (
         cuda_ms(lambda: kernels.nw_walk(slabs, corner, na, nb, cap), 5), t_p)
-    bounds["nw_walk[chunked]"] = walk_bound(o[0], 1, 20 * len(na))
+    bounds["nw_walk[chunked]"] = walk_bound("nw_walk[chunked]", o[0], 1,
+                                            20 * len(na))
     na_h, nb_h = na.cpu().numpy(), nb.cpu().numpy()
     nw_plain = nw_strings_from_ops(A, B, na_h, nb_h, op[0].cpu().numpy(),
                                    op[1].cpu().numpy())
@@ -949,7 +970,8 @@ def carry_vs_plain(dev, rng, times, bounds):
     times["sw_walk[chunked]"] = (
         cuda_ms(lambda: kernels.sw_walk(slabs, ac, bc, na, nb, *starts, bp,
                                         cap), 5), t_p)
-    bounds["sw_walk[chunked]"] = walk_bound(o, 3, 16 * len(jw))
+    bounds["sw_walk[chunked]"] = walk_bound("sw_walk[chunked]", o, 3,
+                                            16 * len(jw))
     cands = [(flat[s:e].cpu().numpy(), score[s:e].cpu().numpy())
              for s, e in zip(off[:-1].tolist(), off[1:].tolist())]
     sw_plain = [list(itertools.islice(SwHitIterator(
@@ -1141,7 +1163,8 @@ def phase1(scs, rng, dev):
                     cuda_ms(lambda: nw_walk_plain(d, dc, na, nb, 1024), 1,
                             warm=False))
                 bounds["nw_walk"] = walk_bound(
-                    kernels.nw_walk(d, dc, na, nb, 1024)[0], 1, 20 * len(na))
+                    "nw_walk", kernels.nw_walk(d, dc, na, nb, 1024)[0], 1,
+                    20 * len(na))
             del d
         if key in ("sw", "table"):
             m16 = True  # 11 * 512 and 2 * 512 are below the int16 gate
@@ -1179,6 +1202,7 @@ def phase1(scs, rng, dev):
                 cuda_ms(lambda: kernels.sw_hits(*args), 10),
                 cuda_ms(lambda: sw_hits_plain(*args), 1, warm=False))
             bounds["sw_walk" + mode] = walk_bound(
+                "sw_walk" + mode,
                 kernels.sw_walk(d, ac, bc, na, nb, *starts, bp, 1024), 3,
                 16 * len(starts[0]))
             bounds["sw_hits" + mode] = hits_bound(args,
@@ -1211,12 +1235,19 @@ def phase1(scs, rng, dev):
                  "16 pairs, one chunk of 2048 at 10240 lanes"
                  if k.endswith(",B16]") else
                  "4 pairs' slabs" if "[chunked]" in k else
+                 f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: the same)"
+                 if k == "nw_walk[ragged]" else
+                 "the hits of SW job 3's first sub-batch (plain: the same)"
+                 if k == "sw_walk[ragged]" else
                  f"SW job 3's first sub-batch (plain: 8 pairs of 0-300 bp)"
                  if k.startswith("sw") and "[ragged]" in k else
                  f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: 8 pairs of "
                  f"0-300 bp)" if "[ragged]" in k else "B=256 L=512")
+        pace = (f"; longest walk {WALK_STEPS[k]} steps, "
+                f"{1e6 * t / max(WALK_STEPS[k], 1):.1f} ns a step"
+                if k in WALK_STEPS else "")
         log(f"phase 1: {k} at {shape}: kernel {t:.4f} ms, plain "
-            f"{tp:.4f} ms, bound {b:.6f} ms ({by})")
+            f"{tp:.4f} ms, bound {b:.6f} ms ({by}){pace}")
     return err, times, bounds, sample
 
 
@@ -1331,7 +1362,9 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
     versions on 8 ragged pairs of up to 300 bp with an empty side (codes,
     corners, scores, and ``nw_walk`` over the planes; the plain versions
     hold such launches of 1-10 kb pairs in :func:`kernels_vs_plain`);
-    timed with CUDA events beside the sum of the bucket launches.  Returns
+    timed with CUDA events beside the sum of the bucket launches.  Row
+    ``nw_walk[ragged]``: ``nw_walk`` over the launch's planes of the 1-10
+    kb pairs against its plain version on every pair, both timed.  Returns
     the max |diff| of each row."""
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import nw_fill_dirs_plain, nw_scores_plain
@@ -1375,7 +1408,21 @@ def ragged_vs_buckets(sc, params, rng, dev, times, bounds):
         bucket_ms["nw_scores"] += cuda_ms(
             lambda: kernels.nw_scores(*tb, g[4]), 1)
         del d
-    del flat
+    # row nw_walk[ragged]: the walks of these planes, as align_batch makes
+    # them, against the plain walk on every pair
+    cap = int((na_h + nb_h).max())
+
+    def walk():
+        return kernels.nw_walk(flat, corner, t[2], t[3], cap, sched.off)
+
+    o = walk()
+    op, t_p = timed_plain(lambda: nw_walk_plain(flat, corner, t[2], t[3],
+                                                cap, sched.off))
+    err["nw_walk[ragged]"] = max_abs(*zip(o, op))
+    times["nw_walk[ragged]"] = (cuda_ms(walk, 3), t_p)
+    bounds["nw_walk[ragged]"] = walk_bound("nw_walk[ragged]", o[0], 1,
+                                           20 * RAGGED_PAIRS)
+    del flat, o, op
     ms = (cuda_ms(lambda: kernels.nw_fill_dirs(*t, bp, sched), 3),
           cuda_ms(lambda: kernels.nw_scores(*t, bp, sched), 3))
     log(f"phase 1: ragged rows on {RAGGED_PAIRS} pairs of 1-10 kb in "
@@ -1512,11 +1559,15 @@ def sw_ragged_vs_buckets(sc, params, dev, times, bounds):
     most, and one more; hit masks in shared and in global memory) and on 8
     ragged pairs of up to 300 bp with an empty side
     (``sw_ragged_vs_plain``); timed beside the sum of the bucket launches.
-    Returns the max |diff| of each row."""
+    Row ``sw_walk[ragged]``: ``sw_walk`` over the launch's planes on the
+    hits found there, as ``align_batch`` traces them, against its plain
+    version on every walk, both timed.  Returns the max |diff| of each
+    row."""
     from seqalign_tpu_torch import aligners
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import sw_sorted_candidates
     from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch, pad_width
+    from seqalign_tpu_torch.ops.traceback import sw_walk_plain
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 3)
@@ -1595,7 +1646,30 @@ def sw_ragged_vs_buckets(sc, params, dev, times, bounds):
         f"sw_hits) " + ", ".join(f"{v:.3f}" for v in ms) + " ms; the "
         f"{len(groups)} bucket launches "
         + ", ".join(f"{bucket_ms[r]:.3f}" for r in rows) + " ms")
-    del flat, hargs
+    # row sw_walk[ragged]: the hits' walks, as the aligner's hits() makes
+    # them
+    hit_flat, hit_score, nhits = hits
+    keep = torch.arange(k, device=dev)[None, :] < nhits[:, None]
+    jw, slot = keep.nonzero(as_tuple=True)
+    w = t[2][jw].long() + 1
+    fl = hit_flat[jw, slot].long()
+    starts = [v.to(torch.int32).contiguous()
+              for v in (jw, fl % w, fl // w, hit_score[jw, slot])]
+    cap = int((starts[1] + starts[2]).max())
+
+    def walk():
+        return kernels.sw_walk(flat, *t, *starts, bp, cap, sched.off)
+
+    o = walk()
+    op, t_p = timed_plain(lambda: sw_walk_plain(flat, *t, *starts, bp, cap,
+                                                sched.off))
+    err["sw_walk[ragged]"] = max_abs((o, op))
+    times["sw_walk[ragged]"] = (cuda_ms(walk, 3), t_p)
+    bounds["sw_walk[ragged]"] = walk_bound("sw_walk[ragged]", o, 3,
+                                           16 * len(jw))
+    log(f"phase 1: sw_walk over SW job 3's first sub-batch: {len(jw)} walks "
+        f"of its hits, max |diff| {err['sw_walk[ragged]']}")
+    del flat, hargs, o, op
     # the plain versions at the main path's sizes, on 4 of these pairs
     cells_j = na_h.astype(np.int64) * nb_h
     pick = list(dict.fromkeys([int(np.argmax(nb_h)), int(np.argmin(cells_j)),
@@ -3211,6 +3285,153 @@ def fills_only(scs, rng, dev, gpu):
     time_rows(rows)
 
 
+def walks_only(scs, dev, gpu):
+    """The walks' times through the wrappers' API only, so that ``--tree``
+    times an older tree's package with this script: each walk row of
+    phase 1 at its shape, on inputs the kernels fill from generators of
+    their own: ``nw_walk``, ``sw_walk`` and ``sw_walk[table]`` on 256
+    pairs of 512 (SW from the candidates near each pair's best, 16 a
+    pair), ``sw_walk[neg]`` and ``sw_walk[lcs]`` on the hits ``sw_hits``
+    finds hint-less (k = 16), ``nw_walk[chunked]`` and ``sw_walk[chunked]``
+    over the slabs of 4 pairs of 5,000-6,144 x 1,500-2,048 in chunks of
+    ``CARRY_CA`` (SW on its hits near the best), ``nw_walk[ragged]`` over
+    the planes of ``RAGGED_PAIRS`` pairs of 1-10 kb (CLI job 1's mix) and
+    ``sw_walk[ragged]`` on the hits of SW job 3's first sub-batch.  Each
+    row five means of 10 launches (three of 3 over slabs and planes) after
+    a warm-up, with the longest walk's steps and its ns a step."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import aligners, kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import (merge_candidates,
+                                           sw_extract_candidates,
+                                           sw_sorted_candidates)
+    from seqalign_tpu_torch.ops.pack import m16_safe, pack_batch
+
+    def hit_starts(hits, na, k):
+        hit_flat, hit_score, nhits = hits
+        keep = torch.arange(k, device=dev)[None, :] < nhits[:, None]
+        jw, slot = keep.nonzero(as_tuple=True)
+        w = na[jw].long() + 1
+        fl = hit_flat[jw, slot].long()
+        return [v.to(torch.int32).contiguous()
+                for v in (jw, fl % w, fl // w, hit_score[jw, slot])]
+
+    rows = {}  # name -> (shape, fn, launches a mean)
+    rng = np.random.default_rng(SEED + 21)
+    for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
+        sc = scs[key]
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512, alpha),
+            seqs(rng, 256, 512, 512, alpha), dev)
+        if key == "nw":
+            f = (*kernels.nw_fill_dirs(ac, bc, na, nb, bp), na, nb, 1024)
+            rows["nw_walk"] = ("B=256 L=512", lambda f=f: kernels.nw_walk(*f),
+                               10)
+            continue
+        d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
+        starts = walk_starts(sw_extract_candidates(
+            m, na_h, nb_h, near_best(kernels.sw_scores(ac, bc, na, nb, bp))),
+            na_h, 16, dev)
+        del m
+        f = (d, ac, bc, na, nb, *starts, bp, 1024)
+        rows["sw_walk" + ("[table]" if key == "table" else "")] = (
+            "B=256 L=512", lambda f=f: kernels.sw_walk(*f), 10)
+    for tag, sc in (("neg", mode_scoring("neg", True)),
+                    ("lcs", port.lcs_aligner().scoring)):
+        A = dna(rng, MODE_B, MODE_L, MODE_L)
+        B = A if tag == "lcs" else dna(rng, MODE_B, MODE_L, MODE_L)
+        (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
+            sc, kernel_params(sc, dev), A, B, dev)
+        d, m = kernels.sw_fill_dirs(ac, bc, na, nb, bp, True)
+        args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h, 1, bp, 16)
+        del m
+        f = (d, ac, bc, na, nb, *hit_starts(kernels.sw_hits(*args), na, 16),
+             bp, 2 * MODE_L)
+        rows[f"sw_walk[{tag}]"] = (f"B={MODE_B} L={MODE_L}, its hits",
+                                   lambda f=f: kernels.sw_walk(*f), 10)
+    # the slabs of phase 1's first carry case
+    crng = np.random.default_rng(SEED + 22)
+    _, ra, rb, _, n = CARRY_CASES[0]
+    A, B = seqs(crng, n, *ra), seqs(crng, n, *rb)
+    A[0] = A[0][:2 * CARRY_CA]
+    for sw in (False, True):
+        sc = scs["sw" if sw else "nw"]
+        la, lb = max(map(len, A)), max(map(len, B))
+        ac, bc, na_h, nb_h, bp = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                            la, lb)
+        args = (*(torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)),
+                bp)
+        slabs, _, ms, acc, _ = carry_chunks(
+            kernels.sw_fill_dirs_carry if sw else kernels.nw_fill_dirs_carry,
+            args, CARRY_CA, sw, sw and m16_safe(sc, la, lb))
+        na, nb = args[2], args[3]
+        cap = int((na + nb).max())
+        if not sw:
+            f = (slabs, acc, na, nb, cap)
+            rows["nw_walk[chunked]"] = ("4 pairs' slabs",
+                                        lambda f=f: kernels.nw_walk(*f), 3)
+            continue
+        flat, score, off = merge_candidates(
+            [sw_sorted_candidates(m, na_h, nb_h, near_best(acc),
+                                  x_off=c * CARRY_CA)
+             for c, m in enumerate(ms)], len(A))
+        del ms
+        hits = kernels.sw_hits(slabs, *args[:4], flat, score, off[:-1],
+                               off[1:], bp, 16)
+        f = (slabs, *args[:4], *hit_starts(hits, na, 16), bp, cap)
+        rows["sw_walk[chunked]"] = ("4 pairs' slabs, their hits",
+                                    lambda f=f: kernels.sw_walk(*f), 3)
+    # the planes of one launch across widths: CLI job 1's mix ...
+    rrng = np.random.default_rng(SEED + 5)
+    A, B = dna(rrng, RAGGED_PAIRS, *CLI_KB), dna(rrng, RAGGED_PAIRS, *CLI_KB)
+    sc = scs["nw"]
+    ac, bc, na_h, nb_h, bp = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                        max(map(len, A)), max(map(len, B)))
+    tn = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    sn = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
+    f = (*kernels.nw_fill_dirs(*tn, bp, sn), tn[2], tn[3],
+         int((na_h + nb_h).max()), sn.off)
+    rows["nw_walk[ragged]"] = (f"{RAGGED_PAIRS} pairs of 1-10 kb",
+                               lambda f=f: kernels.nw_walk(*f), 3)
+    # ... and SW job 3's first sub-batch, on the hits near each best
+    sc = scs["sw"]
+    A, B = planted(np.random.default_rng(SEED + 3), DNA, SW_JOB3[1], 1000,
+                   10000, (0.3, 0.5), 0.03)
+    mbytes = 2 if m16_safe(sc, max(map(len, A)), max(map(len, B))) else 4
+    subs = aligners._plane_subbatches(
+        range(len(A)), aligners._align_budget(dev),
+        lambda i: aligners._sw_pair_bytes(len(A[i]), len(B[i]), mbytes,
+                                          False))
+    A, B = [A[i] for i in subs[0]], [B[i] for i in subs[0]]
+    ac, bc, na_h, nb_h, bp = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                        max(map(len, A)), max(map(len, B)))
+    ts = [torch.from_numpy(v).to(dev) for v in (ac, bc, na_h, nb_h)]
+    ss = kernels.fill_schedule(na_h, nb_h, dev, planes=True)
+    m16 = m16_safe(sc, int(na_h.max()), int(nb_h.max()))
+    mins = np.maximum(kernels.sw_scores(*ts, bp, ss).cpu().numpy().astype(
+        np.int64) - 10, 1)
+    sflat, mflat = kernels.sw_fill_dirs(*ts, bp, m16, ss)
+    cand = sw_sorted_candidates(mflat, na_h, nb_h, mins, off=ss.off)
+    del mflat
+    k = aligners._SW_PREWALK
+    starts = hit_starts(kernels.sw_hits(
+        sflat, *ts, cand[0], cand[1], cand[2][:-1], cand[2][1:], bp, k,
+        ss.off), ts[2], k)
+    f = (sflat, *ts, *starts, bp, int((starts[1] + starts[2]).max()), ss.off)
+    rows["sw_walk[ragged]"] = (f"the hits of SW job 3's {len(A)} pairs",
+                               lambda f=f: kernels.sw_walk(*f), 3)
+    for name, (shape, fn, n) in rows.items():
+        ops = fn()
+        ops = ops[0] if isinstance(ops, tuple) else ops
+        longest = int((ops >= 0).sum(1).max())
+        ms = [cuda_ms(fn, n) for _ in range(5 if n == 10 else 3)]
+        log(f"walks: {name} at {shape}, {len(ops)} walks: "
+            + ", ".join(f"{v:.4f}" for v in ms) + f" ms; longest walk "
+            f"{longest} steps, "
+            + ", ".join(f"{1e6 * v / max(longest, 1):.1f}" for v in ms)
+            + f" ns a step [{gpu}]")
+
+
 def walls_ab(gpu):
     """The walls of the main path's fill-bound jobs, through the entry
     points a user calls and only those, so that ``--tree`` times an older
@@ -3230,7 +3451,8 @@ def walls_ab(gpu):
     from a generator of its own; one warm-up (on 16 or 64 pairs, or 1-2
     long ones), then one timed run each, with the fills' milliseconds by
     CUDA events (their sum and the first launch's; for CLI job 3's first
-    launch, 256 pairs as the CLI calls ``align_batch``, its bound)."""
+    launch, 256 pairs as the CLI calls ``align_batch``, its bound) and
+    the walks' (``nw_walk``, ``sw_walk``: launches and their sum)."""
     import tempfile
 
     import seqalign_tpu_torch as port
@@ -3314,18 +3536,22 @@ def walls_ab(gpu):
         nb3 = np.array([len(r) for r in reads[:HARVEST_AB_CHUNK]])
         log(f"walls: cli job 3's first launch, {HARVEST_AB_CHUNK} pairs: "
             f"bound {fill_bound(na3, nb3, False, True, flags=('nsg', 'neg'))}")
+        walks = ((kernels, "nw_walk"), (kernels, "sw_walk"))
         for label, (warm, job, target) in jobs.items():
             warm()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res, ms = call_events(job, target)
+            res, ms = call_events(job, target, *walks)
             secs = time.perf_counter() - t0
             if label.startswith("cli") and res[0] != 0:
                 raise AssertionError(f"walls: {label} exited {res[0]}: "
                                      f"{res[1][-500:]}")
             fills = ms[target[1]]
+            walked = "".join(f"; {n} x{len(ms[n])} {sum(ms[n]):.3f} ms"
+                             for _, n in walks if ms[n])
             log(f"walls: {label}: {secs:.4f} s; {target[1]} x{len(fills)} "
-                f"{sum(fills):.3f} ms, the first {fills[0]:.3f} ms [{gpu}]")
+                f"{sum(fills):.3f} ms, the first {fills[0]:.3f} ms{walked} "
+                f"[{gpu}]")
 
 
 def long_walls(nw, sw, kernels):
@@ -3575,11 +3801,19 @@ __global__ void addmax_plain_s16x2(const unsigned* x, unsigned* o, int S) {
 """
 
 
+def _anon(name):
+    """A kernel's name without the hash nvcc gives an anonymous namespace,
+    so that two trees' names meet."""
+    import re
+
+    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_[0-9a-f]{8}",
+                  r"_anon_\1", name)
+
+
 def sass_of(sources, work):
     """{kernel: [instruction, ...]} of the ``.cu`` files ``sources``,
     compiled to cubins in ``work`` in parallel with the build's nvcc flags
-    and read back with ``cuobjdump -sass``.  A kernel's name loses the hash
-    nvcc gives an anonymous namespace, so that two trees' names meet."""
+    and read back with ``cuobjdump -sass``, names by ``_anon``."""
     import re
 
     from seqalign_tpu_torch.ops import build
@@ -3607,8 +3841,7 @@ def sass_of(sources, work):
         for line in text.splitlines():
             m = re.match(r"\s*Function : (\S+)", line)
             if m:
-                name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_"
-                              r"[0-9a-f]{8}", r"_anon_\1", m.group(1))
+                name = _anon(m.group(1))
                 funcs[name] = []
             elif name is not None:
                 m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
@@ -3680,15 +3913,18 @@ def sass_report(old, gpu):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)'?", line)
         if m:
-            entry = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
+            entry = _anon(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if m and entry:
-            usage.setdefault(entry, {})["spills"] = int(m.group(1))
+            usage.setdefault(entry, {})["spills"] = int(m.group(2))
+            usage[entry]["stack"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             usage.setdefault(entry, {})["regs"] = int(m.group(1))
     for name, ins in sorted(new.items()):
-        if "tile_fill_kernel" in name or "tile_carry_kernel" in name:
+        if ("tile_fill_kernel" in name or "tile_carry_kernel" in name
+                or "walk_kernel" in name):
             ops = [i.split()[1 if i.startswith("@") else 0].split(".")[0]
                    for i in ins]
             log(f"sass: {demangle(name)}: {len(ins)} instructions, "
@@ -3751,8 +3987,10 @@ def main() -> int:
     ap.add_argument("--walls", action="store_true",
                     help="only time the fill-bound jobs of the paths: "
                          "walls and fills")
+    ap.add_argument("--walks", action="store_true",
+                    help="only time the walk rows at their shapes")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --fills, --harvest-ab, --walls or "
+                    help="with --fills, --walks, --harvest-ab, --walls or "
                          "--hits-long: import "
                          "seqalign_tpu_torch from the checkout in DIR (an "
                          "older tree, for an A/B)")
@@ -3772,10 +4010,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    if args.tree and not (args.fills or args.harvest_ab or args.walls
-                          or args.hits_long):
-        ap.error("--tree goes with --fills, --harvest-ab, --walls or "
-                 "--hits-long")
+    if args.tree and not (args.fills or args.walks or args.harvest_ab
+                          or args.walls or args.hits_long):
+        ap.error("--tree goes with --fills, --walks, --harvest-ab, --walls "
+                 "or --hits-long")
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else
                     os.path.dirname(os.path.abspath(__file__)))
     import seqalign_tpu_torch as port
@@ -3810,6 +4048,10 @@ def main() -> int:
     if args.fills:
         fills_only({"nw": nw.scoring, "sw": sw.scoring,
                     "table": swp.scoring}, rng, dev, gpu)
+        return 0
+    if args.walks:
+        walks_only({"nw": nw.scoring, "sw": sw.scoring,
+                    "table": swp.scoring}, dev, gpu)
         return 0
     if args.harvest_ab:
         harvest_ab(gpu)

@@ -5,7 +5,8 @@ parallel processes, and links them into one shared library with a plain C
 interface, loaded with ``ctypes`` (seconds to build; no PyTorch headers).
 The library lands in ``seqalign_tpu_torch/_build/`` under a name keyed by a
 hash of every file of ``csrc/`` (the headers ``fill_common.cuh``,
-``tile_fill.cuh``, ``tile_carry.cuh`` and ``slab.cuh`` too) and the flags,
+``tile_fill.cuh``, ``tile_carry.cuh``, ``slab.cuh`` and ``walk_band.cuh``
+too) and the flags,
 is written to a temporary name first and then renamed, so a stale or
 half-written library is never loaded; the
 objects live in a temporary directory that is removed.  The build runs at
@@ -50,10 +51,10 @@ _SIGNATURES = {
     "sw_dirs_carry_launch": _CARRY,
     # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, off, stream
     "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # dirs, ac, bc, scal, sub, Kb, na, nb, neg, jw, x0, y0, s0, W, B, LA,
-    # LB, nch, Dc, cap, ops, stream, off
-    "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # dirs, ac, bc, scal, sub, Kb, sub_n, na, nb, neg, jw, x0, y0, s0, W,
+    # B, LA, LB, nch, Dc, cap, ops, stream, off
+    "sw_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, na, nb, neg, cand_flat, cand_score, lo,
     # hi, B, LA, LB, nch, Dc, k, MW, gmask, use_smem, hit_flat, hit_score,
     # nhits, flat64, stream, off, moff

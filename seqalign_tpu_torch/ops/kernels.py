@@ -14,7 +14,9 @@ The four fills run the register tiles of csrc/tile_fill.cuh (a warp a
 strip of 32 * ``TILE_R`` lanes), the long pairs' chunks the same tiles
 from csrc/tile_carry.cuh (a round of a pair's lanes a block,
 :func:`carry_warps` warps), under any scoring flags (``params.modes``); the
-matrix dump runs fill_kernel of csrc/fill_common.cuh.
+matrix dump runs fill_kernel of csrc/fill_common.cuh.  The walks run a
+warp a walk over the band of codes it can reach, staged in shared memory
+a block of rows at a time (csrc/walk_band.cuh).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -607,7 +609,8 @@ def sw_walk(dirs, ac, bc, na, nb, jw, x0, y0, s0, params: KernelParams,
     sub = params.sub
     rc = lib.sw_walk_launch(
         _ptr(dirs), _ptr(ac), _ptr(bc), _ptr(params.scal), _ptr(sub),
-        0 if sub is None else sub.shape[1], _ptr(na), _ptr(nb),
+        0 if sub is None else sub.shape[1],
+        0 if sub is None else sub.numel(), _ptr(na), _ptr(nb),
         int(bool(params.modes & NEG)), _ptr(jw), _ptr(x0), _ptr(y0),
         _ptr(s0), W, B, LA, LB, nch, dc, capr, _ptr(ops), _stream(dev),
         _ptr(off))

@@ -1219,3 +1219,169 @@ def test_tile_carry_equals_plain_versions(dev, monkeypatch, case, fill):
             -1, 3, -1)
         assert torch.equal(got[1][c][keep], want[1][c][keep]), c
     assert torch.equal(got[3], want[3])
+
+
+# The walks as a warp a walk over bands of codes staged in shared memory
+# (csrc/walk_band.cuh), at real sizes: the cases of the CPU band model
+# (tests/test_torch_walk_band.py) and a walk of over 10,000 steps.
+WALK_BAND_CASES = ("ragged_nw", "ragged_sw", "slabs_nw", "slabs_sw",
+                   "gap_a_run", "gap_b_run", "cap_nw", "clamps_cap_sw",
+                   "neg", "lcs", "blosum62", "wide_table")
+WALK_BAND_K = 64  # csrc/walk_band.cuh, K
+
+
+def _mutated(rng, A, alpha):
+    """Each of ``A`` with 10% of its letters changed and 1-3 indels of 1-3
+    letters, so that its best local alignments run long."""
+    out = []
+    for a in A:
+        s = [alpha[rng.integers(len(alpha))] if rng.random() < 0.1 else ch
+             for ch in a]
+        for _ in range(int(rng.integers(1, 4))):
+            p, k = int(rng.integers(0, len(s))), int(rng.integers(1, 4))
+            if rng.random() < 0.5:
+                del s[p:p + k]
+            else:
+                s[p:p] = list(_text(rng, alpha, 1, k, k)[0])
+        out.append("".join(s))
+    return out
+
+
+def _odd_view(t, shift=5):
+    """``t``'s bytes in a tensor of their own that starts at an odd byte
+    of its allocation."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    buf[shift:] = t.reshape(-1)
+    return buf[shift:].view(t.shape)
+
+
+def _slabs_of(plane, ca):
+    """A uniform code plane (B, LA+LB-1, LB+1) cut into the chunk slabs of
+    ``ca`` columns the long-pair fill writes (B, nch, ca+LB-1, LB+1), the
+    rule of csrc/slab.cuh; cells past a's width hold 0."""
+    B, D, LBp = plane.shape
+    LA = D - LBp + 2
+    nch = -(-LA // ca)
+    dev = plane.device
+    r = torch.arange(ca + LBp - 2, device=dev)[:, None]
+    y = torch.arange(LBp, device=dev)[None, :].expand(len(r), -1)
+    slabs = torch.zeros((B, nch, len(r), LBp), dtype=plane.dtype,
+                        device=dev)
+    for c in range(nch):
+        xl = r - y + 2
+        ok = (xl >= 1) & (xl <= ca) & (c * ca + xl <= LA) & (y >= 1)
+        rows = (c * ca + xl + y - 2).clamp(0, D - 1)
+        slabs[:, c] = torch.where(ok, plane[:, rows, y], 0)
+    return slabs
+
+
+def _walk_band_case(case, dev):
+    """One case's walk: ("nw" | "sw", the arguments of the wrapper)."""
+    rng = np.random.default_rng(WALK_BAND_CASES.index(case) + 51)
+    if case.endswith("_nw") or case.startswith("gap_"):
+        sc = scoring_system_default()
+        if case == "ragged_nw":  # and a pair of ~10 kb x 10 kb
+            A, Bs = _seqs(rng, 12, 0, 3000), _seqs(rng, 12, 1, 3000)
+            A[0], Bs[0] = _seqs(rng, 2, 9800, 10000)
+            A[3] = ""
+        elif case == "slabs_nw":
+            A, Bs = _seqs(rng, 4, 2000, 3000), _seqs(rng, 4, 500, 1500)
+        elif case == "gap_a_run":  # a short, b long: y falls a lane a row
+            A, Bs = _seqs(rng, 4, 20, 60), _seqs(rng, 4, 6000, 9000)
+        elif case == "gap_b_run":  # a long, b short: the lane fixed
+            A, Bs = _seqs(rng, 4, 6000, 9000), _seqs(rng, 4, 20, 60)
+        else:  # walks past their bound
+            A, Bs = _seqs(rng, 8, 800, 1000), _seqs(rng, 8, 800, 1000)
+        ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs,
+                                        max(1, max(map(len, A))),
+                                        max(1, max(map(len, Bs))))
+        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+        off = None
+        if case == "ragged_nw":
+            sched = kernels.fill_schedule(na, nb, dev, planes=True)
+            d, corner = kernels.nw_fill_dirs(*t, bp, sched)
+            d, off = _odd_view(d), sched.off
+        else:
+            d, corner = kernels.nw_fill_dirs(*t, bp)
+        if case == "slabs_nw":
+            d = _slabs_of(d, 700)
+        cap = 256 if case == "cap_nw" else int((na + nb).max())
+        return "nw", (d, corner, t[2], t[3], cap, off)
+    alpha = {"blosum62": PROTEIN}.get(case, "acgtACGT")
+    if case == "neg":
+        sc = ScoringConfig(2, -2, -2, -1, no_end_gap_penalty=True)
+    elif case == "lcs":
+        sc = ScoringConfig(1, -1, -4, -1, no_gaps_in_a=True,
+                           no_gaps_in_b=True, no_mismatches=True)
+    elif case == "blosum62":
+        sc = scoring_system_BLOSUM62()
+    elif case == "wide_table":  # a table too large for shared memory
+        sc, alpha = _wide_alphabet_config()
+    else:
+        sc = scoring_system_sw_default()
+    A = _text(rng, alpha, 8, 1000, 3000)
+    Bs = list(A) if case == "lcs" else _mutated(rng, A, alpha)
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs,
+                                    max(map(len, A)), max(map(len, Bs)))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    sched = off = None
+    if case == "ragged_sw":
+        sched = kernels.fill_schedule(na, nb, dev, planes=True)
+        off = sched.off
+    d, m = kernels.sw_fill_dirs(*t, bp, False, sched)
+    best = kernels.sw_scores(*t, bp).cpu().numpy().astype(np.int64)
+    flat, score, o = sw_sorted_candidates(m, na, nb,
+                                          np.maximum(best - 10, 1), off=off)
+    del m
+    hit_flat, hit_score, nhits = kernels.sw_hits(
+        d, *t, flat, score, o[:-1], o[1:], bp, 8, off)
+    keep = torch.arange(8, device=dev)[None, :] < nhits[:, None]
+    jw, slot = keep.nonzero(as_tuple=True)
+    w = t[2][jw].long() + 1
+    starts = [v.to(torch.int32).contiguous()
+              for v in (jw, hit_flat[jw, slot] % w, hit_flat[jw, slot] // w,
+                        hit_score[jw, slot])]
+    cap = int((t[2] + t[3]).max())
+    if case == "ragged_sw":
+        d = _odd_view(d)
+    if case == "slabs_sw":
+        d = _slabs_of(d, 700)
+    if case == "clamps_cap_sw":
+        # scores that never run out: the walks reach x or y = 0 and go on
+        # at the clamped cell to their bound, from cells at the edges too
+        edge = [[0, 1, 2], [1, int(na[1]), 5], [int(nb[0]), 1, 3]]
+        starts = [torch.cat([s, torch.tensor(e, dtype=torch.int32,
+                                              device=dev)])
+                  for s, e in zip(starts[:3], edge)]
+        starts.append(torch.full_like(starts[0], 1 << 20))
+        cap = 3000
+    return "sw", (d, *t, *starts, bp, cap, off)
+
+
+@pytest.mark.parametrize("case", WALK_BAND_CASES)
+def test_walk_band_edges_equal_plain(dev, case):
+    """nw_walk and sw_walk against their plain versions at the band's
+    edges: ragged planes at an odd byte address and odd widths (one NW
+    walk past 10,000 steps), chunk slabs of 700 columns whose walks cross
+    slab edges inside a block, long GAP_A and GAP_B runs, truncation at
+    the step bound, SW's clamps, free end gaps, the LCS recipe, BLOSUM62
+    (its table in shared memory) and a 256 x 256 table (read where it
+    lies); one launch each, under the kernel's count."""
+    kind, args = _walk_band_case(case, dev)
+    name = f"{kind}_walk"
+    before = kernel_launch_counts()[name]
+    if kind == "nw":
+        got = kernels.nw_walk(*args)
+        want = nw_walk_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        ops = got[0]
+    else:
+        ops = kernels.sw_walk(*args)
+        assert torch.equal(ops, sw_walk_plain(*args))
+    assert kernel_launch_counts()[name] == before + 1
+    steps = (ops >= 0).sum(1)
+    assert int(steps.max()) > 2 * WALK_BAND_K  # the walks cross blocks
+    if case == "ragged_nw":
+        assert int(steps.max()) > 10_000
+    if case in ("cap_nw", "clamps_cap_sw"):
+        assert bool((steps == ops.shape[1]).any())
