@@ -5,6 +5,7 @@ Usage, from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile DIR] [--walk-ab] [--chunk-ab]
                           [--fills [--tree DIR]] [--walks [--tree DIR]]
+                          [--gab [--tree DIR]]
                           [--harvest-ab [--tree DIR]]
                           [--walls [--tree DIR]] [--hits-long FILE
                           [--tree DIR]] [--sass [OLD_TREE]]
@@ -35,7 +36,10 @@ numpy from a fixed seed:
    10,240 lanes; the SW hit loop and walk under free end gaps and under the
    LCS recipe; the matrix-dump fills (``nw_fill_gab``, ``sw_fill_gab``:
    codes and the M, Ga and Gb planes) on the ragged batches, default flags
-   and every flag combination of ``MODES``, timed at B = 256, L = 512;
+   and every flag combination of ``MODES``, timed at B = 256, L = 512, and
+   on one pair each of ``GAB_PAIRS`` (rows ``[dump]``, CLI job 5's 300 x
+   200, and ``[wide]``, 3,000 x 2,500, past a round of the tiles), exact
+   and timed;
    and one fill launch across widths (rows ``nw_fill_dirs[ragged]``,
    ``nw_scores[ragged]``: a fill schedule, the codes in planes at each
    pair's widths) on CLI job 1's mix of 256 pairs of 1-10 kb, against the
@@ -135,7 +139,9 @@ chunk, at the default flags and under nsg+neg (on a tree with
 stops; it uses only the kernel wrappers' API, so with ``--tree DIR`` it
 times the package of an older checkout in DIR in the same call.
 ``--walks [--tree DIR]`` instead times each walk row at its shape through
-the wrappers' API (``walks_only``) and stops.
+the wrappers' API (``walks_only``) and stops.  ``--gab [--tree DIR]``
+instead times the matrix dump's fills at phase 1's shape and on one pair
+of each of ``GAB_PAIRS``, and CLI job 5's walls (``gab_only``), and stops.
 ``--walls [--tree DIR]`` instead times the stream, NW ``align_batch`` on
 1,024 pairs of 1-10 kb, CLI jobs 1-3, SW job 3, path modes' NW
 ``align_batch`` under nsg+neg and its LCS job, and path long's jobs 1, 2,
@@ -155,11 +161,11 @@ build's nvcc flags and stops: it prints the instruction mix of each probe
 kernel and of an add-then-max chain written here (both addmax forms give
 ``VIADDMNMX``), each tile fill's, tile carry's and walk's with its
 registers, spills and local memory instructions (the flags' MODES ones
-among them),
-and with an older checkout of the repository in OLD_TREE compares every
-fill instantiation the two trees share, the tiles' default-flag ones
-matched by name without their MODES = false, instruction by instruction
-(the check that a template change left the other fills as they were).
+and the matrix dump's GAB ones among them), and with an older checkout of
+the repository in OLD_TREE compares every tile instantiation the two trees
+share, a tile fill matched by name without its trailing GAB = false,
+instruction by instruction, and every other kernel (the check that a
+template change left the other fills as they were).
 
 The second-to-last line is a JSON summary of the kernels and modes (each
 row with its launches on its path, its times, and the least time the card
@@ -225,6 +231,16 @@ KERNELS = {
     # the matrix dump: dp_fill's emit_gab planes (a lax.scan, not Pallas)
     "nw_fill_gab": ("nw_fill_gab", "nw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
     "sw_fill_gab": ("sw_fill_gab", "sw_dirs.cu", "seqalign_tpu/ops/dp.py:621"),
+    # the same on one pair: CLI job 5's, and one of b past a round of the
+    # tiles' lanes (GAB_PAIRS)
+    "nw_fill_gab[dump]": ("nw_fill_gab", "nw_dirs.cu",
+                          "seqalign_tpu/ops/dp.py:621"),
+    "sw_fill_gab[dump]": ("sw_fill_gab", "sw_dirs.cu",
+                          "seqalign_tpu/ops/dp.py:621"),
+    "nw_fill_gab[wide]": ("nw_fill_gab", "nw_dirs.cu",
+                          "seqalign_tpu/ops/dp.py:621"),
+    "sw_fill_gab[wide]": ("sw_fill_gab", "sw_dirs.cu",
+                          "seqalign_tpu/ops/dp.py:621"),
     # one launch across widths (a fill schedule; codes and SW M in ragged
     # planes, which sw_hits reads)
     "nw_fill_dirs[ragged]": ("nw_fill_dirs[ragged]", "nw_dirs.cu", _B2),
@@ -678,6 +694,49 @@ def modes_vs_plain(mode, dev, rng, times, bounds):
                 *((g[i][v], gp[i][v]) for i in range(3))))
             del d, dp_, v, g, gp
     torch.cuda.synchronize()
+    return err
+
+
+def gab_pairs_vs_plain(scs, dev, times, bounds):
+    """The matrix-dump fills on one DNA pair of each of ``GAB_PAIRS``, at
+    its own widths as ``align_with_matrices`` packs it (NW under NW's
+    default scoring, SW under SW's), against one plain run each: exact on
+    codes, the NW corner and the M, Ga and Gb planes; the kernel timed as
+    a mean of 10 launches, the plain version by that one run."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import nw_fill_gab_plain, sw_fill_gab_plain
+    from seqalign_tpu_torch.ops.pack import pack_batch
+
+    rng = np.random.default_rng(SEED + 13)
+    err = {}
+    for shape, (la, lb) in GAB_PAIRS.items():
+        A, B = dna(rng, 1, la, la), dna(rng, 1, lb, lb)
+        for fam, sw, fill, plain in (
+                ("nw", False, kernels.nw_fill_gab, nw_fill_gab_plain),
+                ("sw", True, kernels.sw_fill_gab, sw_fill_gab_plain)):
+            sc = scs[fam]
+            ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, B,
+                                            la, lb)
+            na_h, nb_h = na, nb
+            ac, bc, na, nb = (torch.from_numpy(v).to(dev)
+                              for v in (ac, bc, na, nb))
+            row = f"{fam}_fill_gab[{shape}]"
+            t = cuda_ms(lambda: fill(ac, bc, na, nb, bp), 10)
+            want, tp = timed_plain(lambda: plain(ac, bc, na, nb, bp))
+            got = fill(ac, bc, na, nb, bp)
+            v = valid_cells(got[0], na, nb)
+            err[row] = max_abs((got[0][v], want[0][v]),
+                               *([] if sw else [(got[1], want[1])]),
+                               *((got[-1][i][v], want[-1][i][v])
+                                 for i in range(3)))
+            times[row] = (t, tp)
+            bounds[row] = fill_bound(na_h, nb_h, sw, True, 12)
+            del got, want, v
+    torch.cuda.synchronize()
+    log(f"phase 1: matrix-dump fills on one pair, "
+        f"{', '.join(f'{k} {a} x {b}' for k, (a, b) in GAB_PAIRS.items())}, "
+        f"vs plain: max |diff| {err}")
     return err
 
 
@@ -1225,6 +1284,7 @@ def phase1(scs, rng, dev):
                                  bounds))
     merge(err, sw_ragged_vs_buckets(sw_sc, params["sw"], dev, times,
                                     bounds))
+    merge(err, gab_pairs_vs_plain(scs, dev, times, bounds))
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
@@ -1242,7 +1302,9 @@ def phase1(scs, rng, dev):
                  f"SW job 3's first sub-batch (plain: 8 pairs of 0-300 bp)"
                  if k.startswith("sw") and "[ragged]" in k else
                  f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: 8 pairs of "
-                 f"0-300 bp)" if "[ragged]" in k else "B=256 L=512")
+                 f"0-300 bp)" if "[ragged]" in k else
+                 "one pair of {} x {}".format(*GAB_PAIRS[k[-5:-1]])
+                 if k.endswith(("[dump]", "[wide]")) else "B=256 L=512")
         pace = (f"; longest walk {WALK_STEPS[k]} steps, "
                 f"{1e6 * t / max(WALK_STEPS[k], 1):.1f} ns a step"
                 if k in WALK_STEPS else "")
@@ -2662,6 +2724,10 @@ CLI_SW_PAIRS = 1024  # configs[2]: protein pairs of 100-1,000 aa, BLOSUM62
 CLI_READS = 1024  # configs[3]: reads of 256-512 bp x references of 1-10 kb
 CLI_LCS_LEN = 512  # lcs prints every hit: ~25 k lines at 512 bp
 CLI_MATRIX = (300, 200)  # the --printmatrices pair
+# one pair as the matrix dump fills it (rows ``<kernel>[dump]``: CLI job
+# 5's) and one of b past a round of the tiles' lanes (rows ``[wide]``: its
+# strips' edge through the round row in scratch)
+GAB_PAIRS = {"dump": CLI_MATRIX, "wide": (3000, 2500)}
 CLI_SLICE = 32  # pairs of each job run on the card and under the host route
 CLI_SHARDS = 8  # host processes for the slice of 1-10 kb NW pairs
 CLI_SAMPLE = 64  # alignments of a job checked by spelling and rescoring
@@ -3285,6 +3351,78 @@ def fills_only(scs, rng, dev, gpu):
     time_rows(rows)
 
 
+def gab_only(scs, dev, gpu):
+    """The matrix dump's fills through the wrappers' API and the entry
+    points only, so that ``--tree`` times an older tree's package with this
+    script: ``nw_fill_gab`` and ``sw_fill_gab`` at phase 1's 256 pairs of
+    512 bp and on one pair of each of ``GAB_PAIRS`` at its own widths (as
+    ``align_with_matrices`` packs it; the dump's pair also under free start
+    and end gaps, row ``[dump,nsg+neg]``), each row five means of 10 launches
+    after a warm-up; then CLI job 5, ``needleman_wunsch --printmatrices
+    --printscores`` and ``smith_waterman --printmatrices`` on one
+    ``CLI_MATRIX`` pair in-process on the card (``SEQALIGN_FORCE=device``,
+    as path cli runs it), stdout to a file, one warm-up and five walls
+    each, with the fill's launch by CUDA events."""
+    import tempfile
+
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.pack import pack_batch
+
+    rng = np.random.default_rng(SEED + 14)
+    rows, shape = {}, {}
+    for fam, fill in (("nw", kernels.nw_fill_gab),
+                      ("sw", kernels.sw_fill_gab)):
+        sc = scs[fam]
+        (ac, bc, na, nb), bp, _ = packed(
+            sc, kernel_params(sc, dev), seqs(rng, 256, 512, 512),
+            seqs(rng, 256, 512, 512), dev)
+        rows[f"{fam}_fill_gab"] = (
+            lambda f=(ac, bc, na, nb, bp), fill=fill: fill(*f))
+        shape[f"{fam}_fill_gab"] = "B=256 L=512"
+        # the pairs of GAB_PAIRS, and the dump's pair under free start and
+        # end gaps (the flags' instantiations)
+        pairs = [(k, v, sc) for k, v in GAB_PAIRS.items()] + [
+            ("dump,nsg+neg", CLI_MATRIX, mode_scoring("nsg+neg", fam == "sw"))]
+        for key, (la, lb), s_ in pairs:
+            ac, bc, na, nb, bp = pack_batch(s_, kernel_params(s_, dev),
+                                            dna(rng, 1, la, la),
+                                            dna(rng, 1, lb, lb), la, lb)
+            f = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+            rows[f"{fam}_fill_gab[{key}]"] = (
+                lambda f=(*f, bp), fill=fill: fill(*f))
+            shape[f"{fam}_fill_gab[{key}]"] = f"one pair of {la} x {lb}"
+    for name, fn in rows.items():
+        ms = [cuda_ms(fn, 10) for _ in range(5)]
+        log(f"gab: {name} at {shape[name]}: " +
+            ", ".join(f"{v:.4f}" for v in ms) + f" ms [{gpu}]")
+    a = dna(rng, 1, CLI_MATRIX[0], CLI_MATRIX[0])[0]
+    b = plant(rng, a, dna(rng, 1, CLI_MATRIX[1], CLI_MATRIX[1])[0], 100,
+              0.05)
+    with tempfile.TemporaryDirectory(prefix="gab-") as work:
+        for tool, fill in (("nw", "nw_fill_gab"), ("sw", "sw_fill_gab")):
+            args = ["--printmatrices"] + (["--printscores"] if tool == "nw"
+                                          else []) + [a, b]
+            out = os.path.join(work, f"m_{tool}.txt")
+            walls, fills = [], []
+            for i in range(6):  # a warm-up, then five
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (rc, err), ms = call_events(
+                    lambda: run_cli(tool, args, out,
+                                    {"SEQALIGN_FORCE": "device"}),
+                    (kernels, fill))
+                walls.append(time.perf_counter() - t0)
+                fills.append(sum(ms[fill]))
+                if rc != 0 or err or len(ms[fill]) != 1:
+                    raise AssertionError(f"gab: cli job 5 {tool}: exit {rc}, "
+                                         f"{len(ms[fill])} fills, {err!r}")
+            log(f"gab: cli job 5 {tool} --printmatrices, {len(a)} x "
+                f"{len(b)}: walls " + ", ".join(f"{v:.4f}" for v in walls[1:])
+                + " s; its fill " + ", ".join(f"{v:.4f}" for v in fills[1:])
+                + f" ms; {os.path.getsize(out)} output bytes [{gpu}]")
+
+
 def walks_only(scs, dev, gpu):
     """The walks' times through the wrappers' API only, so that ``--tree``
     times an older tree's package with this script: each walk row of
@@ -3876,9 +4014,9 @@ def sass_report(old, gpu):
     """``--sass``: the probe kernels' and the add-then-max chains' opcode
     mixes, each tile fill's (csrc/tile_fill.cuh) and tile carry's
     (csrc/tile_carry.cuh) with its registers, spills and local memory
-    instructions (LDL, STL), the flags' (MODES) instantiations among them,
-    and, with an older tree ``old``, the default-flag tile instantiations
-    and the other fill instantiations both trees share compared
+    instructions (LDL, STL), the flags' (MODES) and the dump's (GAB)
+    instantiations among them, and, with an older tree ``old``, the tile
+    instantiations and the other kernels both trees share compared
     instruction by instruction."""
     import re
     import tempfile
@@ -3933,9 +4071,9 @@ def sass_report(old, gpu):
                                                     "LDL", "STL"))
                 + f": {opcode_mix(ins, 16)}")
     if old:
-        # the tiles' default-flag instantiations: their names here carry
-        # MODES = false (and the two arguments of the flags) beside the
-        # older tree's
+        # the tile instantiations both trees share: a tile fill's name here
+        # carries GAB = false beside the older tree's (whose MODES = false
+        # ones carry that flag in turn beside a tree before it)
         def base(n, strip):  # the name with its template arguments
             d = demangle(n)
             k = d[:d.find(">(") + 1] if ">(" in d else d
@@ -3945,31 +4083,30 @@ def sass_report(old, gpu):
             return "tile_fill_kernel" in n or "tile_carry_kernel" in n
 
         olds = {base(n, False): n for n in prev if tile(n)}
-        pairs = [(n, olds[base(n, True)]) for n in sorted(new)
-                 if tile(n) and base(n, True) in olds]
+        pairs = [(n, olds[base(n, False)] if base(n, False) in olds else
+                  olds[base(n, True)]) for n in sorted(new)
+                 if tile(n) and (base(n, False) in olds
+                                 or base(n, True) in olds)]
         same = [n for n, o in pairs if new[n] == prev[o]]
-        log(f"sass: {len(pairs)} default-flag tile instantiations in both "
-            f"trees, {len(same)} identical instruction by instruction; "
+        log(f"sass: {len(pairs)} tile instantiations in both trees, "
+            f"{len(same)} identical instruction by instruction; "
             f"{sum(tile(n) for n in new) - len(pairs)} tile instantiations "
-            f"only in this tree (MODES)")
+            f"only in this tree")
         for n, o in pairs:
             if n not in same:
                 k = next((i for i, (a, b) in enumerate(zip(new[n], prev[o]))
                           if a != b), min(len(new[n]), len(prev[o])))
-                log(f"sass: differs: {base(n, True)}: {len(new[n])} against "
+                log(f"sass: differs: {base(n, False)}: {len(new[n])} against "
                     f"{len(prev[o])} instructions, first at {k}: "
                     f"{new[n][k:k + 3]} against {prev[o][k:k + 3]}")
         common = sorted(set(new) & set(prev))
-        fills = [n for n in common if "fill_kernel" in n]
-        same = [n for n in fills if new[n] == prev[n]]
-        log(f"sass: {len(fills)} other fill_kernel instantiations in both "
-            f"trees, {len(same)} identical instruction by instruction; "
-            f"differing: {[n for n in fills if n not in same]}")
-        others = [n for n in common if n not in fills]
-        only = [n for n in set(new) - set(prev) if "addmax_plain" not in n]
+        others = [n for n in common if not tile(n)]
+        only = [n for n in set(new) - set(prev)
+                if "addmax_plain" not in n and not tile(n)]
+        gone = [demangle(n) for n in set(prev) - set(new) if not tile(n)]
         log(f"sass: other kernels in both trees: {len(others)}, identical "
             f"{sum(new[n] == prev[n] for n in others)}; only in this tree: "
-            f"{len(only)}, only in {old}: {len(set(prev) - set(new))}")
+            f"{len(only)}; only in {old}: {len(gone)} {sorted(gone)}")
     log(f"sass: done [{gpu}]")
 
 
@@ -3989,9 +4126,11 @@ def main() -> int:
                          "walls and fills")
     ap.add_argument("--walks", action="store_true",
                     help="only time the walk rows at their shapes")
+    ap.add_argument("--gab", action="store_true",
+                    help="only time the matrix dump's fills and CLI job 5")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --fills, --walks, --harvest-ab, --walls or "
-                         "--hits-long: import "
+                    help="with --fills, --walks, --gab, --harvest-ab, "
+                         "--walls or --hits-long: import "
                          "seqalign_tpu_torch from the checkout in DIR (an "
                          "older tree, for an A/B)")
     ap.add_argument("--chunk-ab", action="store_true",
@@ -4010,10 +4149,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
-    if args.tree and not (args.fills or args.walks or args.harvest_ab
-                          or args.walls or args.hits_long):
-        ap.error("--tree goes with --fills, --walks, --harvest-ab, --walls "
-                 "or --hits-long")
+    if args.tree and not (args.fills or args.walks or args.gab
+                          or args.harvest_ab or args.walls or args.hits_long):
+        ap.error("--tree goes with --fills, --walks, --gab, --harvest-ab, "
+                 "--walls or --hits-long")
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else
                     os.path.dirname(os.path.abspath(__file__)))
     import seqalign_tpu_torch as port
@@ -4052,6 +4191,9 @@ def main() -> int:
     if args.walks:
         walks_only({"nw": nw.scoring, "sw": sw.scoring,
                     "table": swp.scoring}, dev, gpu)
+        return 0
+    if args.gab:
+        gab_only({"nw": nw.scoring, "sw": sw.scoring}, dev, gpu)
         return 0
     if args.harvest_ab:
         harvest_ab(gpu)
@@ -4117,7 +4259,7 @@ def main() -> int:
         mode = name.partition("[")[2].rstrip("]")
         if name.startswith("vpu_chain"):
             n = vpu_launches[name][counter]
-        elif name.endswith("_fill_gab"):
+        elif counter in ("nw_fill_gab", "sw_fill_gab"):
             n = launches["cli"][counter]
         elif mode.startswith("carry,nsg+neg"):  # long job 2
             n = long_flagged

@@ -25,10 +25,10 @@
 // round of a pair's lanes a block, under any flags.
 //
 // nw_dirs_gab_launch is the same fill with the three matrices for the
-// matrix dump (fill_common.cuh's fill_kernel; replaces the emit_gab
-// planes of seqalign_tpu/ops/dp.py:dp_fill, a lax.scan): M, Ga and Gb as
-// int32 into three skewed planes beside the codes, 13 bytes a cell, which
-// bounds it (bytes) more than the barrier does at the dump's sizes.
+// matrix dump (replaces the emit_gab planes of seqalign_tpu/ops/dp.py:
+// dp_fill, a lax.scan): on the same tiles, tile_fill.cuh's GAB
+// instantiations, M, Ga and Gb as int32 into three skewed planes beside
+// the codes, 13 bytes a cell, which bound it (bytes).
 
 #include "fill_common.cuh"
 #include "tile_carry.cuh"
@@ -45,5 +45,5 @@ CARRY_ENTRY(nw_dirs_carry_launch) {
 }
 
 FILL_ENTRY(nw_dirs_gab_launch) {
-  return fill::gab<false>(GAB_ARGS);
+  return tile::launch_modes<true, false, 4, true>(TILE_ARGS);
 }

@@ -28,9 +28,9 @@
 // tile_carry.cuh, a round of a pair's lanes a block, under any flags.
 //
 // sw_dirs_gab_launch is the fill with the three matrices for the matrix
-// dump (fill_common.cuh's fill_kernel; replaces the SW emit_gab planes of
-// dp_fill): M, Ga and Gb as int32 into three skewed planes, the first of
-// which the hit harvest reads as M.
+// dump (replaces the SW emit_gab planes of dp_fill): on the same tiles,
+// tile_fill.cuh's GAB instantiations, M, Ga and Gb as int32 into three
+// skewed planes, the first of which the hit harvest reads as M.
 
 #include "fill_common.cuh"
 #include "tile_carry.cuh"
@@ -50,5 +50,5 @@ CARRY_ENTRY(sw_dirs_carry_launch) {
 
 FILL_ENTRY(sw_dirs_gab_launch) {
   corner = nullptr;
-  return fill::gab<true>(GAB_ARGS);
+  return tile::launch_modes<true, true, 4, true>(TILE_ARGS);
 }

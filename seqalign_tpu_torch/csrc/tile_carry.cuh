@@ -75,9 +75,8 @@ constexpr int WORD = 32;
 // R of the flags' carry (MODES): at THREAD_LANES its instantiations
 // spilled past the 128 registers a thread of 16 warps a block; at 2 lanes a
 // thread, 16 lanes of registers fewer, they do not.  A carry block has at
-// most warps_max<THREAD_LANES>() warps, whatever its R.
+// most BLOCK_WARPS warps (tile_fill.cuh), whatever its R.
 constexpr int MODES_LANES = 2;
-constexpr int CARRY_WARPS = warps_max<THREAD_LANES>();
 constexpr unsigned long long SPIN_NS = 10000000000ull;
 
 // The round rows of one carry launch, in the scratch the wrapper gives:
@@ -126,7 +125,7 @@ static __device__ __noinline__ int wait_for(const int* p, int need) {
 // the chunk in cr; the rounds' rows, words and counter in rd.  im and
 // modes are read under MODES only, and come last, as there.
 template <bool SW, bool TABLE, int MBYTES, int R, bool MODES = false>
-__global__ void __launch_bounds__(32 * CARRY_WARPS)
+__global__ void __launch_bounds__(32 * BLOCK_WARPS)
     tile_carry_kernel(const uint8_t* __restrict__ ac,
                       const uint8_t* __restrict__ bc,
                       const int* __restrict__ na_,
@@ -313,7 +312,7 @@ __global__ void __launch_bounds__(32 * CARRY_WARPS)
   }
 }
 
-// One carry launch at W warps a block (1 .. CARRY_WARPS): zeroes the
+// One carry launch at W warps a block (1 .. BLOCK_WARPS): zeroes the
 // words and the counter of `scratch`, then launches B x rounds blocks.
 // The scratch holds ops/kernels.py:carry_scratch_ints(B, LB, CA, W, R)
 // int32.  MODES for a flag word `modes` != 0, at R = MODES_LANES (`im`
@@ -326,7 +325,7 @@ int carry(const void* ac, const void* bc, const void* na, const void* nb,
           void* stream, const fill::Carry& cr, int W) {
   constexpr int R = MODES ? MODES_LANES : THREAD_LANES;
   constexpr int S = 32 * R;
-  if (W < 1 || W > CARRY_WARPS || cr.CA < 1 || !scratch)
+  if (W < 1 || W > BLOCK_WARPS || cr.CA < 1 || !scratch)
     return cudaErrorInvalidValue;
   const int rounds = ((max(LB, 1) + S - 1) / S + W - 1) / W;
   const int nrows = B * (rounds - 1);

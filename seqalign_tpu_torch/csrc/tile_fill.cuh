@@ -1,19 +1,19 @@
 // Gotoh fill as register tiles on the anti-diagonal: the fills of
-// nw_scores.cu, nw_dirs.cu, sw_scores.cu and sw_dirs.cu (all but the
-// matrix dump, GAB, which stays on fill_common.cuh's fill_kernel), the
-// default recurrence or any combination of the five scoring flags (MODES),
-// equality or substitution-table scoring, uniform or under a fill schedule
-// (one launch across widths); the long pairs' chunks run the same Tile
-// from tile_carry.cuh.
+// nw_scores.cu, nw_dirs.cu, sw_scores.cu and sw_dirs.cu and the matrix
+// dump's (GAB), the default recurrence or any combination of the five
+// scoring flags (MODES), equality or substitution-table scoring, uniform
+// or under a fill schedule (one launch across widths); the long pairs'
+// chunks run the same Tile from tile_carry.cuh.
 //
 // Replaces the recurrence of seqalign_tpu/ops/pallas_dp2.py:_kernel2
 // (scores: NW corner, SW best) and :_dirs_kernel2 (packed direction codes,
-// SW M as int16 or int32) with their flag branches, and the duties of
+// SW M as int16 or int32) with their flag branches, the duties of
 // pallas_dp.py:_kernel / :_dirs_kernel at other alphabets and widths (the
-// both-no-gaps fills, the SW constrained modes); it computes what
-// seqalign_tpu/ops/dp.py:dp_fill computes (alignment.c:28-168), bit for
-// bit, as fill_kernel does: the same scores, corner, codes and M at the
-// same addresses (the uniform (B, LA+LB-1, LB+1) layout, cell (y, x) at
+// both-no-gaps fills, the SW constrained modes), and the emit_gab planes
+// of seqalign_tpu/ops/dp.py:dp_fill (a lax.scan, for --printmatrices); it
+// computes what dp_fill computes (alignment.c:28-168), bit for bit: the
+// same scores, corner, codes and M (and under GAB Ga and Gb) at the same
+// addresses (the uniform (B, LA+LB-1, LB+1) layout, cell (y, x) at
 // [x+y-2][y], or pair j's ragged plane from off[j] with rows of
 // max(nb, 1) + 1 lanes).
 //
@@ -36,8 +36,9 @@
 // VIADDMNMX, wrapping as add() does) plus the codes' compares.
 //
 // Strips of one pair (option "a", warps side by side): a block has W =
-// min(strips of the launch's widest pair, LANES / S) warps, so one round of
-// the block covers LANES lanes; a pair with fewer strips runs its own Wj
+// min(strips of the launch's widest pair, BLOCK_WARPS) warps, so one round
+// of the block covers LANES lanes at R = THREAD_LANES (LANES / 2 at
+// GAB_LANES, the dump's); a pair with fewer strips runs its own Wj
 // and the other warps return.  Every K diagonals the pair's warps meet at a
 // named barrier; strip s runs macro steps T_s .. T_s + ndur - 1, K local
 // steps each, with T_s = r*P + w*(R+1) for s = r*Wj + w (round r, warp w),
@@ -52,7 +53,7 @@
 // strip only when its last one ends) the edge goes through a row of 3 *
 // (LA+1) int32 in global scratch, pair j's slice slot[j] (under a schedule)
 // or j, which is written at columns the reader has passed.  Pairs of up to
-// LANES lanes of b take one round and no scratch.  tests/test_torch_tile.py
+// a round's lanes of b take one round and no scratch.  tests/test_torch_tile.py
 // models this order of work in numpy and holds it to the JAX package.
 //
 // Edges of the tile.  A step block of R steps whose cells are all valid
@@ -67,19 +68,34 @@
 // cells per thread, then per warp, then one atomicMax per warp; NW writes
 // the corner from the thread holding lane nb at x == na.
 //
-// Modes.  The flags follow fill_kernel's rules (fill_common.cuh, the
-// modes), each where it costs least.  NSG changes only the boundary (run()
-// is 0: the x == 0 lanes and row 0 from fetch).  NMM pins M to the floor
-// off an is-match, one compare of the codes a lane holds (under a table a
-// second lookup, hc + bcd[r], into the is-match table behind it).  NEG,
-// NGA and NGB act on the last column x == na, the last row y == nb and
-// the guards of x == 1 and y == 1: the rows are the lanes' own (a thread
-// tests y0 + r), and under MODES a step block runs unchecked only where no
-// cell lies on the columns x == 1 or x == na, so that the columns are
-// tested in checked blocks only (two more checked blocks a strip).  The NW
-// corner, the SW best and a carry's column out are taken after the flags.
-// With MODES false every flag branch is dead code: the default flags'
-// instantiations compile as they did before the flags came here.
+// Modes.  The flags, each where it costs least, with (x, y) a cell and na,
+// nb the pair's lengths.  NSG zeroes the boundary gap runs
+// (alignment.c:60-63): run() is 0, on the x == 0 lanes and row 0 from
+// fetch.  NMM pins M to the floor where the pair is not an is-match
+// (alignment.c:101-104): a != b on the folded codes, one compare of the
+// codes a lane holds, or under a table a second lookup, hc + bcd[r], into
+// the is-match table behind it.  NEG takes Ga on the last column x == na
+// and Gb on the last row y == nb as the max of the predecessors without
+// penalty or floor, SW included (alignment.c:122-127, 140-145), and the
+// codes of those cells compare with penalty 0 (alignment.c:265-268,
+// 287-290).  NGA / NGB pin Ga / Gb to the floor off the last column / row,
+// after NEG, and guard the codes: a no-gaps matrix is a predecessor only at
+// its boundary coordinates x == 1 or y == 1 (alignment.c:312-321).  The
+// rows are the lanes' own (a thread tests y0 + r); under MODES a step
+// block runs unchecked only where no cell lies on the columns x == 1 or
+// x == na, so that the columns are tested in checked blocks only (two more
+// checked blocks a strip).  The NW corner, the SW best, a carry's column
+// out and the GAB planes are taken after the flags.  With MODES false
+// every flag branch is dead code: the default flags' instantiations
+// compile as they did before the flags came here.
+//
+// GAB, the matrix dump: M as int32 (MBYTES 4, NW too), and Ga and Gb into
+// the two planes of the same layout behind the B M planes (mout +
+// B*plane, mout + 2*B*plane: (3, B, LA+LB-1, LB+1) int32), stored where
+// M is, lane by lane in checked blocks and by store_run in unchecked ones
+// (a thread's Ga and Gb of one step are its registers a1, b1 after it).
+// Uniform layout only, no schedule.  Its bound is the bytes, 13 a valid
+// cell.
 //
 // What bounds it on an H100: integer issue (the cells' instructions at 64
 // int32 lanes an SM and clock), with the code stores (one byte a cell, 3
@@ -117,6 +133,16 @@ template <int R>
 __host__ __device__ constexpr int warps_max() {
   return LANES / (32 * R);
 }
+
+// A block holds at most BLOCK_WARPS warps, whatever its R: at 32 *
+// BLOCK_WARPS threads a block ptxas keeps 128 registers a thread.
+constexpr int BLOCK_WARPS = warps_max<THREAD_LANES>();
+// R of the matrix dump's fills (GAB), a round of a block then covering
+// LANES / 2 lanes.  The dump fills one pair a launch, where a lone warp's
+// step latency paces the fill: at 300 x 200 R = 2 took 0.81-0.82x the time
+// of R = 4 (R = 1 0.59-0.81x, but 1.14-1.62x at 3,000 x 2,500; PERF.md,
+// section 6); and under MODES R = 4 spilled past the 128 registers.
+constexpr int GAB_LANES = 2;
 
 __device__ __forceinline__ int sub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
@@ -204,9 +230,11 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[R]) {
 // CARRY: one chunk of a long pair (tile_carry.cuh); na is then the chunk's
 // local width, and the members below the CARRY line take the duties of the
 // closed-form boundary.  MODES: the scoring flags of the word `modes`, read
-// at run time (see Modes above); the members below the MODES line.
+// at run time (see Modes above); the members below the MODES line.  GAB:
+// the matrix dump's Ga and Gb planes, gstride elements behind M's (see GAB
+// above).
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, int R,
-          bool CARRY = false, bool MODES = false>
+          bool CARRY = false, bool MODES = false, bool GAB = false>
 struct Tile {
   using MT = typename std::conditional<MBYTES == 2, int16_t, int>::type;
   static constexpr int S = 32 * R;
@@ -246,6 +274,8 @@ struct Tile {
   // it)
   int modes;
   const int* im;
+  // GAB: the elements from a cell's M to its Ga, B planes
+  size_t gstride;
 
   __device__ __forceinline__ bool flag(int f) const {
     return MODES && (modes & f);
@@ -349,7 +379,7 @@ struct Tile {
     int Gb = max(add(m1[r], gop), mn);
     Gb = max(add(a1[r], gop), Gb);
     Gb = max(add(b1[r], ge), Gb);
-    // the flags (fill_common.cuh, the modes); an unchecked block holds no
+    // the flags (Modes above); an unchecked block holds no
     // cell of the columns of global x == 1 and x == na, so only checked
     // ones test them; the rows y == 1 and y == nb are the lanes' own
     bool lcol = false, lrow = false, xone = false, yone = false;
@@ -385,8 +415,7 @@ struct Tile {
       valid = x >= 1 && x <= na && y <= nb;
     }
     if constexpr (DIRS && MODES) {
-      // the guards and the end gaps' penalty 0 of the flags
-      // (fill_common.cuh, fill_kernel)
+      // the guards and the end gaps' penalty 0 of the flags (Modes above)
       const bool nga = flag(fill::NGA), ngb = flag(fill::NGB);
       const bool diag_a = !nga || xone, diag_b = !ngb || yone;
       const bool up_a = !nga || lcol, left_b = !ngb || lrow;
@@ -402,7 +431,8 @@ struct Tile {
                            m1[r] == tbo);
       code[r] = dm | (dga << 2) | (dgb << 4);
     } else if (DIRS) {
-      // fill_kernel's compares, add(p, c) == v written as p == v - c
+      // the reference's compares (alignment.c:311-327), add(p, c) == v
+      // written as p == v - c
       const int tm = sub(M, ss);
       const int tae = sub(Ga, ge), tao = sub(Ga, gop);
       const int tbo = sub(Gb, gop), tbe = sub(Gb, ge);
@@ -416,6 +446,10 @@ struct Tile {
     if (CK && valid) {
       if (DIRS) dj[row + y0 + r] = static_cast<uint8_t>(code[r]);
       if (MBYTES) mj[row + y0 + r] = static_cast<MT>(M);
+      if (GAB) {
+        mj[gstride + row + y0 + r] = Ga;
+        mj[2 * gstride + row + y0 + r] = Gb;
+      }
       if (!SW && xb - r == (CARRY ? cx : na) && y0 + r == nb) {  // NW corner
         corner[3 * j] = M;
         corner[3 * j + 1] = Ga;
@@ -473,6 +507,10 @@ struct Tile {
     if (!CK) {
       if (DIRS) store_run<uint8_t, R>(dj + row + y0, code);
       if (MBYTES) store_run<MT, R>(mj + row + y0, mval);
+      if (GAB) {  // this step's Ga and Gb, now the lanes' d-1 values
+        store_run<MT, R>(mj + gstride + row + y0, a1);
+        store_run<MT, R>(mj + 2 * gstride + row + y0, b1);
+      }
     }
     if (t31 && dst) {  // the last lane, column i - S + 1, for the next strip
       const int x = i - S + 1;
@@ -486,15 +524,21 @@ struct Tile {
   }
 };
 
-// scal, sub, im, modes, scores, corner, dirs as fill_kernel's
-// (fill_common.cuh); mout: M (MBYTES 2 or 4), in the layout of dirs;
+// scal = {match, mismatch, gap_open, gap_extend, NW floor, SW floor}, int32;
+// sub (TABLE): the (Ka, Kb) int32 table, sub_n = Ka * Kb entries, copied
+// to shared memory behind the rings when `table_smem`; im (TABLE under
+// NMM): the 0/1 is-match table of the same shape; modes: the flag word
+// (fill_common.cuh, NSG .. NMM); scores: the NW corner max or the SW best;
+// corner (NW): M, Ga, Gb at (nb, na); dirs: the codes, (B, LA+LB-1, LB+1)
+// uint8 (or planes under a schedule); mout: M (MBYTES 2 or 4), in the
+// layout of dirs, and under GAB Ga and Gb behind it;
 // scratch: the round rows, 3 * (LA+1) int32 a pair that needs one (pair
 // j's at slice sc.wrap[j] under a schedule, else j).  im and modes are
 // read under MODES only, and come last, so that the default flags'
 // instantiations read their arguments where they did before MODES.
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R,
-          bool MODES = false>
-__global__ void __launch_bounds__(32 * warps_max<R>())
+          bool MODES = false, bool GAB = false>
+__global__ void __launch_bounds__(32 * BLOCK_WARPS)
     tile_fill_kernel(const uint8_t* __restrict__ ac,
                      const uint8_t* __restrict__ bc,
                      const int* __restrict__ na_, const int* __restrict__ nb_,
@@ -505,7 +549,7 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
                      uint8_t* __restrict__ dirs, void* __restrict__ mout,
                      int* __restrict__ scratch, fill::Sched sc,
                      const int* __restrict__ im, int modes) {
-  using T = Tile<DIRS, SW, TABLE, MBYTES, R, false, MODES>;
+  using T = Tile<DIRS, SW, TABLE, MBYTES, R, false, MODES, GAB>;
   constexpr int S = T::S;
   extern __shared__ int smem[];
   const int j = SCHED ? sc.order[blockIdx.x] : blockIdx.x;
@@ -533,6 +577,7 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
       SCHED && sc.off ? static_cast<size_t>(sc.off[j]) : j * plane;
   tl.dj = DIRS ? dirs + at_j : nullptr;
   tl.mj = MBYTES ? static_cast<typename T::MT*>(mout) + at_j : nullptr;
+  if constexpr (GAB) tl.gstride = gridDim.x * plane;
   tl.tab = sub;
   if constexpr (MODES) {
     tl.modes = modes;
@@ -650,19 +695,20 @@ __global__ void __launch_bounds__(32 * warps_max<R>())
 }
 
 template <bool DIRS, bool SW, bool TABLE, int MBYTES, bool SCHED, int R,
-          bool MODES>
+          bool MODES, bool GAB>
 int start(const void* ac, const void* bc, const void* na, const void* nb,
           const void* scal, const void* sub, const void* im, int modes,
           int Kb, int sub_n, int table_smem, int B, int LA, int LB,
           void* scores, void* corner, void* dirs, void* mout, void* scratch,
           void* stream, const fill::Sched& sc) {
   constexpr int S = 32 * R;
-  const int W = min((max(LB, 1) + S - 1) / S, warps_max<R>());
+  const int W = min((max(LB, 1) + S - 1) / S, BLOCK_WARPS);
   const size_t smem =
       static_cast<size_t>(W) * 3 * RING * 4 +
       (TABLE && table_smem ? static_cast<size_t>(4) * sub_n * (im ? 2 : 1)
                            : 0);
-  auto kernel = tile_fill_kernel<DIRS, SW, TABLE, MBYTES, SCHED, R, MODES>;
+  auto kernel =
+      tile_fill_kernel<DIRS, SW, TABLE, MBYTES, SCHED, R, MODES, GAB>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -681,48 +727,53 @@ int start(const void* ac, const void* bc, const void* na, const void* nb,
 
 // A fill launch: the table or none, a schedule or none, at THREAD_LANES
 // lanes a thread; MODES for a flag word `modes` != 0 (`im`, the is-match
-// table, passed on only under NMM with a table).
-template <bool DIRS, bool SW, int MBYTES, bool MODES>
+// table, passed on only under NMM with a table); GAB for the matrix dump,
+// which takes no schedule (so none of its instantiations has one), at
+// GAB_LANES.
+template <bool DIRS, bool SW, int MBYTES, bool MODES, bool GAB>
 int launch(const void* ac, const void* bc, const void* na, const void* nb,
            const void* scal, const void* sub, const void* im, int modes,
            int Kb, int sub_n, int table_smem, int B, int LA, int LB,
            void* scores, void* corner, void* dirs, void* mout, void* scratch,
            void* stream, const fill::Sched& sc) {
-  constexpr int R = THREAD_LANES;
+  constexpr int R = GAB ? GAB_LANES : THREAD_LANES;
+  constexpr bool SCHED = !GAB;
   if (sub) {
     const void* imp = (modes & fill::NMM) ? im : nullptr;
-    return sc.order ? start<DIRS, SW, true, MBYTES, true, R, MODES>(
+    return sc.order ? start<DIRS, SW, true, MBYTES, SCHED, R, MODES, GAB>(
                           ac, bc, na, nb, scal, sub, imp, modes, Kb, sub_n,
                           table_smem, B, LA, LB, scores, corner, dirs, mout,
                           scratch, stream, sc)
-                    : start<DIRS, SW, true, MBYTES, false, R, MODES>(
+                    : start<DIRS, SW, true, MBYTES, false, R, MODES, GAB>(
                           ac, bc, na, nb, scal, sub, imp, modes, Kb, sub_n,
                           table_smem, B, LA, LB, scores, corner, dirs, mout,
                           scratch, stream, sc);
   }
-  return sc.order ? start<DIRS, SW, false, MBYTES, true, R, MODES>(
+  return sc.order ? start<DIRS, SW, false, MBYTES, SCHED, R, MODES, GAB>(
                         ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0,
                         0, B, LA, LB, scores, corner, dirs, mout, scratch,
                         stream, sc)
-                  : start<DIRS, SW, false, MBYTES, false, R, MODES>(
+                  : start<DIRS, SW, false, MBYTES, false, R, MODES, GAB>(
                         ac, bc, na, nb, scal, nullptr, nullptr, modes, 0, 0,
                         0, B, LA, LB, scores, corner, dirs, mout, scratch,
                         stream, sc);
 }
 
-// The default flags (modes == 0) or the flags' instantiations (MODES).
-template <bool DIRS, bool SW, int MBYTES>
+// The default flags (modes == 0) or the flags' instantiations (MODES);
+// GAB: the matrix dump's fill, codes and the int32 M, Ga and Gb planes.
+template <bool DIRS, bool SW, int MBYTES, bool GAB = false>
 int launch_modes(const void* ac, const void* bc, const void* na,
                  const void* nb, const void* scal, const void* sub,
                  const void* im, int modes, int Kb, int sub_n,
                  int table_smem, int B, int LA, int LB, void* scores,
                  void* corner, void* dirs, void* mout, void* scratch,
                  void* stream, const fill::Sched& sc) {
-  return modes ? launch<DIRS, SW, MBYTES, true>(
+  static_assert(!GAB || (DIRS && MBYTES == 4), "the dump stores int32 M");
+  return modes ? launch<DIRS, SW, MBYTES, true, GAB>(
                      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n,
                      table_smem, B, LA, LB, scores, corner, dirs, mout,
                      scratch, stream, sc)
-               : launch<DIRS, SW, MBYTES, false>(
+               : launch<DIRS, SW, MBYTES, false, GAB>(
                      ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n,
                      table_smem, B, LA, LB, scores, corner, dirs, mout,
                      scratch, stream, sc);
@@ -732,7 +783,7 @@ int launch_modes(const void* ac, const void* bc, const void* na,
 
 }  // namespace tile
 
-// The four fill entries call tile::launch_modes with these arguments.
+// The fill entries call tile::launch_modes with these arguments.
 #define TILE_ARGS                                                          \
   ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,  \
       scores, corner, dirs, mout, scratch, stream, SCHED_ARGS

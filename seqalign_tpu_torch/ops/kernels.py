@@ -10,11 +10,12 @@ fills ``nw_fill_gab`` and ``sw_fill_gab``, the long-pair chunk fills
 code plane, a long pair's chunk slabs, or the planes of one launch across
 widths), and the ALU probe ``vpu_chain``.
 
-The four fills run the register tiles of csrc/tile_fill.cuh (a warp a
-strip of 32 * ``TILE_R`` lanes), the long pairs' chunks the same tiles
-from csrc/tile_carry.cuh (a round of a pair's lanes a block,
-:func:`carry_warps` warps), under any scoring flags (``params.modes``); the
-matrix dump runs fill_kernel of csrc/fill_common.cuh.  The walks run a
+The four fills and the matrix dump's run the register tiles of
+csrc/tile_fill.cuh (a warp a strip of 32 * ``TILE_R`` lanes; the dump as
+its ``GAB`` instantiations), the long pairs' chunks the same tiles from
+csrc/tile_carry.cuh (a round of a pair's lanes a block,
+:func:`carry_warps` warps), under any scoring flags (``params.modes``).
+The walks run a
 warp a walk over the band of codes it can reach, staged in shared memory
 a block of rows at a time (csrc/walk_band.cuh).
 
@@ -48,7 +49,7 @@ from .pack import NEG, NMM, KernelParams, ragged_planes
 from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
                         sw_walk_plain, walk_cap)
 
-# dynamic shared memory a block may use on sm_90 (csrc/fill_common.cuh)
+# dynamic shared memory a block may use on sm_90
 SMEM_MAX = 227 * 1024
 # What the sizing of the fills' register tiles needs of
 # csrc/tile_fill.cuh (RING, LANES, THREAD_LANES there): an edge ring of
@@ -56,6 +57,9 @@ SMEM_MAX = 227 * 1024
 # round (a pair with more takes a round row of 3 * (LA+1) int32 in global
 # scratch), TILE_R lanes a thread.
 TILE_RING, TILE_LANES, TILE_R = 128, 2048, 4
+# The lanes a thread of the matrix dump's fills (GAB_LANES there), a block
+# of at most TILE_LANES / (32 * TILE_R) warps whatever its lanes a thread.
+GAB_R = 2
 # The carry (csrc/tile_carry.cuh, WORD and MODES_LANES there): int32
 # between two progress words of its round rows; the lanes a thread of the
 # flags' carry (``params.modes``; at ``TILE_R`` its instantiations spilled);
@@ -239,23 +243,21 @@ def _check_sched(sched, B):
 
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
           dirs=None, mout=None, m16=False, sched=None, carry=None):
-    """Launch one of the fill kernels.  The four fills run the register
-    tiles of csrc/tile_fill.cuh under any scoring flags: ``TILE_R`` lanes
-    a thread, a warp's edge ring (12 * ``TILE_RING`` bytes) in shared
-    memory, and a round row of 3 * (LA+1) int32 in scratch for each pair
-    past ``TILE_LANES`` lanes of b (slice j without a schedule, the
-    schedule's ``wrap`` slot with one).  A carry (``carry``: the extra
-    arguments of a carry entry, which takes no schedule) runs
-    csrc/tile_carry.cuh, at ``CARRY_MODES_R`` lanes a thread under flags:
-    a block of :func:`carry_warps` warps for each round of each pair,
-    their rings in shared memory, and a scratch of
-    :func:`carry_scratch_ints` int32 for the round rows, their progress
-    words and the ticket counter.  The matrix dump runs fill_kernel
-    (csrc/fill_common.cuh), a block a pair: its rolling diagonals (36
-    bytes per lane) take shared memory when LB+1 lanes fit there, else a
-    global scratch buffer.  The table (4 bytes per entry, twice that with
-    the is-match table of no_mismatches) takes the shared memory left,
-    else the read-only global path."""
+    """Launch one of the fill kernels.  The four fills and the matrix
+    dump's run the register tiles of csrc/tile_fill.cuh under any scoring
+    flags: ``TILE_R`` lanes a thread (the dump's ``GAB_R``),
+    a warp's edge ring (12 * ``TILE_RING`` bytes) in shared memory, and a
+    round row of 3 * (LA+1) int32 in scratch for each pair past a block's
+    round of lanes, ``TILE_LANES`` at ``TILE_R`` (slice j without a
+    schedule, the schedule's ``wrap`` slot with one).  A carry (``carry``:
+    the extra arguments of a carry entry, which takes no schedule) runs
+    csrc/tile_carry.cuh, at ``CARRY_MODES_R`` lanes a thread under flags: a
+    block of :func:`carry_warps` warps for each round of each pair, their
+    rings in shared memory, and a scratch of :func:`carry_scratch_ints`
+    int32 for the round rows, their progress words and the ticket counter.
+    The table (4 bytes per entry, twice that with the is-match table of
+    no_mismatches) takes the shared memory left, else the read-only global
+    path."""
     B, LA = ac.shape
     LB = bc.shape[1]
     if B == 0:
@@ -270,19 +272,16 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
         smem = 12 * TILE_RING * warps
         scratch = torch.empty(carry_scratch_ints(B, LB, carry[3], warps, r),
                               dtype=torch.int32, device=dev)
-    elif not entry.endswith("_gab_launch"):
-        smem = 12 * TILE_RING * min(-(-LB // (32 * TILE_R)),
-                                    TILE_LANES // (32 * TILE_R))
+    else:
+        r = GAB_R if entry.endswith("_gab_launch") else TILE_R
+        wmax = TILE_LANES // (32 * TILE_R)  # a block's warps at any r
+        smem = 12 * TILE_RING * min(-(-LB // (32 * r)), wmax)
         if sched is None:
-            nscratch = B if LB > TILE_LANES else 0
+            nscratch = B if LB > 32 * r * wmax else 0
         else:
             nscratch = sched.nwrap
         scratch = (torch.empty((nscratch, 3, LA + 1), dtype=torch.int32,
                                device=dev) if nscratch else None)
-    else:
-        smem = 36 * (LB + 1) if 36 * (LB + 1) <= SMEM_MAX else 0
-        scratch = (None if smem else
-                   torch.empty((B, 9, LB + 1), dtype=torch.int32, device=dev))
     sub = params.sub
     im = params.im if sub is not None and params.modes & NMM else None
     kb = sub_n = table_smem = 0

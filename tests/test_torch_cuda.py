@@ -591,6 +591,47 @@ def test_gab_kernels_equal_plain_versions(dev, mode, table):
     assert after["sw_fill_gab"] == before["sw_fill_gab"] + 1
 
 
+# one pair as the matrix dump fills it: CLI job 5's 300 x 200, and one
+# past a round of the tiles' lanes (kernels.TILE_LANES), whose strips hand
+# their edge on through the round row in scratch
+GAB_PAIRS = {"dump": (300, 200), "wide": (3000, 2500)}
+
+
+@pytest.mark.parametrize("mode", ["default", "nsg_neg", "nga_ngb_nmm"])
+@pytest.mark.parametrize("table", [False, True], ids=["equality", "table"])
+@pytest.mark.parametrize("pair", list(GAB_PAIRS))
+def test_gab_kernels_on_one_pair_equal_plain_versions(dev, pair, table,
+                                                      mode):
+    """The matrix-dump fills on one pair of :data:`GAB_PAIRS` (codes,
+    corner, M, Ga and Gb planes) against their plain versions on the same
+    CUDA tensors, default flags and two flag sets, equality and BLOSUM62."""
+    from seqalign_tpu_torch.ops.dp import nw_fill_gab_plain, sw_fill_gab_plain
+
+    sc, alpha = ((ScoringConfig(1, -2, -4, -1), "acgtACGT")
+                 if mode == "default" else _mode_config(mode, table))
+    if mode == "default" and table:
+        sc, alpha = scoring_system_BLOSUM62(), PROTEIN
+    LA, LB = GAB_PAIRS[pair]
+    assert (LB > kernels.TILE_LANES) == (pair == "wide")
+    rng = np.random.default_rng(LA + 2 * table + len(mode))
+    A, Bs = _text(rng, alpha, 1, LA, LA), _text(rng, alpha, 1, LB, LB)
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, LA, LB)
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    v = _valid(dev, t[2], t[3], LA, LB)
+    before = kernel_launch_counts()
+    d, c, g = kernels.nw_fill_gab(*t, bp)
+    dp_, cp, gp = nw_fill_gab_plain(*t, bp)
+    assert torch.equal(d[v], dp_[v]) and torch.equal(c, cp)
+    assert all(torch.equal(g[k][v], gp[k][v]) for k in range(3))
+    d, g = kernels.sw_fill_gab(*t, bp)
+    dp_, gp = sw_fill_gab_plain(*t, bp)
+    assert torch.equal(d[v], dp_[v])
+    assert all(torch.equal(g[k][v], gp[k][v]) for k in range(3))
+    after = kernel_launch_counts()
+    assert after["nw_fill_gab"] == before["nw_fill_gab"] + 1
+    assert after["sw_fill_gab"] == before["sw_fill_gab"] + 1
+
+
 def test_matrix_dump_on_cuda_matches_host(dev, monkeypatch):
     """``align_with_matrices`` on the card (the GAB fills) equals the int64
     host route: alignment, hit stream and all three matrices."""

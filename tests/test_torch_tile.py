@@ -90,12 +90,16 @@ def pick(ga_ok, gb_ok, m_ok):
 
 class Rec:
     """The stores of one launch: values, how often each cell was written,
-    and the pieces of every unchecked store."""
+    and the pieces of every unchecked store.  ``gab``: the matrix dump's
+    M, Ga and Gb planes, ``total`` elements apart in ``m`` (the kernel's
+    mout + B*plane, mout + 2*B*plane), their writes in ``mwrites``."""
 
-    def __init__(self, total, mdtype):
+    def __init__(self, total, mdtype, gab=False):
+        self.total = total
         self.codes = np.zeros(total, np.uint8)
-        self.m = np.zeros(total, mdtype)
+        self.m = np.zeros(3 * total if gab else total, mdtype)
         self.writes = np.zeros(total, np.int64)
+        self.mwrites = np.zeros(3 * total if gab else 0, np.int64)
         self.pieces = []
 
 
@@ -190,13 +194,15 @@ def where_flags(fl, x, y, lc, x1, nb, checked):
 
 
 def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
-                    at, LBp, LA, rec, rng, fl=None):
+                    at, LBp, LA, rec, rng, fl=None, gab=False):
     """One pair's block of the tile fill: a, b its codes (the kernel's
     inputs), ``tab`` the flat substitution table or None (equality),
     ``kb`` its row length; codes (``dirs``) and M (``mbytes`` 2 or 4) go
-    to ``rec`` at element ``at`` with rows of ``LBp`` lanes.  W: warps of
-    the block; ``fl``: the scoring flags (:class:`Flags`) of a MODES
-    instantiation, or None.  Returns (corner or None, score)."""
+    to ``rec`` at element ``at`` with rows of ``LBp`` lanes, and with
+    ``gab`` (the GAB instantiations, M int32) Ga and Gb to the planes
+    behind M's (:class:`Rec`).  W: warps of the block; ``fl``: the scoring
+    flags (:class:`Flags`) of a MODES instantiation, or None.  Returns
+    (corner or None, score)."""
     go, ge = int(scal[2]), int(scal[3])
     mn = int(scal[5] if sw else scal[4])
     nsg = fl is not None and bool(fl.modes & NSG)
@@ -299,13 +305,17 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
         if checked:
             tt, r_ = np.nonzero(valid)
             idx = base + y[tt, r_]
-            write(idx, code[tt, r_], M[tt, r_])
+            write(idx, code[tt, r_], M[tt, r_], Ga[tt, r_], Gb[tt, r_])
         else:  # a thread's R lanes are R elements of one row
             for tt in range(32):
                 e0 = base + int(y[tt, 0])
                 for es in ([1] if dirs else []) + ([mbytes] if mbytes else []):
                     rec.pieces.append((e0, es, store_pieces(e0, R, es)))
-            write((base + y).ravel(), code.ravel(), M.ravel())
+                for k in (1, 2) if gab else ():  # Ga, Gb: store_run too
+                    e = e0 + k * rec.total
+                    rec.pieces.append((e, 4, store_pieces(e, R, 4)))
+            write((base + y).ravel(), code.ravel(), M.ravel(), Ga.ravel(),
+                  Gb.ravel())
         if not sw and s == last and i == na + nb - ys:
             assert checked
             tc, rc = divmod(nb - ys, R)
@@ -322,11 +332,16 @@ def tile_fill_model(a, b, na, nb, scal, tab, kb, sw, dirs, mbytes, R, W,
             rows[:, xo] = val
             rows_at[xo] = (xo, t)
 
-    def write(idx, codes, m):
+    def write(idx, codes, m, ga, gb):
         if dirs:
             rec.codes[idx] = codes
         if mbytes:
             rec.m[idx] = m
+        if gab:
+            rec.m[idx + rec.total] = ga
+            rec.m[idx + 2 * rec.total] = gb
+            for k in range(3):
+                rec.mwrites[idx + k * rec.total] += 1
         rec.writes[idx] += 1
 
     for t in range(ttot):
@@ -384,9 +399,10 @@ def reference(kind, scoring, R):
     return sc, A, B, out, na, nb
 
 
-def model_launch(sc, A, B, sw, R, W, ragged, seed):
+def model_launch(sc, A, B, sw, R, W, ragged, seed, gab=False):
     """The model over every pair of one launch, as the wrapper lays it
-    out: returns (corners, scores, rec, off, LA, LB)."""
+    out (``gab``: the matrix dump's, uniform, M int32 for NW too):
+    returns (corners, scores, rec, off, na, nb, LB, mbytes)."""
     p = kernel_params(sc, "cpu")
     LA, LB = max(1, max(map(len, A))), max(1, max(map(len, B)))
     ac, bc, na, nb, bp = pack_batch(sc, p, A, B, LA, LB)
@@ -397,15 +413,15 @@ def model_launch(sc, A, B, sw, R, W, ragged, seed):
         off = ragged_planes(na, nb)
     else:
         off = np.arange(len(A) + 1) * (LA + LB - 1) * (LB + 1)
-    mbytes = (2 if ragged else 4) if sw else 0  # M as int16 or int32
-    rec = Rec(int(off[-1]), np.int16 if mbytes == 2 else np.int32)
+    mbytes = 4 if gab else (2 if ragged else 4) if sw else 0  # M's bytes
+    rec = Rec(int(off[-1]), np.int16 if mbytes == 2 else np.int32, gab)
     rng = np.random.default_rng(seed)
     corners, scores = [], []
     for j in range(len(A)):
         LBp = max(int(nb[j]), 1) + 1 if ragged else LB + 1
         c, s = tile_fill_model(ac[j], bc[j], int(na[j]), int(nb[j]),
                                p.scal.numpy(), tab, kb, sw, True, mbytes, R,
-                               W, int(off[j]), LBp, LA, rec, rng, fl)
+                               W, int(off[j]), LBp, LA, rec, rng, fl, gab)
         corners.append(c)
         scores.append(s)
     return corners, scores, rec, off, na, nb, LB, mbytes
@@ -642,34 +658,47 @@ def test_tile_model_equals_dp_fill(R, kind, scoring, rounds, layout):
                         R + len(kind))
 
 
-def assert_model_launch(sc, A, B, out, sw, R, W, ragged, seed):
+def assert_model_launch(sc, A, B, out, sw, R, W, ragged, seed, gab=False):
     """:func:`model_launch` of the pairs A, B under ``sc`` against the JAX
     package's fill ``out`` of them (``dp.fill_batch``), tolerance 0: every
-    valid cell written once and nothing else, its code and SW M, the SW
+    valid cell written once and nothing else, its code and SW M (with
+    ``gab`` M, Ga and Gb, NW too, against ``emit_gab``'s planes), the SW
     best and the NW corner; unchecked step blocks ran where a pair has
     room for them."""
     layout = "ragged" if ragged else "uniform"
     corners, scores, rec, off, na, nb, LB, mbytes = model_launch(
-        sc, A, B, sw, R, W, ragged, seed)
+        sc, A, B, sw, R, W, ragged, seed, gab)
     dirs = np.asarray(out.dirs)
-    mm = np.asarray(out.mmat) if sw else None
+    mm = np.asarray(out.mmat) if sw or gab else None
+    planes = ([mm, np.asarray(out.gamat), np.asarray(out.gbmat)] if gab
+              else [mm])
+    def equal(got, want):  # assert_array_equal, at np.array_equal's cost
+        if not np.array_equal(got, want):
+            np.testing.assert_array_equal(got, want)
+
     for j in range(len(A)):
         lanes = max(int(nb[j]), 1) + 1 if layout == "ragged" else LB + 1
         plane = slice(int(off[j]), int(off[j + 1]))
         shape = (-1, lanes)
         codes = rec.codes[plane].reshape(shape)
         writes = rec.writes[plane].reshape(shape)
-        d = np.arange(codes.shape[0])[:, None]
+        rows = codes.shape[0]
+        d = np.arange(rows)[:, None]
         y = np.arange(lanes)[None, :]
         x = d + 2 - y
         v = (y >= 1) & (y <= nb[j]) & (x >= 1) & (x <= na[j])
         # every valid cell written once, nothing else
-        np.testing.assert_array_equal(writes, v.astype(np.int64))
-        want = dirs[j][d, y] if codes.shape[0] else codes
-        np.testing.assert_array_equal(codes[v], want[v])
+        equal(writes, v.astype(np.int64))
+        # the reference's cells (d, y) of this plane's rows and lanes
+        equal(codes[v], dirs[j][:rows, :lanes][v])
+        for k, want_k in enumerate(planes if sw or gab else []):
+            at_k = slice(plane.start + k * rec.total,
+                         plane.stop + k * rec.total)
+            m = rec.m[at_k].reshape(shape)
+            equal(m[v], want_k[j][:rows, :lanes][v])
+            if gab:
+                equal(rec.mwrites[at_k].reshape(shape), v.astype(np.int64))
         if sw:
-            m = rec.m[plane].reshape(shape)
-            np.testing.assert_array_equal(m[v], mm[j][d, y][v])
             assert scores[j] == int(np.asarray(out.best)[j])
         else:
             assert corners[j] == tuple(int(c) for c in
@@ -698,7 +727,8 @@ def test_store_pieces_are_aligned_and_cover_the_run(R, esize):
 
 def test_header_constants_match_the_wrapper():
     for name, v in (("RING", RING), ("LANES", LANES),
-                    ("THREAD_LANES", kernels.TILE_R)):
+                    ("THREAD_LANES", kernels.TILE_R),
+                    ("GAB_LANES", kernels.GAB_R)):
         assert re.search(rf"constexpr int {name} = {v};", HEADER), name
     assert RING >= 2 * K + 2 and LANES % (32 * kernels.TILE_R) == 0
 
