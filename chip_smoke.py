@@ -57,7 +57,14 @@ numpy from a fixed seed:
    for R lanes a thread, empty sides, one pair of 2,100 lanes whose
    strips take two rounds), NW and SW, equality, BLOSUM62, nsg+neg and
    the LCS recipe (the flags' instantiations), uniform and across widths,
-   M int16 and int32;
+   M int16 and int32; and the slices of the carry (rows
+   ``nw_scores_slice``, ``nw_fill_dirs_slice``, ``sw_scores_slice``: the
+   first carry case's 4 pairs split into 3 slices of whole rounds, from a
+   generator of their own) against their plain versions, both through the
+   port's sequence-parallel driver (``wavefront_sp.slice_fill``: every
+   chunk in the wavefront's order, a stream a slice), the corners or
+   bests, the edge rows and the slabs byte for byte, timed over the whole
+   fill;
 2. path ``nw``, NW on DNA: ``NeedlemanWunsch.score_batch`` on 4,096 x 512,
    ``score_pairs_stream`` on 16,384 pairs of 1-10 kb (a quarter of
    BASELINE.json configs[4]), ``align_batch`` on 512 x 256-512 and
@@ -113,7 +120,26 @@ numpy from a fixed seed:
    best equal to the score), and its first 32 pairs (jobs 4 and 5 whole)
    print the same bytes on the card and under ``SEQALIGN_FORCE=host``;
    then ``python -m seqalign_tpu_torch.cli.needleman_wunsch --printscores
-   CAGACGT CGATA`` starts cold on the card and prints score -11.
+   CAGACGT CGATA`` starts cold on the card and prints score -11;
+9. path ``parallel``, the multi-device layer (``seqalign_tpu_torch/
+   parallel/``) on meshes of positions of this card (and of every card
+   where the machine has more), from a generator of its own:
+   ``sharded_score_batch`` and ``sharded_align_batch`` on 1,024 DNA pairs
+   of 1-10 kb (BASELINE.json configs[4]'s lengths), NW and SW scores and
+   NW alignments, and SW alignments (hint-free, as the JAX signature has
+   no hint: the first 8 hits of each stream) on 512 pairs of 256-512 bp
+   (path sw's job 1), equal to the single-device ``score_batch``,
+   ``best_score_batch`` and ``align_batch`` on a mesh of two positions of
+   the card; ``sp_scores`` on 4 pairs of
+   64 kb x 64 kb, NW and SW, on 2 and 4 slices, equal to ``score_batch`` /
+   ``best_score_batch``; ``sp_align_nw`` on one pair of 48 kb x 48 kb on 2
+   and 4 slices, equal to ``align_long``, its slab equal to the unsplit
+   carry kernel's byte for byte; ``distributed_score_file`` and
+   ``distributed_align_file`` (NW) on 256 pairs in two processes over gloo
+   on this card (``tests/_torch_dist_worker.py``), equal to one process's;
+   ``dryrun_multichip(2)`` on two positions of the card; and the two
+   library examples (``seqalign_tpu_torch/examples/``) printing on the card
+   what they print on the CPU.
 
 Each path is held against the plain versions on the card (a sample) and
 against numpy Gotoh recurrences written here, global and local, with
@@ -252,6 +278,14 @@ KERNELS = {
     "nw_walk[ragged]": ("nw_walk", "nw_walk.cu",
                         "seqalign_tpu/ops/traceback.py:515"),
     "sw_walk[ragged]": ("sw_walk", "sw_walk.cu", _SWW),
+    # the sequence-parallel fills: lane slices of the tile carry, phase 1's
+    # 4-pair carry case in 3 slices; their launches are path parallel's
+    "nw_scores_slice": ("nw_scores_slice", "nw_scores.cu",
+                        "seqalign_tpu/parallel/wavefront_sp.py:36"),
+    "sw_scores_slice": ("sw_scores_slice", "sw_scores.cu",
+                        "seqalign_tpu/parallel/wavefront_sp.py:36"),
+    "nw_fill_dirs_slice": ("nw_fill_dirs_slice", "nw_dirs.cu",
+                           "seqalign_tpu/parallel/wavefront_sp.py:171"),
 }
 _NW = ("nw_scores", "nw_fill_dirs", "nw_walk")
 _SW = ("sw_scores", "sw_fill_dirs", "sw_walk", "sw_hits")
@@ -261,7 +295,9 @@ PATHS = {"nw": _NW, "nw_table": _NW, "sw": _SW, "sw_table": _SW,
                   "sw_walk", "sw_hits"),
          "cli": ("nw_fill_dirs", "nw_walk", "sw_fill_dirs", "sw_hits",
                  "sw_walk", "nw_fill_gab", "sw_fill_gab"),
-         "vpu": ("vpu_chain",)}
+         "vpu": ("vpu_chain",),
+         "parallel": _NW + _SW + ("nw_fill_dirs_carry", "nw_scores_slice",
+                                  "sw_scores_slice", "nw_fill_dirs_slice")}
 # the recurrence modes: name -> ScoringConfig flags ("gap_open>0" is a mode
 # of the penalties); every mode gets a row per fill kernel,
 # "<kernel>[<mode>]", and the walks rows under neg and the LCS recipe
@@ -1280,6 +1316,7 @@ def phase1(scs, rng, dev):
     wide = wide_modes_vs_plain(dev, rng)
     e, sample = carry_vs_plain(dev, rng, times, bounds)
     merge(err, e)
+    merge(err, slices_vs_plain(dev, times, bounds))
     merge(err, ragged_vs_buckets(nw_sc, params["nw"], rng, dev, times,
                                  bounds))
     merge(err, sw_ragged_vs_buckets(sw_sc, params["sw"], dev, times,
@@ -1304,7 +1341,11 @@ def phase1(scs, rng, dev):
                  f"{RAGGED_PAIRS} pairs of 1-10 kb (plain: 8 pairs of "
                  f"0-300 bp)" if "[ragged]" in k else
                  "one pair of {} x {}".format(*GAB_PAIRS[k[-5:-1]])
-                 if k.endswith(("[dump]", "[wide]")) else "B=256 L=512")
+                 if k.endswith(("[dump]", "[wide]")) else
+                 f"4 pairs in chunks of {CARRY_CA}, {SLICE_SLICES} slices, "
+                 f"every chunk" + (" (plain: the codes slices')" if k ==
+                                   "nw_scores_slice" else "")
+                 if k in SLICE_ROWS else "B=256 L=512")
         pace = (f"; longest walk {WALK_STEPS[k]} steps, "
                 f"{1e6 * t / max(WALK_STEPS[k], 1):.1f} ns a step"
                 if k in WALK_STEPS else "")
@@ -1801,7 +1842,8 @@ class PlainGuard:
              "sw_scores_plain", "sw_fill_dirs_plain", "sw_walk_plain",
              "sw_hits_plain", "nw_fill_dirs_carry_plain",
              "sw_fill_dirs_carry_plain", "nw_fill_gab_plain",
-             "sw_fill_gab_plain")
+             "sw_fill_gab_plain", "nw_scores_slice_plain",
+             "sw_scores_slice_plain", "nw_fill_dirs_slice_plain")
 
     def __enter__(self):
         from seqalign_tpu_torch.ops import kernels
@@ -3867,6 +3909,332 @@ def chunk_ab(rng, gpu):
         aligners.LONG_CHUNK = saved
 
 
+# the sequence-parallel fills' rows (S1, S2: lane slices of the tile carry,
+# csrc/tile_carry.cuh SLICE, in place of the JAX package's shard_map scans)
+SLICE_ROWS = ("nw_scores_slice", "sw_scores_slice", "nw_fill_dirs_slice")
+# phase 1's slice rows: the first carry case (4 pairs of 5,000-6,144 x
+# 1,500-2,048 at 2,048 lanes, chunks of CARRY_CA) split into 3 slices (of
+# 1, 1 and 2 rounds at 4 warps: the middle one reads an edge row and
+# writes one), from a generator of their own so that no later path's
+# inputs move
+SLICE_SLICES = 3
+# path parallel: the engine on BASELINE.json configs[4]'s lengths, the
+# sequence-parallel scores on 4 pairs of 64 kb and the alignment of one
+# pair of 48 kb (long job 6's size), each on 2 and 4 slices of one card;
+# the two-process files on 256 pairs
+PAR_PAIRS = 1024
+PAR_SP = (4, 65_536)
+PAR_SP_ALIGN = GIANT
+PAR_SLICES = (2, 4)
+PAR_FILE_PAIRS = 256
+PAR_HITS = 8
+# path parallel's sharded SW streams: hint-free, on path sw's job 1 shape
+PAR_SW_ALIGN = (512, 256, 512)
+
+
+def slices_vs_plain(dev, times, bounds):
+    """The three slice kernels (rows ``nw_scores_slice``,
+    ``sw_scores_slice``, ``nw_fill_dirs_slice``) against their plain
+    versions on phase 1's 4-pair carry case split into SLICE_SLICES slices
+    of whole rounds (a middle slice reads an edge row and writes one),
+    both through the port's driver (``wavefront_sp.slice_fill``: every
+    chunk in the wavefront's order, a stream a slice): the corners or
+    bests, every edge row, and the slabs byte for byte (both zeroed); one
+    plain run a family (the codes slices' holds ``nw_scores_slice`` too);
+    the kernels timed by CUDA events over the whole fill, the plain
+    versions by the check's run."""
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops.pack import pack_batch
+    from seqalign_tpu_torch.parallel import wavefront_sp as wsp
+    from seqalign_tpu_torch.parallel.engine import Mesh
+
+    rng = np.random.default_rng(SEED + 14)
+    _, ra, rb, _, n = CARRY_CASES[0]
+    A, B = seqs(rng, n, *ra), seqs(rng, n, *rb)
+    err, plain = {}, {}
+    # one plain fill a family: the codes slices' run holds nw_scores_slice
+    # too (the same corners and edge rows)
+    for what in ("nw_fill_dirs_slice", "sw_scores_slice", "nw_scores_slice"):
+        t0 = time.perf_counter()
+        sw, dirs = what.startswith("sw"), what == "nw_fill_dirs_slice"
+        sc = (port.presets.scoring_system_sw_default() if sw
+              else port.presets.scoring_system_default())
+        la, lb = max(map(len, A)), max(map(len, B))
+        ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc), A, B, la, lb)
+        devices, lanes, warps = wsp.slice_plan(
+            Mesh([dev] * SLICE_SLICES, "seq"), "seq", n, lb)
+        if len(lanes) != SLICE_SLICES:
+            raise AssertionError(f"{what}: {lanes} is not {SLICE_SLICES} "
+                                 f"slices")
+
+        def run(plain_=False):
+            return wsp.slice_fill(sc, (ac, bc, na, nb), bp, devices, lanes,
+                                  warps, CARRY_CA, is_sw=sw,
+                                  dirs=dirs,
+                                  plain=plain_)
+
+        got = run()
+        if what == "nw_scores_slice":
+            want, t_p = plain["nw_fill_dirs_slice"]
+        else:
+            want, t_p = plain[what] = timed_plain(lambda: run(True))
+        e = max(int(np.abs(got[0].astype(np.int64) - want[0]).max()),
+                max_abs(*((got[2][k], want[2][k]) for k in want[2])))
+        if dirs:
+            e = max(e, 0 if torch.equal(got[1], want[1]) else max_abs(
+                (got[1], want[1])))
+        err[what] = e
+        times[what] = (cuda_ms(run, 3), t_p)
+        nch = -(-la // CARRY_CA)
+        bounds[what] = fill_bound(
+            na, nb, sw, dirs,
+            extra_bytes=24 * n * nch * (lb + 1 + (len(lanes) - 1)
+                                        * (CARRY_CA + 1)))
+        log(f"phase 1: {what} vs plain, {n} pairs of {ra[0]}-{ra[1]} x "
+            f"{rb[0]}-{rb[1]} in chunks of {CARRY_CA}, slices {lanes} "
+            f"({warps} warps a block): max |diff| {e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def same_alignments(got, want, what):
+    key = [(a.result_a, a.result_b, a.score) for a in got]
+    if key != [(a.result_a, a.result_b, a.score) for a in want]:
+        raise AssertionError(f"path parallel: {what}: alignments differ")
+
+
+def first_hits(streams, k):
+    """The first ``k`` hits of each stream."""
+    return [[(h.result_a, h.result_b, h.score, h.pos_a, h.pos_b)
+             for h in itertools.islice(it, k)] for it in streams]
+
+
+def par_job(label, fn, gpu):
+    """One job of path parallel: its result and wall, printed."""
+    out, secs = timed(fn)
+    log(f"parallel: {label}: {secs:.4f} s [{gpu}]")
+    return out
+
+
+def phase_parallel(dev, gpu):
+    """Path parallel: the multi-device layer through its entry points on
+    meshes of positions of this card (and of every card, where the machine
+    has more), from a generator of its own; each check exact (see the
+    module docstring).  Returns the path's launch counts."""
+    import tempfile
+
+    import seqalign_tpu_torch as port
+    from seqalign_tpu_torch.parallel import distributed, dryrun, engine
+    from seqalign_tpu_torch.parallel import wavefront_sp as wsp
+
+    rng = np.random.default_rng(SEED + 15)
+    nw = port.NeedlemanWunsch(device=dev)
+    sw = port.SmithWaterman(device=dev)
+    meshes = [engine.Mesh([dev] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(engine.make_mesh())
+    with tempfile.TemporaryDirectory(prefix="par-") as work:
+        # the two-process files and the examples start first, in processes
+        # of their own, and run beside the jobs below
+        fa = write_fasta(os.path.join(work, "pairs.fa"),
+                         dna(rng, PAR_FILE_PAIRS, *CLI_KB),
+                         dna(rng, PAR_FILE_PAIRS, *CLI_KB))
+        root = os.path.dirname(os.path.abspath(__file__))
+        worker = os.path.join(root, "tests", "_torch_dist_worker.py")
+        procs = {}
+        for mode in ("scores", "align"):
+            port_no = free_port()
+            for pid in range(2):
+                env = dict(os.environ, SEQALIGN_NUM_PROCS="2",
+                           SEQALIGN_PROC_ID=str(pid),
+                           SEQALIGN_COORDINATOR=f"127.0.0.1:{port_no}")
+                procs[mode, pid] = subprocess.Popen(
+                    [sys.executable, worker, fa, "--batch", "64"]
+                    + (["--align"] if mode == "align" else []),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+                    cwd=root)
+        for name in ("nw", "sw"):
+            for where in ("cuda", "cpu"):
+                procs[name, where] = subprocess.Popen(
+                    [sys.executable, os.path.join(
+                        root, "seqalign_tpu_torch", "examples",
+                        f"{name}_example.py")],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    env=dict(os.environ, SEQALIGN_DEVICE=where), cwd=root)
+        try:
+            # the engine: 1,024 pairs of 1-10 kb, NW and SW
+            A, B = dna(rng, PAR_PAIRS, *CLI_KB), dna(rng, PAR_PAIRS, *CLI_KB)
+            one = f"{PAR_PAIRS} pairs of 1-10 kb on one device"
+            nw_s = par_job(f"score_batch, {one}", lambda: nw.score_batch(A, B),
+                           gpu)
+            sw_s = par_job(f"best_score_batch, {one}",
+                           lambda: sw.best_score_batch(A, B), gpu)
+            nw_a = par_job(f"align_batch NW, {one}",
+                           lambda: nw.align_batch(A, B), gpu)
+            # SW streams hint-free, on pairs whose every positive cell the
+            # harvest can hold
+            n_sw, lo_sw, hi_sw = PAR_SW_ALIGN
+            sa, sb = dna(rng, n_sw, lo_sw, hi_sw), dna(rng, n_sw, lo_sw, hi_sw)
+            sw_one = f"{n_sw} pairs of {lo_sw}-{hi_sw} bp"
+            sw_h = par_job(f"align_batch SW, no hint, first {PAR_HITS} hits, "
+                           f"{sw_one} on one device", lambda: first_hits(
+                               sw.align_batch(sa, sb), PAR_HITS), gpu)
+            for mesh in meshes:
+                tag = f"{PAR_PAIRS} pairs of 1-10 kb on {mesh}"
+                got = par_job(f"sharded_score_batch NW, {tag}",
+                              lambda: engine.sharded_score_batch(
+                                  nw.scoring, A, B, is_sw=False, mesh=mesh),
+                              gpu)
+                if not np.array_equal(got, nw_s):
+                    raise AssertionError(f"path parallel: sharded NW scores "
+                                         f"on {mesh} != score_batch")
+                got = par_job(f"sharded_score_batch SW, {tag}",
+                              lambda: engine.sharded_score_batch(
+                                  sw.scoring, A, B, is_sw=True, mesh=mesh),
+                              gpu)
+                if not np.array_equal(got, sw_s):
+                    raise AssertionError(f"path parallel: sharded SW scores "
+                                         f"on {mesh} != best_score_batch")
+                same_alignments(par_job(
+                    f"sharded_align_batch NW, {tag}",
+                    lambda: engine.sharded_align_batch(
+                        nw.scoring, A, B, is_sw=False, mesh=mesh), gpu),
+                    nw_a, f"sharded NW on {mesh}")
+                got = par_job(
+                    f"sharded_align_batch SW, no hint, first {PAR_HITS} "
+                    f"hits, {sw_one} on {mesh}",
+                    lambda: first_hits(engine.sharded_align_batch(
+                        sw.scoring, sa, sb, is_sw=True, mesh=mesh),
+                        PAR_HITS), gpu)
+                if got != sw_h:
+                    raise AssertionError(f"path parallel: sharded SW hits on "
+                                         f"{mesh} != align_batch's")
+            # sequence parallel scores: 4 pairs of 64 kb x 64 kb
+            n, L = PAR_SP
+            A, B = dna(rng, n, L, L), dna(rng, n, L, L)
+            want = {False: par_job(f"score_batch, {n} pairs of {L} x {L}",
+                                   lambda: nw.score_batch(A, B), gpu),
+                    True: par_job(f"best_score_batch, {n} pairs of {L} x {L}",
+                                  lambda: sw.best_score_batch(A, B), gpu)}
+            for ns in PAR_SLICES:
+                mesh = engine.Mesh([dev] * ns, "seq")
+                for is_sw, sc in ((False, nw.scoring), (True, sw.scoring)):
+                    got = par_job(
+                        f"sp_scores {'SW' if is_sw else 'NW'}, {n} pairs of "
+                        f"{L} x {L}, {ns} slices",
+                        lambda: wsp.sp_scores(sc, A, B, mesh, is_sw=is_sw),
+                        gpu)
+                    if not np.array_equal(got, want[is_sw]):
+                        raise AssertionError(
+                            f"path parallel: sp_scores on {ns} slices "
+                            f"{got} != {want[is_sw]}")
+            # sequence parallel alignment: one pair of 48 kb x 48 kb
+            a, b = dna(rng, 1, PAR_SP_ALIGN, PAR_SP_ALIGN)[0], dna(
+                rng, 1, PAR_SP_ALIGN, PAR_SP_ALIGN)[0]
+            want = par_job(f"align_long, one pair of {len(a)} x {len(b)}",
+                           lambda: nw.align_long(a, b, chunk=LONG_CHUNK_SP),
+                           gpu)
+            unsplit = unsplit_slab(nw.scoring, a, b, dev)
+            for ns in PAR_SLICES:
+                mesh = engine.Mesh([dev] * ns, "seq")
+                got = par_job(f"sp_align_nw, one pair of {len(a)} x {len(b)}, "
+                              f"{ns} slices",
+                              lambda: wsp.sp_align_nw(nw.scoring, a, b, mesh,
+                                                      chunk=LONG_CHUNK_SP),
+                              gpu)
+                same_alignments([got], [want], f"sp_align_nw on {ns} slices")
+                (slab, _, _, _), _ = wsp._sp_nw_fill(nw.scoring, a, b, mesh,
+                                                     "seq", LONG_CHUNK_SP)
+                if not torch.equal(slab, unsplit):
+                    raise AssertionError(f"path parallel: the slab of {ns} "
+                                         f"slices differs from the unsplit "
+                                         f"carry's")
+                del slab
+            log(f"parallel: the slabs of {PAR_SLICES} slices equal the "
+                f"unsplit carry's byte for byte ({unsplit.numel()} bytes)")
+            del unsplit
+            torch.cuda.empty_cache()
+            # the dry run on two positions of this card
+            par_job("dryrun_multichip(2)", lambda: dryrun.dryrun_multichip(
+                2, engine.Mesh([dev] * 2)), gpu)
+            # one process's files
+            one = {"scores": par_job(
+                f"distributed_score_file, one process, {PAR_FILE_PAIRS} "
+                f"pairs", lambda: distributed.distributed_score_file(
+                    nw.scoring, fa, is_sw=False, batch=64), gpu).tolist(),
+                "align": [[r.result_a, r.result_b, r.score] for r in par_job(
+                    f"distributed_align_file, one process, {PAR_FILE_PAIRS} "
+                    f"pairs", lambda: distributed.distributed_align_file(
+                        nw.scoring, fa, is_sw=False, batch=64), gpu)]}
+            outs = {}
+            for key, p in procs.items():
+                out, err = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"path parallel: {key} exited "
+                                         f"{p.returncode}: {err[-2000:]}")
+                outs[key] = out.decode()
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for mode in ("scores", "align"):
+        for pid in range(2):
+            o = json.loads(outs[mode, pid].strip().splitlines()[-1])
+            got = o["scores"] if mode == "scores" else o["alns"]
+            if not o["multi"] or got != one[mode]:
+                raise AssertionError(f"path parallel: process {pid} of two "
+                                     f"({mode}) differs from one process")
+    log(f"parallel: two processes over gloo on this card: scores and "
+        f"alignments of {PAR_FILE_PAIRS} pairs equal one process's")
+    for name in ("nw", "sw"):
+        if not outs[name, "cuda"] or outs[name, "cuda"] != outs[name, "cpu"]:
+            raise AssertionError(f"path parallel: {name}_example on the card "
+                                 f"prints other lines than on the CPU")
+    log("parallel: nw_example and sw_example print the same on the card as "
+        "on the CPU")
+
+
+# path parallel's chunk width for the 48 kb pair: the long path's
+LONG_CHUNK_SP = 16_384
+
+
+def unsplit_slab(sc, a, b, dev):
+    """The codes of one pair by the unsplit carry kernel, chunk by chunk in
+    chunks of ``LONG_CHUNK_SP``, in zeroed slabs (1, nch, CA+LB-1, LB+1)."""
+    from seqalign_tpu_torch import kernel_params
+    from seqalign_tpu_torch.ops import kernels
+    from seqalign_tpu_torch.ops.dp import boundary_column
+    from seqalign_tpu_torch.ops.pack import pack_batch
+
+    ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), [a], [b],
+                                    len(a), len(b))
+    t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+    ca = min(LONG_CHUNK_SP, -(-len(a) // 8) * 8)
+    nch = -(-len(a) // ca)
+    slabs = torch.zeros((1, nch, ca + len(b) - 1, len(b) + 1),
+                        dtype=torch.uint8, device=dev)
+    bin = boundary_column(bp, 1, len(b), is_sw=False)
+    bout = torch.empty_like(bin)
+    corner = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+    for c in range(nch):
+        kernels.nw_fill_dirs_carry(*t, bp, c * ca, bin, bout, slabs[:, c],
+                                   corner)
+        bin, bout = bout, bin
+    return slabs
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def launched(counts, k) -> int:
     """Launches of kernel ``k`` in ``counts``: its own and those across
     widths, which count under ``<k>[ragged]``."""
@@ -4247,6 +4615,13 @@ def main() -> int:
     launches["cli"] = phase_cli(rng, dev, gpu)
     counted("cli", launches["cli"])
     log(f"path cli done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    port.reset_kernel_launch_counts()
+    with PlainGuard():
+        phase_parallel(dev, gpu)
+    launches["parallel"] = port.kernel_launch_counts()
+    counted("parallel", launches["parallel"])
+    log(f"path parallel done in {time.perf_counter() - t0:.1f} s")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu"))
     if loaded:
@@ -4259,6 +4634,8 @@ def main() -> int:
         mode = name.partition("[")[2].rstrip("]")
         if name.startswith("vpu_chain"):
             n = vpu_launches[name][counter]
+        elif name in SLICE_ROWS:
+            n = launches["parallel"][counter]
         elif counter in ("nw_fill_gab", "sw_fill_gab"):
             n = launches["cli"][counter]
         elif mode.startswith("carry,nsg+neg"):  # long job 2

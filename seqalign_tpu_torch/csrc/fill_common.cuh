@@ -60,6 +60,19 @@ struct Carry {
   long long mstride;
 };
 
+// A slice of a carry launch (tile_carry.cuh, SLICE): the rounds r_lo ..
+// r_hi-1 of every pair's lanes, one block each.  ein: the edge row that
+// enters round r_lo (the last lane of round r_lo - 1, by local column 0 ..
+// CA), complete before the launch; eout: the edge row of round r_hi - 1,
+// written for the pairs with lanes past it; (B, 3, CA+1) int32 each, null
+// for the first and the last slice.
+struct Slice {
+  const int* ein;
+  int* eout;
+  int r_lo;
+  int r_hi;
+};
+
 }  // namespace fill
 
 // The fill entry points share one C signature (ops/build.py):
@@ -97,3 +110,21 @@ struct Carry {
 #define CARRY_ARGS                                                           \
   fill::Carry { static_cast<const int*>(bin), static_cast<int*>(bout),      \
                 x_off, CA, dstride, mstride }
+
+// The slice entry points (a run of rounds of a carry launch, the
+// sequence-parallel fills) add to a carry entry's arguments: the edge rows
+// in and out and the rounds r_lo .. r_hi-1 (ops/build.py).
+#define SLICE_ENTRY(name)                                                    \
+  extern "C" int name(const void* ac, const void* bc, const void* na,       \
+                      const void* nb, const void* scal, const void* sub,     \
+                      const void* im, int modes, int Kb, int sub_n,          \
+                      int table_smem, int B, int LA, int LB, void* scores,   \
+                      void* corner, void* dirs, void* mout, int m16,         \
+                      void* scratch, void* stream, const void* bin,          \
+                      void* bout, int x_off, int CA, long long dstride,      \
+                      long long mstride, int warps, const void* ein,         \
+                      void* eout, int r_lo, int r_hi)
+
+#define SLICE_ARGS                                                           \
+  fill::Slice { static_cast<const int*>(ein), static_cast<int*>(eout),      \
+                r_lo, r_hi }

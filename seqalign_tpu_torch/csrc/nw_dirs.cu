@@ -29,6 +29,13 @@
 // dp_fill, a lax.scan): on the same tiles, tile_fill.cuh's GAB
 // instantiations, M, Ga and Gb as int32 into three skewed planes beside
 // the codes, 13 bytes a cell, which bound it (bytes).
+//
+// nw_dirs_slice_launch is one chunk of a slice of one long pair's lanes
+// (replaces seqalign_tpu/parallel/wavefront_sp.py:_sp_chunk_dirs, the
+// per-device codes fill under shard_map): tile_carry.cuh's SLICE
+// instantiations with codes, written at slab.cuh's rule into the chunk's
+// slab at the slice's lanes, so that nw_walk reads the slices' parts as one
+// slab.
 
 #include "fill_common.cuh"
 #include "tile_carry.cuh"
@@ -42,6 +49,11 @@ FILL_ENTRY(nw_dirs_launch) {
 CARRY_ENTRY(nw_dirs_carry_launch) {
   mout = nullptr;
   return tile::carry_modes<false, 0>(TILE_CARRY_ARGS);
+}
+
+SLICE_ENTRY(nw_dirs_slice_launch) {
+  mout = nullptr;
+  return tile::slice<false, true>(TILE_SLICE_ARGS);
 }
 
 FILL_ENTRY(nw_dirs_gab_launch) {

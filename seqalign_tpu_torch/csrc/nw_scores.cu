@@ -16,13 +16,27 @@
 //
 // Bound on the card: integer issue, the cells' int32 instructions (a
 // scores cell is 10 on the default flags); no memory traffic to speak of.
+//
+// nw_scores_slice_launch is one chunk of a slice of a batch's lanes, the
+// scores alone (replaces the per-device fill of seqalign_tpu/parallel/
+// wavefront_sp.py:_local_fill under shard_map, which passes one lane to
+// the next device each diagonal): tile_carry.cuh's scores-only SLICE
+// instantiations, the boundary column through bin / bout, the edge row of
+// the slice before in and the slice's own out, the corner written by the
+// slice that holds lane nb in the chunk that holds na.
 
 #include "fill_common.cuh"
+#include "tile_carry.cuh"
 #include "tile_fill.cuh"
 
 FILL_ENTRY(nw_scores_launch) {
   dirs = mout = nullptr;
   return tile::launch_modes<false, false, 0>(TILE_ARGS);
+}
+
+SLICE_ENTRY(nw_scores_slice_launch) {
+  dirs = mout = nullptr;
+  return tile::slice<false, false>(TILE_SLICE_ARGS);
 }
 
 extern "C" const char* nw_error_string(int code) {

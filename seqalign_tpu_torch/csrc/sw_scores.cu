@@ -15,11 +15,23 @@
 //
 // Bound on the card: as nw_scores.cu, the integer ops per cell; the
 // reduction is one shuffle tree per warp at the end.
+//
+// sw_scores_slice_launch is one chunk of a slice of a batch's lanes (the SW
+// half of seqalign_tpu/parallel/wavefront_sp.py:_local_fill):
+// tile_carry.cuh's scores-only SLICE instantiations, each slice raising
+// its own best by atomicMax; the host takes the max over the slices, where
+// the JAX package takes a pmax.
 
 #include "fill_common.cuh"
+#include "tile_carry.cuh"
 #include "tile_fill.cuh"
 
 FILL_ENTRY(sw_scores_launch) {
   corner = dirs = mout = nullptr;
   return tile::launch_modes<false, true, 0>(TILE_ARGS);
+}
+
+SLICE_ENTRY(sw_scores_slice_launch) {
+  corner = dirs = mout = nullptr;
+  return tile::slice<true, false>(TILE_SLICE_ARGS);
 }

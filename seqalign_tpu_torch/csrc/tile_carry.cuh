@@ -52,6 +52,24 @@
 // of any size.  The wrapper zeroes the counter and the progress words before
 // each launch (cudaMemsetAsync here); rows are never reused within one.
 //
+// Slices (SLICE, the sequence-parallel fills of parallel/wavefront_sp.py):
+// a launch of the rounds r_lo .. r_hi-1 only (fill::Slice), the lanes
+// y_lo+1 .. y_hi of every pair with y_lo = r_lo * W * S, so that each
+// slice of one pair's lanes runs on a device of its own.  The edge between
+// two slices is the edge between two rounds: round r_lo's warp 0 reads the
+// row of round r_lo - 1's last lane from ein, which a launch before this
+// one wrote (the previous slice's, behind the host's event and copy), so
+// it is complete and no word is waited on; round r_hi - 1's last warp
+// writes its row to eout for a pair with lanes past the slice, and
+// publishes no word.  Rounds inside the slice hand over through the
+// launch's own rows and words, as the carry's do.  Only global round 0
+// (the first slice) takes the corners of empty sides; the NW corner is
+// written by the slice that holds lane nb, and SW raises each slice's best.
+// Replaces the per-diagonal ppermute halo of seqalign_tpu/parallel/
+// wavefront_sp.py:_local_fill and :_sp_chunk_dirs with a row a chunk.  DIRS
+// false: the scores-only carry, no codes and no M (nw_scores.cu,
+// sw_scores.cu); DIRS true: the codes at slab.cuh's rule (nw_dirs.cu).
+//
 // What bounds it on an H100: as the tiles, integer issue with the code
 // stores second; a pair's chunk is a wavefront of width + nb diagonals whose
 // strips start R+1 macro steps apart, so a round waits about W*(R+1) macro
@@ -122,9 +140,12 @@ static __device__ __noinline__ int wait_for(const int* p, int need) {
 }
 
 // scal, sub, im, modes, scores, corner, dirs, mout as tile_fill_kernel's;
-// the chunk in cr; the rounds' rows, words and counter in rd.  im and
-// modes are read under MODES only, and come last, as there.
-template <bool SW, bool TABLE, int MBYTES, int R, bool MODES = false>
+// the chunk in cr; the rounds' rows, words and counter in rd (rd.rounds
+// the launch's rounds, those of a slice under SLICE); the slice in sl.  im
+// and modes are read under MODES only, and come last, as there, and sl
+// under SLICE only, after them.
+template <bool SW, bool TABLE, int MBYTES, int R, bool MODES = false,
+          bool SLICE = false, bool DIRS = true>
 __global__ void __launch_bounds__(32 * BLOCK_WARPS)
     tile_carry_kernel(const uint8_t* __restrict__ ac,
                       const uint8_t* __restrict__ bc,
@@ -136,8 +157,8 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
                       int* __restrict__ scores, int* __restrict__ corner,
                       uint8_t* __restrict__ dirs, void* __restrict__ mout,
                       Rounds rd, fill::Carry cr, const int* __restrict__ im,
-                      int modes) {
-  using T = Tile<true, SW, TABLE, MBYTES, R, true, MODES>;
+                      int modes, fill::Slice sl) {
+  using T = Tile<DIRS, SW, TABLE, MBYTES, R, true, MODES>;
   constexpr int S = T::S;
   extern __shared__ int smem[];
   __shared__ int ticket;
@@ -146,7 +167,13 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
   const int nrows = B * (rd.rounds - 1);
   if (threadIdx.x == 0) ticket = atomicAdd(rd.words + nrows * WORD, 1);
   __syncthreads();
-  const int j = ticket % B, r = ticket / B;
+  // rl: the round within the launch; r: the pair's round
+  const int j = ticket % B, rl = ticket / B;
+  const int r = SLICE ? sl.r_lo + rl : rl;
+  // a slice's first round past round 0 reads the edge row in, its last
+  // round writes the edge row out
+  const bool ein = SLICE && rl == 0 && r > 0;
+  const bool eout = SLICE && rl == rd.rounds - 1;
   T tl;
   int m1[R], a1[R], b1[R], m2[R], a2[R], b2[R], h[R], bcd[R];
   tl.lane = threadIdx.x & 31;
@@ -172,7 +199,7 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
   tl.a = ac + static_cast<size_t>(j) * LA + xo;
   tl.b = bc + static_cast<size_t>(j) * LB;
   tl.kmul = TABLE ? Kb : 1;
-  tl.dj = dirs + j * static_cast<size_t>(cr.dstride);
+  tl.dj = DIRS ? dirs + j * static_cast<size_t>(cr.dstride) : nullptr;
   tl.mj = MBYTES ? static_cast<typename T::MT*>(mout) +
                        j * static_cast<size_t>(cr.mstride)
                  : nullptr;
@@ -226,9 +253,12 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
   const int ndur = (steps + K - 1) / K;
   const int Ttot = (Wj - 1) * (R + 1) + ndur;
   const int cols = cr.CA + 1;
-  const size_t in = static_cast<size_t>(r - 1) * B + j;  // r > 0
-  const size_t out = static_cast<size_t>(r) * B + j;
-  const bool producer = warp == Wj - 1 && s < nstrips - 1;
+  const size_t in = static_cast<size_t>(rl - 1) * B + j;  // rl > 0
+  const size_t out = static_cast<size_t>(rl) * B + j;
+  // the last warp hands its strip's last lane on when lanes follow it (a
+  // slice's last round only where it has an edge row out)
+  const bool producer =
+      warp == Wj - 1 && s < nstrips - 1 && !(eout && !sl.eout);
   // a block of R steps runs unchecked only where every cell is valid, and
   // left of the column that goes out; under MODES, also off the flags'
   // columns, global x == 1 and the pair's last, cx (past wa where the
@@ -239,7 +269,7 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
   for (int t = 0; t < Ttot; ++t) {
     const int q = t - warp * (R + 1);
     if (q >= 0 && q < ndur) {
-      if (warp == 0 && r > 0) {  // columns up to (q+1) K, by fetch(i + 1)
+      if (warp == 0 && rl > 0) {  // columns up to (q+1) K, by fetch(i + 1)
         const int need = min((q + 1) * K, wa) + 1;
         if (need > seen) seen = wait_for(rd.words + in * WORD, need);
       }
@@ -252,8 +282,9 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
           tl.sstride = RING;
           tl.smask = RING - 1;
           tl.smax = 0x7fffffff;
-        } else {  // row 0, or the round row of the block before
-          tl.src = r > 0 ? rd.rows + in * 3 * cols : nullptr;
+        } else {  // row 0, the round row of the block before, or the edge in
+          tl.src = ein ? sl.ein + static_cast<size_t>(j) * 3 * cols
+                       : (rl > 0 ? rd.rows + in * 3 * cols : nullptr);
           tl.sstride = cols;
           tl.smask = -1;
           tl.smax = wa;
@@ -267,7 +298,8 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
           tl.dlo = -0x7fffffff;
           tl.dhi = 0x7fffffff;
         } else {
-          tl.dst = rd.rows + out * 3 * cols;
+          tl.dst = eout ? sl.eout + static_cast<size_t>(j) * 3 * cols
+                        : rd.rows + out * 3 * cols;
           tl.dstride = cols;
           tl.dmask = -1;
           tl.dlo = 0;
@@ -296,7 +328,7 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
                                    corner, scores, j);
         }
       }
-      if (producer && tl.lane == 31) {  // columns 0 .. done-1 are written
+      if (producer && !eout && tl.lane == 31) {  // columns 0 .. done-1
         const int done = min((q + 1) * K - S + 1, wa + 1);
         if (done > 0) {
           __threadfence();
@@ -315,19 +347,26 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS)
 // One carry launch at W warps a block (1 .. BLOCK_WARPS): zeroes the
 // words and the counter of `scratch`, then launches B x rounds blocks.
 // The scratch holds ops/kernels.py:carry_scratch_ints(B, LB, CA, W, R)
-// int32.  MODES for a flag word `modes` != 0, at R = MODES_LANES (`im`
-// read only under NMM with a table).
-template <bool SW, int MBYTES, bool MODES>
+// int32 (under SLICE, for the slice's rounds).  MODES for a flag word
+// `modes` != 0, at R = MODES_LANES (`im` read only under NMM with a
+// table); SLICE for the rounds sl.r_lo .. sl.r_hi-1 alone, DIRS false for
+// the scores-only fill.
+template <bool SW, int MBYTES, bool MODES, bool SLICE = false,
+          bool DIRS = true>
 int carry(const void* ac, const void* bc, const void* na, const void* nb,
           const void* scal, const void* sub, const void* im, int modes,
           int Kb, int sub_n, int table_smem, int B, int LA, int LB,
           void* scores, void* corner, void* dirs, void* mout, void* scratch,
-          void* stream, const fill::Carry& cr, int W) {
+          void* stream, const fill::Carry& cr, int W,
+          const fill::Slice& sl = fill::Slice{}) {
   constexpr int R = MODES ? MODES_LANES : THREAD_LANES;
   constexpr int S = 32 * R;
   if (W < 1 || W > BLOCK_WARPS || cr.CA < 1 || !scratch)
     return cudaErrorInvalidValue;
-  const int rounds = ((max(LB, 1) + S - 1) / S + W - 1) / W;
+  const int all = ((max(LB, 1) + S - 1) / S + W - 1) / W;
+  if (SLICE && (sl.r_lo < 0 || sl.r_hi <= sl.r_lo || sl.r_hi > all))
+    return cudaErrorInvalidValue;
+  const int rounds = SLICE ? sl.r_hi - sl.r_lo : all;
   const int nrows = B * (rounds - 1);
   int* words = static_cast<int*>(scratch);
   const Rounds rd{words, words + static_cast<size_t>(nrows + 1) * WORD,
@@ -355,11 +394,12 @@ int carry(const void* ac, const void* bc, const void* na, const void* nb,
         static_cast<const int*>(scal), static_cast<const int*>(sub), Kb,
         sub_n, table_smem, B, LA, LB, static_cast<int*>(scores),
         static_cast<int*>(corner), static_cast<uint8_t*>(dirs), mout, rd, cr,
-        imp, modes);
+        imp, modes, sl);
     return cudaGetLastError();
   };
-  if (sub) return run(tile_carry_kernel<SW, true, MBYTES, R, MODES>);
-  return run(tile_carry_kernel<SW, false, MBYTES, R, MODES>);
+  if (sub)
+    return run(tile_carry_kernel<SW, true, MBYTES, R, MODES, SLICE, DIRS>);
+  return run(tile_carry_kernel<SW, false, MBYTES, R, MODES, SLICE, DIRS>);
 }
 
 // The default flags (modes == 0) or the flags' instantiations (MODES).
@@ -380,9 +420,27 @@ int carry_modes(const void* ac, const void* bc, const void* na,
                                           scratch, stream, cr, W);
 }
 
+// A slice of the default flags' carry (fill::Slice): the codes (DIRS, NW)
+// or the scores alone; the flags are not taken (the sequence-parallel fills
+// run the default recurrence only).
+template <bool SW, bool DIRS>
+int slice(const void* ac, const void* bc, const void* na, const void* nb,
+          const void* scal, const void* sub, const void* im, int modes,
+          int Kb, int sub_n, int table_smem, int B, int LA, int LB,
+          void* scores, void* corner, void* dirs, void* mout, void* scratch,
+          void* stream, const fill::Carry& cr, int W, const fill::Slice& sl) {
+  if (modes) return cudaErrorInvalidValue;
+  return carry<SW, 0, false, true, DIRS>(ac, bc, na, nb, scal, sub, im,
+                                         modes, Kb, sub_n, table_smem, B, LA,
+                                         LB, scores, corner, dirs, mout,
+                                         scratch, stream, cr, W, sl);
+}
+
 }  // namespace tile
 
-// The two carry entries call tile::carry_modes with these arguments.
+// The two carry entries call tile::carry_modes with these arguments, the
+// slice entries tile::slice with these and the slice.
 #define TILE_CARRY_ARGS                                                    \
   ac, bc, na, nb, scal, sub, im, modes, Kb, sub_n, table_smem, B, LA, LB,  \
       scores, corner, dirs, mout, scratch, stream, CARRY_ARGS, warps
+#define TILE_SLICE_ARGS TILE_CARRY_ARGS, SLICE_ARGS

@@ -40,6 +40,8 @@ _FILL = _COMMON + (_P, _P, _P)
 # then bin, bout, x_off, CA, code and M pair strides, warps a block
 _CARRY = _COMMON + (_P, _P, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
                     _I)
+# then the edge rows in and out and the slice's rounds r_lo, r_hi
+_SLICE = _CARRY + (_P, _P, _I, _I)
 _SIGNATURES = {
     "nw_scores_launch": _FILL,
     "nw_dirs_launch": _FILL,
@@ -49,6 +51,9 @@ _SIGNATURES = {
     "sw_dirs_gab_launch": _FILL,
     "nw_dirs_carry_launch": _CARRY,
     "sw_dirs_carry_launch": _CARRY,
+    "nw_scores_slice_launch": _SLICE,
+    "sw_scores_slice_launch": _SLICE,
+    "nw_dirs_slice_launch": _SLICE,
     # dirs, corner, na, nb, B, nch, Dc, LB+1, cap, ops, score, off, stream
     "nw_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # dirs, ac, bc, scal, sub, Kb, sub_n, na, nb, neg, jw, x0, y0, s0, W,

@@ -49,7 +49,7 @@ from .pack import (DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, NGA, NGB, NMM, NSG,
 
 def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
           emit_dirs: bool = False, m_dtype=None, emit_gab: bool = False,
-          x_off: int = 0, bin=None):
+          x_off: int = 0, bin=None, top=None, edge=None):
     """Returns (dirs, corner, best, mout, bout); dirs/mout are None unless
     asked for (``m_dtype`` set emits M), bout unless chunked.  With
     ``emit_gab`` (unchunked) ``mout`` is instead the (3, B, D, LB+1) int32
@@ -62,7 +62,12 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     carried; ``bout`` is the column x = x_off+LA after the fill (lanes
     y >= 1; lane 0 stays 0), the corner is taken only by the chunk that
     holds x = na (an empty seq_a's by the chunk at x_off = 0), and the
-    last-column rules and the no-gaps guards see global x."""
+    last-column rules and the no-gaps guards see global x.
+
+    A slice (chunked, ``top`` a (B, 3, LA+1) int32 row): lane 0 is not row
+    0 but the lane above the slice, whose M/Ga/Gb by local column 0 .. LA
+    ``top`` holds; ``edge`` = (lane, (B, 3, LA+1) int32 tensor) takes that
+    lane's values by local column 0 .. LA, in place."""
     B, LA = ac.shape
     chunked = bin is not None
     LB = bc.shape[1]
@@ -101,6 +106,11 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         if chunked:
             Mv, Gav, Gbv = (torch.where(atd, bin[:, k], v)
                             for k, v in enumerate((Mv, Gav, Gbv)))
+        if top is not None:  # lane 0 is the slice's edge row in
+            if d > LA:  # a column past the chunk: no valid cell reads it
+                return Mv, Gav, Gbv
+            return tuple(torch.where(at0, top[:, k, d:d + 1], v)
+                         for k, v in enumerate((Mv, Gav, Gbv)))
         if is_sw:
             edge = at0 if chunked else at0 | atd
             return tuple(torch.where(edge, mn, v) for v in (Mv, Gav, Gbv))
@@ -126,7 +136,10 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         vals = torch.cat([v.gather(1, nb_idx) for v in (Mv, Gav, Gbv)], 1)
         return torch.where(hit, vals, corner)
 
-    if chunked and x_off > 0:  # diagonal 0 is the row-0 cell (0, x_off)
+    if top is not None:  # diagonal 0 is the edge row's column 0
+        pm2, pga2, pgb2 = (torch.where(yv == 0, top[:, k, :1], mn)
+                           for k in range(3))
+    elif chunked and x_off > 0:  # diagonal 0 is the row-0 cell (0, x_off)
         run0 = zero if (is_sw or nsg) else gap_open + x_off * gap_extend
         pm2, pga2, pgb2 = (torch.where(yv == 0, v, mn).expand(B, LBp)
                            for v in (mn, mn, run0))
@@ -138,6 +151,8 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     if not is_sw:
         corner = corner_at(0, pm2, pga2, pgb2, corner)
         corner = corner_at(1, pm1, pga1, pgb1, corner)
+    if edge is not None and edge[0] == 1:  # the edge lane's column 0
+        edge[1][:, :, 0] = torch.stack((pm1, pga1, pgb1), 1)[:, :, 1]
     shape = (B, LA + LB - 1, LBp)
     dirs = (torch.empty(shape, dtype=torch.uint8, device=dev)
             if emit_dirs else None)
@@ -235,6 +250,9 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
         if chunked:  # the chunk's last column goes out, but for row 0
             last = ((xv == LA) & (yv >= 1))[:, None, :]
             bout = torch.where(last, torch.stack((Mv, ga_v, gb_v), 1), bout)
+        if edge is not None and 0 <= d - edge[0] <= LA:
+            edge[1][:, :, d - edge[0]] = torch.stack(
+                (Mv[:, edge[0]], ga_v[:, edge[0]], gb_v[:, edge[0]]), 1)
         pm2, pga2, pgb2 = pm1, pga1, pgb1
         pm1, pga1, pgb1 = Mv, ga_v, gb_v
     return dirs, corner, best, mout, bout
@@ -395,6 +413,116 @@ def sw_fill_dirs_carry_plain(ac, bc, na, nb, params: KernelParams,
                         m_dtype=torch.int16 if m16 else torch.int32)
     torch.maximum(best, b, out=best)
     return mout
+
+
+def _slice(ac, bc, na, nb, params, x_off, ca, lanes, bin, bout, edge_in,
+           edge_out, *, is_sw, dirs=None):
+    """One chunk of one slice of the pairs' lanes by the plain fill, its
+    outputs written where the slice kernels write them: the fill of lanes
+    y_lo .. y_hi (``lanes``, y_hi cut to LB) as a chunk whose lane 0 is the
+    lane y_lo, row 0 for the first slice (y_lo = 0), else the edge row
+    ``edge_in`` (B, 3, ca+1).  Writes the valid cells' codes into ``dirs``
+    (B, ca+LB-1, LB+1) at their global lanes and rows (when given), the
+    column x_off+ca of the slice's lanes into ``bout`` for the pairs that
+    reach it, and the lane y_hi by local column 0 .. min(ca, na - x_off)
+    into ``edge_out`` for the pairs with lanes past the slice.  Returns the
+    fill's (corner, best): the corner at the slice's local lane nb - y_lo,
+    defined for the pairs whose lane nb and column na the chunk and slice
+    hold."""
+    LB = bc.shape[1]
+    y_lo, y_hi = int(lanes[0]), min(int(lanes[1]), LB)
+    n = y_hi - y_lo
+    nb_loc = (nb.long() - y_lo).clamp(0, n).to(torch.int32)
+    e = None
+    if edge_out is not None:
+        e = torch.empty_like(edge_out)
+    d, corner, best, _, bo = _fill(
+        _chunk_columns(ac, x_off, ca), bc[:, y_lo:y_hi], na, nb_loc, params,
+        is_sw=is_sw, emit_dirs=dirs is not None, x_off=x_off,
+        bin=bin[:, :, y_lo:y_hi + 1], top=edge_in if y_lo else None,
+        edge=None if e is None else (n, e))
+    na = na.long()
+    wa = (na - x_off).clamp(0, ca)
+    if dirs is not None:  # the valid cells, at their global row and lane
+        r = torch.arange(d.shape[1], device=d.device)[None, :, None]
+        yl = torch.arange(n + 1, device=d.device)[None, None, :]
+        x = r + 2 - yl
+        valid = ((yl >= 1) & (yl <= nb_loc.long()[:, None, None]) & (x >= 1)
+                 & (x <= wa[:, None, None]))
+        j, r, yl = valid.nonzero(as_tuple=True)
+        dirs[j, r + y_lo, yl + y_lo] = d[j, r, yl]
+    full = na >= x_off + ca
+    bout[full, :, y_lo + 1:y_hi + 1] = bo[full, :, 1:n + 1]
+    if e is not None:
+        past = (nb.long() > y_hi) & (wa > 0)
+        col = torch.arange(ca + 1, device=e.device)[None, None, :]
+        keep = past[:, None, None] & (col <= wa[:, None, None])
+        edge_out.copy_(torch.where(keep, e, edge_out))
+    return corner, best
+
+
+def _slice_corner(params, na, nb, x_off, ca, lanes, bin, c, corner):
+    """The NW corners a slice's chunk writes into ``corner``: ``c`` (the
+    fill's, :func:`_slice`) for the pairs whose column na the chunk holds
+    and lane nb the slice holds; the first slice (y_lo = 0) also writes the
+    corners of empty sides, as the carry's round 0 does: an empty seq_a's
+    from ``bin`` at lane nb in the chunk at x_off = 0, an empty seq_b's as
+    the row-0 cell (0, na)."""
+    y_lo, y_hi = int(lanes[0]), int(lanes[1])
+    na, nb = na.long(), nb.long()
+    col = (na > x_off) & (na <= x_off + ca)
+    own = col & (nb > y_lo) & (nb <= y_hi)
+    corner[own] = c[own]
+    if y_lo == 0:
+        _, _, go, ge, mn, _ = params.scal.tolist()
+        empty_b = col & (nb == 0)
+        if empty_b.any():
+            run = (go + na[empty_b] * ge).to(torch.int32)  # wraps as int32
+            corner[empty_b] = torch.stack(
+                (torch.full_like(run, mn), torch.full_like(run, mn), run), 1)
+        if x_off == 0:
+            empty_a = na == 0
+            idx = nb[empty_a].clamp(max=bin.shape[2] - 1)
+            corner[empty_a] = bin[empty_a, :, :].gather(
+                2, idx[:, None, None].expand(-1, 3, 1))[:, :, 0]
+
+
+def nw_fill_dirs_slice_plain(ac, bc, na, nb, params: KernelParams,
+                             x_off: int, lanes, bin, bout, dirs, corner,
+                             edge_in=None, edge_out=None):
+    """One chunk of one slice of a long NW pair's lanes, in place (the
+    slice kernel's contract, S2): as ``nw_fill_dirs_carry_plain`` on the
+    lanes y_lo+1 .. y_hi of ``lanes`` alone, their valid cells' codes into
+    the ``dirs`` slab (B, D_c, LB+1) at slab.cuh's rule, ``bout`` at those
+    lanes; the lane above the slice from ``edge_in`` (B, 3, CA+1) when
+    y_lo > 0, the lane y_hi into ``edge_out`` (B, 3, CA+1) for the pairs
+    with lanes past it (columns 0 .. min(CA, na - x_off)); ``corner`` (B,
+    3) of the pairs whose corner the slice and chunk hold."""
+    ca = dirs.shape[1] - dirs.shape[2] + 2
+    c, _ = _slice(ac, bc, na, nb, params, x_off, ca, lanes, bin, bout,
+                  edge_in, edge_out, is_sw=False, dirs=dirs)
+    _slice_corner(params, na, nb, x_off, ca, lanes, bin, c, corner)
+
+
+def nw_scores_slice_plain(ac, bc, na, nb, params: KernelParams, x_off: int,
+                          ca: int, lanes, bin, bout, corner, edge_in=None,
+                          edge_out=None):
+    """One chunk of ``ca`` columns of one slice of a batch's lanes, NW
+    scores only (S1): ``nw_fill_dirs_slice_plain`` without the codes."""
+    c, _ = _slice(ac, bc, na, nb, params, x_off, ca, lanes, bin, bout,
+                  edge_in, edge_out, is_sw=False)
+    _slice_corner(params, na, nb, x_off, ca, lanes, bin, c, corner)
+
+
+def sw_scores_slice_plain(ac, bc, na, nb, params: KernelParams, x_off: int,
+                          ca: int, lanes, bin, bout, best, edge_in=None,
+                          edge_out=None):
+    """One chunk of one slice of a batch's lanes, SW scores only (S1):
+    ``best`` (B,) int32 raised to the best M of the slice's valid cells in
+    the chunk."""
+    _, b = _slice(ac, bc, na, nb, params, x_off, ca, lanes, bin, bout,
+                  edge_in, edge_out, is_sw=True)
+    torch.maximum(best, b, out=best)
 
 
 def boundary_column(params: KernelParams, B: int, LB: int, *, is_sw: bool,

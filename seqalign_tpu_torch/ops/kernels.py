@@ -8,7 +8,10 @@ fills ``nw_fill_gab`` and ``sw_fill_gab``, the long-pair chunk fills
 ``nw_fill_dirs_carry`` and ``sw_fill_dirs_carry``, the walks ``nw_walk`` and
 ``sw_walk``, the SW hit loop ``sw_hits`` (the walks and the hit loop over a
 code plane, a long pair's chunk slabs, or the planes of one launch across
-widths), and the ALU probe ``vpu_chain``.
+widths), the ALU probe ``vpu_chain``, and the slices of the carry that
+the sequence-parallel fills launch (``nw_scores_slice``,
+``sw_scores_slice``, ``nw_fill_dirs_slice``: a run of a pair's rounds of
+lanes, the edge rows between slices in and out).
 
 The four fills and the matrix dump's run the register tiles of
 csrc/tile_fill.cuh (a warp a strip of 32 * ``TILE_R`` lanes; the dump as
@@ -43,8 +46,10 @@ import torch
 
 from .build import library
 from .dp import (nw_fill_dirs_carry_plain, nw_fill_dirs_plain,
-                 nw_fill_gab_plain, nw_scores_plain, sw_fill_dirs_carry_plain,
-                 sw_fill_dirs_plain, sw_fill_gab_plain, sw_scores_plain)
+                 nw_fill_dirs_slice_plain, nw_fill_gab_plain,
+                 nw_scores_plain, nw_scores_slice_plain,
+                 sw_fill_dirs_carry_plain, sw_fill_dirs_plain,
+                 sw_fill_gab_plain, sw_scores_plain, sw_scores_slice_plain)
 from .pack import NEG, NMM, KernelParams, ragged_planes
 from .traceback import (nw_walk_plain, slab_geometry, sw_hits_plain,
                         sw_walk_plain, walk_cap)
@@ -91,14 +96,35 @@ def carry_warps(B: int, LB: int, sms: int, r: int = TILE_R) -> int:
 
 
 def carry_scratch_ints(B: int, LB: int, ca: int, warps: int,
-                       r: int = TILE_R) -> int:
+                       r: int = TILE_R, rounds: Optional[int] = None) -> int:
     """int32 of a carry launch's scratch (csrc/tile_carry.cuh,
     Rounds): a progress word each ``CARRY_WORD`` int32 for each of the
     B x (rounds - 1) round boundaries and one for the ticket counter, then
     a row of 3 * (ca + 1) int32 for each boundary, at ``r`` lanes a
-    thread."""
-    rows = B * (carry_rounds(LB, warps, r) - 1)
+    thread; ``rounds`` those of a slice launch, else every round of a pair
+    of ``LB`` lanes."""
+    if rounds is None:
+        rounds = carry_rounds(LB, warps, r)
+    rows = B * (rounds - 1)
     return (rows + 1) * CARRY_WORD + rows * 3 * (ca + 1)
+
+
+def slice_granule(warps: int) -> int:
+    """Lanes of one round of a slice launch (csrc/tile_carry.cuh, SLICE)
+    at ``warps`` warps a block: a slice's lanes start at a multiple of it."""
+    return 32 * TILE_R * warps
+
+
+def slice_lanes(LB: int, n: int, granule: int):
+    """The lanes of ``LB`` cut into at most ``n`` slices, each a run of
+    whole units of ``granule`` lanes and the last cut at ``LB``, as even as
+    the units allow: ``[(y_lo, y_hi), ...]``, slice k holding the lanes
+    y_lo+1 .. y_hi.  Fewer than ``n`` when ``LB`` has fewer units; a slice
+    with no lanes is left out."""
+    units = -(-max(LB, 1) // granule)
+    cut = [k * units // n for k in range(n + 1)]
+    return [(lo * granule, min(hi * granule, max(LB, 1)))
+            for lo, hi in zip(cut, cut[1:]) if hi > lo]
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +183,8 @@ _COUNTS = {"nw_scores": 0, "nw_scores[ragged]": 0, "nw_fill_dirs": 0,
            "sw_scores[ragged]": 0, "sw_fill_dirs": 0,
            "sw_fill_dirs[ragged]": 0, "sw_fill_gab": 0,
            "sw_fill_dirs_carry": 0, "sw_walk": 0, "sw_hits": 0,
-           "sw_hits[ragged]": 0, "vpu_chain": 0}
+           "sw_hits[ragged]": 0, "vpu_chain": 0, "nw_scores_slice": 0,
+           "sw_scores_slice": 0, "nw_fill_dirs_slice": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -242,7 +269,8 @@ def _check_sched(sched, B):
 
 
 def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
-          dirs=None, mout=None, m16=False, sched=None, carry=None):
+          dirs=None, mout=None, m16=False, sched=None, carry=None,
+          part=None):
     """Launch one of the fill kernels.  The four fills and the matrix
     dump's run the register tiles of csrc/tile_fill.cuh under any scoring
     flags: ``TILE_R`` lanes a thread (the dump's ``GAB_R``),
@@ -255,6 +283,8 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
     block of :func:`carry_warps` warps for each round of each pair, their
     rings in shared memory, and a scratch of :func:`carry_scratch_ints`
     int32 for the round rows, their progress words and the ticket counter.
+    A slice of a carry (``part``: the edge rows in and out, the rounds
+    r_lo, r_hi and the warps a block) runs those rounds alone.
     The table (4 bytes per entry, twice that with the is-match table of
     no_mismatches) takes the shared memory left, else the read-only global
     path."""
@@ -266,12 +296,16 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
     warps = 0  # a carry's warps a block
     if carry is not None:
         r = CARRY_MODES_R if params.modes else TILE_R
-        warps = carry_warps(B, LB, _sms(torch.cuda.current_device()
-                                        if dev.index is None else dev.index),
-                            r)
+        if part is None:
+            warps, rounds = carry_warps(
+                B, LB, _sms(torch.cuda.current_device() if dev.index is None
+                            else dev.index), r), None
+        else:
+            warps, rounds = part[4], part[3] - part[2]
         smem = 12 * TILE_RING * warps
-        scratch = torch.empty(carry_scratch_ints(B, LB, carry[3], warps, r),
-                              dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            carry_scratch_ints(B, LB, carry[3], warps, r, rounds),
+            dtype=torch.int32, device=dev)
     else:
         r = GAB_R if entry.endswith("_gab_launch") else TILE_R
         wmax = TILE_LANES // (32 * TILE_R)  # a block's warps at any r
@@ -295,6 +329,8 @@ def _fill(name, entry, ac, bc, na, nb, params, scores, corner=None,
                 (_ptr(sched.order), _ptr(sched.wrap), _ptr(sched.off)))
     else:
         tail = (*carry, warps)
+        if part is not None:
+            tail += (_ptr(part[0]), _ptr(part[1]), part[2], part[3])
     rc = getattr(lib, entry)(
         _ptr(ac), _ptr(bc), _ptr(na), _ptr(nb), _ptr(params.scal), _ptr(sub),
         _ptr(im), params.modes, kb, sub_n, table_smem, B, LA, LB,
@@ -451,7 +487,8 @@ def _check_carry(ac, bc, na, nb, params, x_off, bin, bout, dirs):
 
 def _carry_args(x_off, bin, bout, dirs, ca, mstride):
     return (_ptr(bin), _ptr(bout), int(x_off), ca,
-            ctypes.c_longlong(dirs.stride(0)), ctypes.c_longlong(mstride))
+            ctypes.c_longlong(0 if dirs is None else dirs.stride(0)),
+            ctypes.c_longlong(mstride))
 
 
 def nw_fill_dirs_carry(ac, bc, na, nb, params: KernelParams, x_off: int,
@@ -497,6 +534,123 @@ def sw_fill_dirs_carry(ac, bc, na, nb, params: KernelParams, x_off: int,
           params, best, dirs=dirs, mout=mout, m16=m16,
           carry=_carry_args(x_off, bin, bout, dirs, ca, mout.stride(0)))
     return mout
+
+
+def _check_slice(ac, bc, na, nb, params, x_off, ca, lanes, warps, bin,
+                 bout, edge_in, edge_out):
+    """The checks of a slice launch: the fill's at the default flags,
+    ``bin``/``bout`` as a carry's, 0 <= x_off < LA, ``lanes`` = (y_lo,
+    y_hi) with 0 <= y_lo < min(y_hi, LB), the edge rows (B, 3, ca+1) int32
+    (``edge_in`` needed when y_lo > 0, ``edge_out`` optional: without it no
+    row goes out), and on the card y_lo and y_hi (unless it passes LB) at
+    multiples of :func:`slice_granule` for 1 .. ``TILE_LANES`` / (32 *
+    ``TILE_R``) ``warps``.  Returns (B, LB, the kernel's rounds r_lo,
+    r_hi)."""
+    B, LA, LB = _check_fill(ac, bc, na, nb, params)
+    dev = ac.device
+    if params.modes:
+        raise ValueError("a slice fill takes the default flags (params.modes "
+                         "0)")
+    _expect(bin, "bin", torch.int32, 3, dev)
+    _expect(bout, "bout", torch.int32, 3, dev)
+    if bin.shape != (B, 3, LB + 1) or bout.shape != bin.shape:
+        raise ValueError(f"bin and bout must be of shape {(B, 3, LB + 1)}")
+    if bin.data_ptr() == bout.data_ptr():
+        raise ValueError("bin and bout must be separate tensors")
+    if not 0 <= int(x_off) < LA:
+        raise ValueError(f"x_off {x_off} is outside [0, {LA})")
+    if ca < 1:
+        raise ValueError(f"ca {ca} must be >= 1")
+    y_lo, y_hi = (int(v) for v in lanes)
+    if not 0 <= y_lo < min(y_hi, LB):
+        raise ValueError(f"lanes {lanes} hold no lane of [0, {LB})")
+    if y_lo and edge_in is None:
+        raise ValueError("a slice past lane 0 needs edge_in")
+    for e, name in ((edge_in, "edge_in"), (edge_out, "edge_out")):
+        if e is not None:
+            _expect(e, name, torch.int32, 3, dev)
+            if e.shape != (B, 3, ca + 1):
+                raise ValueError(f"{name} must be of shape {(B, 3, ca + 1)}")
+    if edge_in is not None and edge_out is not None and \
+            edge_in.data_ptr() == edge_out.data_ptr():
+        raise ValueError("edge_in and edge_out must be separate tensors")
+    g = slice_granule(warps)
+    if dev.type == "cuda" and (
+            not 1 <= warps <= TILE_LANES // (32 * TILE_R)
+            or y_lo % g or (y_hi < LB and y_hi % g)):
+        raise ValueError(f"lanes {lanes} are not whole rounds of {warps} "
+                         f"warps ({g} lanes)")
+    return B, LB, y_lo // g, -(-min(y_hi, LB) // g)
+
+
+def nw_fill_dirs_slice(ac, bc, na, nb, params: KernelParams, x_off: int,
+                       lanes, warps: int, bin, bout, dirs, corner,
+                       edge_in=None, edge_out=None):
+    """One chunk of one slice of a long NW pair's lanes, in place (S2; see
+    ``nw_fill_dirs_slice_plain``): the lanes ``lanes`` = (y_lo, y_hi) of
+    the columns x_off+1 .. x_off+CA, CA from the ``dirs`` slab, whose
+    valid cells of those lanes get their codes; ``edge_in`` the lane y_lo
+    by local column, ``edge_out`` gets the lane y_hi; a block of ``warps``
+    warps a round.  The scores the kernel also writes go to a scratch
+    tensor."""
+    B, LA, LB, ca = _check_carry(ac, bc, na, nb, params, x_off, bin, bout,
+                                 dirs)
+    _, _, r_lo, r_hi = _check_slice(ac, bc, na, nb, params, x_off, ca, lanes,
+                                    warps, bin, bout, edge_in, edge_out)
+    _expect(corner, "corner", torch.int32, 2, ac.device)
+    if corner.shape != (B, 3):
+        raise ValueError("corner must be (B, 3)")
+    if ac.device.type == "cpu":
+        return nw_fill_dirs_slice_plain(ac, bc, na, nb, params, x_off, lanes,
+                                        bin, bout, dirs, corner, edge_in,
+                                        edge_out)
+    scores = torch.empty(B, dtype=torch.int32, device=ac.device)
+    _fill("nw_fill_dirs_slice", "nw_dirs_slice_launch", ac, bc, na, nb,
+          params, scores, corner, dirs,
+          carry=_carry_args(x_off, bin, bout, dirs, ca, 0),
+          part=(edge_in, edge_out, r_lo, r_hi, warps))
+
+
+def nw_scores_slice(ac, bc, na, nb, params: KernelParams, x_off: int,
+                    ca: int, lanes, warps: int, bin, bout, corner,
+                    edge_in=None, edge_out=None):
+    """One chunk of ``ca`` columns of one slice of a batch's lanes, NW
+    scores only, in place (S1; see ``nw_scores_slice_plain``): ``corner``
+    (B, 3) int32 gets the corners the slice and chunk hold."""
+    B, LB, r_lo, r_hi = _check_slice(ac, bc, na, nb, params, x_off, ca,
+                                     lanes, warps, bin, bout, edge_in,
+                                     edge_out)
+    _expect(corner, "corner", torch.int32, 2, ac.device)
+    if corner.shape != (B, 3):
+        raise ValueError("corner must be (B, 3)")
+    if ac.device.type == "cpu":
+        return nw_scores_slice_plain(ac, bc, na, nb, params, x_off, ca, lanes,
+                                     bin, bout, corner, edge_in, edge_out)
+    scores = torch.empty(B, dtype=torch.int32, device=ac.device)
+    _fill("nw_scores_slice", "nw_scores_slice_launch", ac, bc, na, nb,
+          params, scores, corner,
+          carry=_carry_args(x_off, bin, bout, None, ca, 0),
+          part=(edge_in, edge_out, r_lo, r_hi, warps))
+
+
+def sw_scores_slice(ac, bc, na, nb, params: KernelParams, x_off: int,
+                    ca: int, lanes, warps: int, bin, bout, best,
+                    edge_in=None, edge_out=None):
+    """One chunk of ``ca`` columns of one slice of a batch's lanes, SW
+    scores only, in place (S1; see ``sw_scores_slice_plain``): ``best``
+    (B,) int32 raised to the slice's best M in the chunk."""
+    B, LB, r_lo, r_hi = _check_slice(ac, bc, na, nb, params, x_off, ca,
+                                     lanes, warps, bin, bout, edge_in,
+                                     edge_out)
+    _expect(best, "best", torch.int32, 1, ac.device)
+    if best.shape[0] != B:
+        raise ValueError("best must hold one entry per pair")
+    if ac.device.type == "cpu":
+        return sw_scores_slice_plain(ac, bc, na, nb, params, x_off, ca, lanes,
+                                     bin, bout, best, edge_in, edge_out)
+    _fill("sw_scores_slice", "sw_scores_slice_launch", ac, bc, na, nb,
+          params, best, carry=_carry_args(x_off, bin, bout, None, ca, 0),
+          part=(edge_in, edge_out, r_lo, r_hi, warps))
 
 
 def _check_codes(dirs, ac, bc, na, nb, off=None):

@@ -220,7 +220,8 @@ def test_sw_and_table_kernels_equal_plain_versions(dev, shape, case):
         "nw_fill_gab": 0, "sw_fill_gab": 0, "vpu_chain": 0,
         "nw_scores[ragged]": 0, "nw_fill_dirs[ragged]": 0,
         "sw_scores[ragged]": 0, "sw_fill_dirs[ragged]": 0,
-        "sw_hits[ragged]": 0}
+        "sw_hits[ragged]": 0, "nw_scores_slice": 0, "sw_scores_slice": 0,
+        "nw_fill_dirs_slice": 0}
 
 
 def test_sw_scores_in_global_scratch(dev):
@@ -1426,3 +1427,119 @@ def test_walk_band_edges_equal_plain(dev, case):
         assert int(steps.max()) > 10_000
     if case in ("cap_nw", "clamps_cap_sw"):
         assert bool((steps == ops.shape[1]).any())
+
+
+# the slices of the carry (csrc/tile_carry.cuh, SLICE): (scoring, slices,
+# warps a block); pairs of 1,200-1,500 x 1,000-2,600 with an empty seq_a
+# and seq_b, a b of exactly one round's lanes and one of a round and a lane,
+# and an a that ends on the last column of chunk 1; at 8 warps (the
+# sequence-parallel entries' on long pairs) the 3 slices are a round each
+SLICE_CASES = [("equality", 2, 4), ("equality", 3, 4), ("equality", 4, 1),
+               ("equality", 3, 8), ("blosum62", 2, 4), ("blosum62", 3, 2)]
+SLICE_KERNELS = ("nw_scores_slice", "sw_scores_slice", "nw_fill_dirs_slice")
+
+
+@pytest.mark.parametrize("case", SLICE_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_slice_kernels_equal_plain_versions(dev, case):
+    """nw_scores_slice, sw_scores_slice and nw_fill_dirs_slice against their
+    plain versions, both through the sequence-parallel driver
+    (``wavefront_sp.slice_fill``: the slices and chunks in the wavefront's
+    order, a stream a slice, the edge rows between them): the NW corners and
+    SW bests (the max over the slices), every edge row, the slabs; the
+    slab, put together from the slices, equals the unsplit carry kernel's
+    byte for byte (both zeroed first), and each fill launches its kernel
+    once a slice and chunk."""
+    from seqalign_tpu_torch.parallel.wavefront_sp import slice_fill
+
+    scoring, nsl, warps = case
+    table = scoring == "blosum62"
+    alpha = PROTEIN[:11] if table else "acgt"
+    rng = np.random.default_rng(nsl * 13 + warps + table)
+    g = kernels.slice_granule(warps)
+    A, Bs = _text(rng, alpha, 6, 1200, 1500), _text(rng, alpha, 6, 1000, 2600)
+    A[1], Bs[2] = "", ""
+    Bs[3], Bs[4], A[5] = Bs[3][:g], Bs[4][:g + 1], A[5][:1024]
+    ca = 512
+    for sw in (False, True):
+        sc = (scoring_system_BLOSUM62() if table else
+              scoring_system_sw_default() if sw else scoring_system_default())
+        la, lb = max(map(len, A)), max(map(len, Bs))
+        ac, bc, na, nb, bp = pack_batch(sc, kernel_params(sc, dev), A, Bs, la,
+                                        lb)
+        lanes = kernels.slice_lanes(lb, nsl, g)
+        assert len(lanes) == nsl
+        nch = -(-la // ca)
+        res = {}
+        for dirs in (False,) if sw else (False, True):
+            name = ("nw_fill_dirs_slice" if dirs else "sw_scores_slice" if sw
+                    else "nw_scores_slice")
+            before = kernel_launch_counts()
+            got = slice_fill(sc, (ac, bc, na, nb), bp, [dev] * nsl, lanes,
+                             warps, ca, is_sw=sw, dirs=dirs)
+            after = kernel_launch_counts()
+            assert {k: after[k] - before[k] for k in SLICE_KERNELS} == {
+                k: nsl * nch if k == name else 0 for k in SLICE_KERNELS}
+            want = slice_fill(sc, (ac, bc, na, nb), bp, [dev] * nsl, lanes,
+                              warps, ca, is_sw=sw, dirs=dirs, plain=True)
+            assert kernel_launch_counts() == after
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[2].keys() == want[2].keys()
+            assert len(got[2]) == (nsl - 1) * nch
+            assert all(torch.equal(got[2][k], want[2][k]) for k in got[2])
+            if dirs:
+                assert torch.equal(got[1], want[1])
+            res[name] = got
+        t = [torch.from_numpy(v).to(dev) for v in (ac, bc, na, nb)]
+        if sw:
+            np.testing.assert_array_equal(
+                res["sw_scores_slice"][0], kernels.sw_scores(*t, bp).cpu())
+            continue
+        # the unsplit carry kernel, chunk by chunk, into zeroed slabs
+        bin = dp_boundary(bp, 6, lb, is_sw=False)
+        bout = torch.zeros_like(bin)
+        slab = res["nw_fill_dirs_slice"][1]
+        full = torch.zeros_like(slab)
+        corner = torch.zeros((6, 3), dtype=torch.int32, device=dev)
+        for c in range(nch):
+            kernels.nw_fill_dirs_carry(*t, bp, c * ca, bin, bout, full[:, c],
+                                       corner)
+            bin, bout = bout, bin
+        assert torch.equal(full, slab)
+        for name in ("nw_scores_slice", "nw_fill_dirs_slice"):
+            np.testing.assert_array_equal(corner.cpu().numpy(),
+                                          res[name][0])
+
+
+def test_sequence_parallel_entries_on_the_card(dev):
+    """sp_scores and sp_align_nw on two positions of one card (each slice
+    on a stream of its own) equal score_batch / best_score_batch and
+    align_long, and launch only the slice kernels for their fills."""
+    from seqalign_tpu_torch.parallel.engine import Mesh
+    from seqalign_tpu_torch.parallel.wavefront_sp import (sp_align_nw,
+                                                          sp_scores)
+
+    rng = np.random.default_rng(41)
+    A, Bs = _text(rng, "acgt", 3, 3000, 5000), _text(rng, "acgt", 3, 3000,
+                                                     5000)
+    mesh = Mesh([dev, dev], "seq")
+    for sw in (False, True):
+        sc = scoring_system_sw_default() if sw else scoring_system_default()
+        before = kernel_launch_counts()
+        got = sp_scores(sc, A, Bs, mesh, is_sw=sw)
+        after = kernel_launch_counts()
+        name = "sw_scores_slice" if sw else "nw_scores_slice"
+        assert after[name] > before[name]
+        assert after["nw_scores"] == before["nw_scores"]
+        al = SmithWaterman(sc, device=dev) if sw else NeedlemanWunsch(
+            sc, device=dev)
+        want = al.best_score_batch(A, Bs) if sw else al.score_batch(A, Bs)
+        np.testing.assert_array_equal(got, want)
+    sc = scoring_system_default()
+    before = kernel_launch_counts()["nw_fill_dirs_slice"]
+    got = sp_align_nw(sc, A[0], Bs[0], mesh, chunk=1024)
+    assert kernel_launch_counts()["nw_fill_dirs_slice"] > before
+    want = NeedlemanWunsch(sc, device=dev).align_long(A[0], Bs[0],
+                                                      chunk=1024)
+    assert (got.result_a, got.result_b, got.score) == (
+        want.result_a, want.result_b, want.score)

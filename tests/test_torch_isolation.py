@@ -35,7 +35,13 @@ def test_port_sources_exist():
                  "seqalign_tpu_torch/io/packer.py",
                  "seqalign_tpu_torch/scoring/config.py",
                  "seqalign_tpu_torch/scoring/loader.py",
-                 "seqalign_tpu_torch/scoring/presets.py"):
+                 "seqalign_tpu_torch/scoring/presets.py",
+                 "seqalign_tpu_torch/parallel/engine.py",
+                 "seqalign_tpu_torch/parallel/distributed.py",
+                 "seqalign_tpu_torch/parallel/wavefront_sp.py",
+                 "seqalign_tpu_torch/parallel/dryrun.py",
+                 "seqalign_tpu_torch/examples/nw_example.py",
+                 "seqalign_tpu_torch/examples/sw_example.py"):
         assert want in names
 
 

@@ -427,9 +427,24 @@ def model_launch(sc, A, B, sw, R, W, ragged, seed, gab=False):
     return corners, scores, rec, off, na, nb, LB, mbytes
 
 
+class Part(NamedTuple):
+    """A slice of a carry launch (csrc/tile_carry.cuh, SLICE): the rounds
+    r_lo .. r_hi-1, the edge row in (``ein`` (B, 3, ca+1) values and
+    ``ein_at`` (B, ca+1), the column its producer wrote at each slot, -1
+    where it wrote none) for r_lo > 0, and the edge row out with its record
+    (``eout``, ``eout_at``, filled in place) or None."""
+
+    r_lo: int
+    r_hi: int
+    ein: Optional[np.ndarray] = None
+    ein_at: Optional[np.ndarray] = None
+    eout: Optional[np.ndarray] = None
+    eout_at: Optional[np.ndarray] = None
+
+
 def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                      bin, bout, rec, bw, corner, best, resident, rng,
-                     fl=None):
+                     fl=None, part=None):
     """One carry launch (csrc/tile_carry.cuh) over a packed
     batch, ``ac`` (B, LA) and ``bc`` (B, LB) its codes: the chunk of ``ca``
     columns from ``x_off``, ``bin`` (B, 3, LB+1) the column x_off in,
@@ -446,7 +461,11 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
     ring read that it was written in an earlier macro step; registers the
     kernel never sets start as garbage.  ``fl``: the scoring flags
     (:class:`Flags`) of a MODES instantiation, or None; their last column
-    and x == 1 at global x (local na - x_off and 1 - x_off)."""
+    and x == 1 at global x (local na - x_off and 1 - x_off).  ``part``: a
+    slice (:class:`Part`) of the launch, its rounds alone; its first round
+    reads the edge row in, which must hold every column it reads as its
+    producer wrote it, with no word to wait on, and its last round writes
+    the edge row out and publishes nothing."""
     B, LA = ac.shape
     LB = bc.shape[1]
     LBp, D, S = LB + 1, ca + LB - 1, 32 * R
@@ -454,6 +473,10 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
     mn = int(scal[5] if sw else scal[4])
     kmul = kb if tab is not None else 1
     rounds = -(-(-(-max(LB, 1) // S)) // W)
+    r0 = 0
+    if part is not None:
+        assert 0 <= part.r_lo < part.r_hi <= rounds
+        r0, rounds = part.r_lo, part.r_hi - part.r_lo
     nrows = B * (rounds - 1)
     garbage = functools.partial(rng.integers, -2 ** 31, 2 ** 31,
                                 dtype=np.int64)
@@ -476,7 +499,10 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                 else w32(go + np.asarray(k) * ge))
 
     def block(t):
-        j, r = t % B, t // B
+        j, rl = t % B, t // B
+        r = r0 + rl
+        ein = part is not None and rl == 0 and r > 0
+        eout = part is not None and rl == rounds - 1
         naj, nbj = min(max(int(na[j]), 0), LA), min(max(int(nb[j]), 0), LB)
         wa = max(0, min(ca, naj - x_off))
         if not sw and r == 0:
@@ -501,7 +527,7 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
         # flags off the columns of global x == 1 and x == na
         ulo, ulim = (S, wa - 1 if wa == ca else wa) if fl is None else (
             S + R, wa - 1)
-        rin, rout = (r - 1) * B + j, r * B + j
+        rin, rout = (rl - 1) * B + j, rl * B + j
         ring = garbage((Wj, 3, RING))
         ring_at = np.full((Wj, RING, 2), -1, np.int64)
         state = [None] * Wj
@@ -517,6 +543,9 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                     col, when = ring_at[w - 1, x % RING]
                     assert col == x and when < tt, (w, x, col, when, tt)
                 st["p"] = ring[w - 1, :, x % RING].copy()
+            elif x <= wa and ein:  # the edge row in, complete
+                assert part.ein_at[j, x] == x, (j, x, part.ein_at[j, x])
+                st["p"] = part.ein[j, :, x].copy()
             elif x <= wa:  # the round row, published up to "seen"
                 assert x < blk["seen"] and rows_at[rin, x] == x, (
                     x, blk["seen"], rows_at[rin, x])
@@ -589,6 +618,10 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
             if s < last and w < Wj - 1:
                 ring[w, :, xo % RING] = val
                 ring_at[w, xo % RING] = (xo, tt)
+            elif s < last and 0 <= xo <= wa and eout:
+                if part.eout is not None:
+                    part.eout[j, :, xo] = val
+                    part.eout_at[j, xo] = xo
             elif s < last and 0 <= xo <= wa:
                 rows[rout, :, xo] = val
                 rows_at[rout, xo] = xo
@@ -598,7 +631,7 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                 q = tt - w * (R + 1)
                 if not 0 <= q < ndur:
                     continue
-                if w == 0 and r > 0:  # columns up to (q + 1) K
+                if w == 0 and rl > 0:  # columns up to (q + 1) K
                     need = min((q + 1) * K, wa) + 1
                     while blk["seen"] < need:
                         if words[rin] >= need:
@@ -613,7 +646,7 @@ def tile_carry_model(ac, bc, na, nb, scal, tab, kb, sw, R, W, x_off, ca,
                                  and i0 + R - 1 <= ulim)
                     for u in range(R):
                         step(w, s, i0 + u, not unchecked, tt)
-                if s < last and w == Wj - 1:  # publish the written columns
+                if s < last and w == Wj - 1 and not eout:  # publish them
                     done = min((q + 1) * K - S + 1, wa + 1)
                     if done > 0:
                         words[rout] = done
