@@ -101,8 +101,9 @@ numpy from a fixed seed:
 7. path ``vpu``, the ALU probe (T1, ``python -m
    seqalign_tpu_torch.tools.exp_vpu``, its ``run``) once per row of
    ``VPU_ROWS``: each op and type at 256 x 512 lanes and 512 steps, roll
-   at 32 lanes; it holds ``vpu_chain`` to its plain version and times it,
-   and its T ops/s is printed;
+   at 32 lanes (a move's row in a warp's registers, ``kernels.vpu_layout``);
+   it holds ``vpu_chain`` to its plain version and times it, and its T
+   ops/s is printed;
 8. path ``cli``, the three CLIs' ``main`` in-process, stdout to a file, on
    inputs written from the seed into a temporary directory: job 1
    (BASELINE.json configs[1]) ``needleman_wunsch --printscores --file`` on
@@ -149,11 +150,20 @@ SW hit must spell its inputs and rescore to its score (on the long path
 every alignment and hit, its optimum taken from the scores kernel).
 Launch counts are zeroed just before each path and read just after it; a
 kernel of the path that was not launched fails the run, and the plain
-versions must see no CUDA tensor in the paths.  ``--walk-ab`` instead
-times the first ``AB_PAIRS`` pairs of each SW align job under each walk
-branch (every pair on the host walk, then every pair's hits found on the
-card), host, device, device, host, and stops: the measurement behind the
-walk cutover ``_SW_DEVWALK_CANDS``.  ``--chunk-ab`` instead times the
+versions must see no CUDA tensor in the paths.  The checks whose plain
+side is host work, the plain SW hit loop of phase 1's hint-less rows and
+the numpy Gotoh optima, run in ``HOST_WORKERS`` processes (``spawn``, no
+CUDA device visible) on the host's CPU beside the card's work; each is
+compared as it settles, all before the ``kernels`` line, and a
+disagreement or a dead worker fails the run.  Every other plain version
+runs on the card (``ops/dp.py``'s fill a block of diagonals' scores at
+once and some 14-25 operations a diagonal).  A ``split`` line gives each
+block of phase 1 and each path its wall by part: the kernels' wrappers
+(phase 1), the plain versions and the rest.
+``--walk-ab`` instead times the first ``AB_PAIRS`` pairs of each SW align
+job under each walk branch (every pair on the host walk, then every pair's
+hits found on the card), host, device, device, host, and stops: the
+measurement behind the walk cutover ``_SW_DEVWALK_CANDS``.  ``--chunk-ab`` instead times the
 long path's NW and SW ``align_batch`` at several chunk widths (the
 measurement behind ``LONG_CHUNK``) and stops.  ``--fills`` instead times
 the four default fills at phase 1's B = 256, L = 512 and as one launch
@@ -194,8 +204,9 @@ instruction by instruction, and every other kernel (the check that a
 template change left the other fills as they were).
 
 The second-to-last line is a JSON summary of the kernels and modes (each
-row with its launches on its path, its times, and the least time the card
-could take for the same work, from the bytes moved and the int32
+row with its launches on its path, its times, where its plain version ran
+(``plain_on``: ``cuda``, or ``cpu`` for a host worker), and the least time
+the card could take for the same work, from the bytes moved and the int32
 instructions issued), the last line ``{"ok": true, "device": {...}}``.  Any
 failure raises (exit code != 0); without a CUDA device it exits with code 1
 and prints no result.  It imports no JAX.
@@ -204,6 +215,7 @@ and prints no result.  It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -776,6 +788,204 @@ def gab_pairs_vs_plain(scs, dev, times, bounds):
     return err
 
 
+class Split:
+    """Wall seconds of a block of checks by part: inside the kernels'
+    wrappers and CUDA-event timing loops (``cuda_ms``) of kernels, inside
+    the plain versions (``ops/dp.py``, ``ops/traceback.py``, and a timing
+    loop of one), and the rest (inputs, packing, harvests, comparisons,
+    host work).  While it is on, those functions are wrapped by module
+    attribute (a caller that imports one by name has to do so after
+    ``on``), the card synchronised around the outermost call only, so a
+    timing loop's launches run back to back as without the split; a
+    nested call counts in its outermost call's part.  ``start`` and
+    ``end``, or ``block`` around a statement, log one line a block."""
+
+    KERNELS = ("nw_scores", "nw_fill_dirs", "sw_scores", "sw_fill_dirs",
+               "nw_fill_gab", "sw_fill_gab", "nw_fill_dirs_carry",
+               "sw_fill_dirs_carry", "nw_scores_slice", "sw_scores_slice",
+               "nw_fill_dirs_slice", "nw_walk", "sw_walk", "sw_hits",
+               "vpu_chain")
+
+    def __init__(self, parts=("kernel", "plain")):
+        self.parts = parts
+        self.secs = dict.fromkeys(parts, 0.0)
+        self.depth = 0
+        self.saw_plain = False
+        self.saved = []
+
+    def _wrap(self, mod, name, part):
+        """``part``: "kernel", "plain", or None for a timing loop, whose
+        part is that of what it times."""
+        fn = getattr(mod, name)
+
+        def wrapped(*args, **kw):
+            if self.depth:
+                self.saw_plain |= part == "plain"
+                return fn(*args, **kw)
+            self.depth += 1
+            self.saw_plain = part == "plain"
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                k = "plain" if self.saw_plain else "kernel"
+                self.secs[k] = self.secs.get(k, 0.0) + (time.perf_counter()
+                                                        - t0)
+                return out
+            finally:
+                self.depth -= 1
+
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    def on(self):
+        from seqalign_tpu_torch.ops import dp, kernels, traceback
+
+        for mod in (kernels, dp, traceback):
+            for name in list(vars(mod)):
+                if name.endswith("_plain") or (mod is dp and name == "_fill"):
+                    if "plain" in self.parts:
+                        self._wrap(mod, name, "plain")
+                elif (mod is kernels and name in self.KERNELS
+                      and "kernel" in self.parts):
+                    self._wrap(mod, name, "kernel")
+        if "kernel" in self.parts:
+            self._wrap(sys.modules[__name__], "cuda_ms", None)
+        return self
+
+    def off(self):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+        self.saved = []
+
+    def start(self, label):
+        self.label = label
+        self.secs = dict.fromkeys(self.parts, 0.0)
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def end(self):
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        rest = wall - sum(self.secs.values())
+        log(f"split {self.label}: wall {wall:.1f} s = " + ", ".join(
+            f"{k} {v:.1f}" for k, v in self.secs.items())
+            + f", rest {rest:.1f} s")
+
+    @contextlib.contextmanager
+    def block(self, label):
+        self.start(label)
+        yield
+        self.end()
+
+
+HOST_WORKERS = 4  # processes for the checks whose plain side is host work
+
+
+def _host_start():
+    """A check worker: the host's CPU alone (no CUDA device visible to it),
+    one thread."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def _to_host(obj):
+    """``obj`` with each tensor in it (also in tuples, lists and
+    NamedTuples) as a numpy array, which pickles by value: a worker gets
+    copies, not shared memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu().numpy()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*map(_to_host, obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map(_to_host, obj))
+    return obj
+
+
+def _to_torch(obj):
+    """The inverse of ``_to_host``: each numpy array a CPU tensor."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*map(_to_torch, obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map(_to_torch, obj))
+    return obj
+
+
+def _host_hits(args):
+    """In a worker: ``sw_hits_plain`` on host copies of ``args``; its
+    outputs as numpy arrays and its milliseconds."""
+    from seqalign_tpu_torch.ops.traceback import sw_hits_plain
+
+    t0 = time.perf_counter()
+    out = sw_hits_plain(*_to_torch(args))
+    return [o.numpy() for o in out], 1e3 * (time.perf_counter() - t0)
+
+
+def _host_gotoh(*args, **kw):
+    """In a worker: the numpy Gotoh optimum (``gotoh``)."""
+    return gotoh(*args, **kw)
+
+
+class HostChecks:
+    """The checks whose plain side is host work, run in a pool of
+    ``spawn`` worker processes on the host's CPU beside the card's work:
+    the plain version of the SW hit loop (``sw_hits_plain``, a Python loop
+    over host copies) and the numpy Gotoh optima of the witnesses.  A
+    worker sees no CUDA device and gets numpy copies of its inputs.
+    ``submit`` sends a task with the comparison to make on its result;
+    ``settle`` waits for every task in turn and makes its comparison, which
+    raises on a disagreement, as a worker that died does.  The run settles
+    them all before its ``kernels`` line.  ``rows``: the kernel rows whose
+    plain version ran here."""
+
+    def __init__(self, workers=HOST_WORKERS):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_start)
+        self.pending = []
+        self.rows = set()
+
+    def submit(self, then, fn, *args, **kw):
+        """Run ``fn(*args, **kw)`` in a worker; ``settle`` calls ``then``
+        with its result."""
+        self.pending.append((self.pool.submit(fn, *args, **kw), then))
+
+    def hits(self, then, args):
+        """``sw_hits_plain(*args)`` in a worker; ``then(out, ms)`` with its
+        outputs as CPU tensors and its milliseconds."""
+        self.submit(lambda r: then([torch.from_numpy(o) for o in r[0]],
+                                   r[1]), _host_hits, _to_host(args))
+
+    def settle(self):
+        t0 = time.perf_counter()
+        n = len(self.pending)
+        while self.pending:
+            fut, then = self.pending.pop(0)
+            then(fut.result())
+        log(f"host checks: {n} settled after a wait of "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
+
+
+# the run's host checks, made by ``main``
+HOST = None
+
+
+def check_optimum(then, table, go, ge, a, b, local=False,
+                  flags=frozenset()):
+    """``then(opt)`` with the numpy Gotoh optimum of ``a``, ``b``, found in
+    a worker of ``HOST``."""
+    HOST.submit(then, _host_gotoh, table, go, ge, a, b, local, flags)
+
+
 def timed_plain(fn):
     """One run of a plain version: its result and its milliseconds."""
     torch.cuda.synchronize()
@@ -785,7 +995,7 @@ def timed_plain(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def wide_modes_vs_plain(dev, rng):
+def wide_modes_vs_plain(dev, rng, split):
     """Flag combinations at the wide widths (free start and end gaps at
     6,144 lanes, all five flags at 10,240: several rounds of the tiles):
     the four fills against one plain fill per family."""
@@ -797,6 +1007,7 @@ def wide_modes_vs_plain(dev, rng):
     for width, lo, hi, n, mode in MODE_WIDE:
         t0 = time.perf_counter()
         e = 0
+        split.start(f"phase 1 {mode} at width {width}")
         for sw in (False, True):
             sc = mode_scoring(mode, sw)
             (ac, bc, na, nb), bp, _ = packed(
@@ -818,22 +1029,22 @@ def wide_modes_vs_plain(dev, rng):
                 e = max(e, max_abs((s, cp.max(1).values), (c, cp), (c2, cp),
                                    (d[v], dp_[v])))
             del d, dp_, v
-        torch.cuda.synchronize()
+        split.end()
         log(f"phase 1: fills under {mode} at width {width} (B={n}, {lo}-{hi} "
             f"bp): max |diff| {e} ({time.perf_counter() - t0:.1f} s)")
         worst = max(worst, e)
     return worst
 
 
-def walks_under_modes(dev, rng, times, bounds):
+def walks_under_modes(dev, rng, times, bounds, late):
     """``sw_hits`` and ``sw_walk`` under free end gaps and under the LCS
     recipe (a sequence against itself) against their plain versions, on
-    256 pairs of 512 bp, hint-less, k = 16; both timed."""
+    256 pairs of 512 bp, hint-less, k = 16; both timed.  The hit loop's
+    plain version runs in a host worker, its max |diff| into ``late``."""
     import seqalign_tpu_torch as port
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
-    from seqalign_tpu_torch.ops.traceback import (sw_hits_plain,
-                                                  sw_walk_plain)
+    from seqalign_tpu_torch.ops.traceback import sw_walk_plain
 
     err = {}
     for tag, sc in (("neg", mode_scoring("neg", True)),
@@ -847,9 +1058,7 @@ def walks_under_modes(dev, rng, times, bounds):
         del m
         out = kernels.sw_hits(*args)
         t0 = cuda_ms(lambda: kernels.sw_hits(*args), 10)
-        want, t1 = timed_plain(lambda: sw_hits_plain(*args))
-        err[f"sw_hits[{tag}]"] = max_abs(*zip(out, want))
-        times[f"sw_hits[{tag}]"] = (t0, t1)
+        hits_on_host(late, times, f"sw_hits[{tag}]", args, out, t0)
         bounds[f"sw_hits[{tag}]"] = hits_bound(args, out)
         hit_flat, hit_score, nhits = out
         keep = torch.arange(16, device=dev)[None, :] < nhits[:, None]
@@ -911,7 +1120,7 @@ def carry_chunks(fill, args, ca, sw, m16):
     return slabs, bouts, ms, acc, secs
 
 
-def carry_vs_plain(dev, rng, times, bounds):
+def carry_vs_plain(dev, rng, times, bounds, split):
     """The carry kernels against their plain versions chunk by chunk, NW
     and SW, on 4 pairs of 5,000-6,144 x 1,500-2,048 in chunks of CARRY_CA
     (equality, BLOSUM62 with an empty seq_a and an empty seq_b, nsg+neg)
@@ -952,6 +1161,8 @@ def carry_vs_plain(dev, rng, times, bounds):
     for label, ra, rb, lanes, n in CARRY_CASES:
         t0 = time.perf_counter()
         worst = 0
+        split.start(f"phase 1 carry {label}, {n} pairs at "
+                    f"{lanes or 'their'} lanes")
         alpha = AMINO if label == "BLOSUM62" else DNA
         A, B = seqs(rng, n, *ra, alpha), seqs(rng, n, *rb, alpha)
         A[0] = A[0][:2 * ca]  # ends on the last column of chunk 1
@@ -1017,7 +1228,7 @@ def carry_vs_plain(dev, rng, times, bounds):
                 if flags == "equality" and not lanes:
                     ref[sw] = (sc, A, B, args, got)
             del got, want
-        torch.cuda.synchronize()
+        split.end()
         log(f"phase 1: carry fills vs plain, "
             f"{' and '.join(dict.fromkeys(f for _, f in runs))}, {n} pairs of "
             f"{ra[0]}-{ra[1]} x {rb[0]}-{rb[1]} at {lanes or 'their'} lanes "
@@ -1025,6 +1236,7 @@ def carry_vs_plain(dev, rng, times, bounds):
             f"({time.perf_counter() - t0:.1f} s)")
 
     # the walks over the equality pairs' slabs
+    split.start("phase 1 walks over chunk slabs")
     sc, A, B, args, (slabs, _, _, corner, _) = ref[False]
     ac, bc, na, nb, _ = args
     cap = int((na + nb).max())
@@ -1078,12 +1290,12 @@ def carry_vs_plain(dev, rng, times, bounds):
         + ", ".join(f"{k} {err[k]}" for k in ("nw_walk[chunked]",
                                                "sw_hits[chunked]",
                                                "sw_walk[chunked]")))
-    torch.cuda.synchronize()
+    split.end()
     return err, (A, B, nw_plain, thr.tolist(), sw_plain)
 
 
-def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
-                     sw=True):
+def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, late, width=None,
+                     nw=True, sw=True):
     """Max |kernel - plain| of each kernel and mode on one batch; one
     plain fill with codes (and SW M) holds the fills of a family, its
     corner or best being the scores fill's, and on the ragged batches
@@ -1092,7 +1304,9 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     (rows ``[ragged]``, or ``[table]`` with a table): scores and corners,
     codes and M on the valid cells of each pair's plane, the ragged M's
     other cells 0.  At width 10,240 every pair is past 6,400 lanes of b
-    and takes round rows of the tiles' scratch, at 6,144 every pair."""
+    and takes round rows of the tiles' scratch, at 6,144 every pair.  On
+    the ragged batches the hit loop's plain version (hint-less) runs in a
+    host worker, its max |diff| into ``late``."""
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import _fill, sw_extract_candidates
     from seqalign_tpu_torch.ops.pack import m16_safe
@@ -1166,8 +1380,12 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
         # memory), near the best cells at the wide widths (global memory)
         args = hit_args(d, ac, bc, na, nb, m, na_h, nb_h,
                         1 if width is None else near_best(s), bp, 16)
-        err["sw_hits" + mode] = max_abs(*zip(kernels.sw_hits(*args),
-                                             sw_hits_plain(*args)))
+        if width is None:
+            hits_on_host(late, {}, "sw_hits" + mode, args,
+                         kernels.sw_hits(*args))
+        else:
+            err["sw_hits" + mode] = max_abs(*zip(kernels.sw_hits(*args),
+                                                 sw_hits_plain(*args)))
         del args
         starts = walk_starts(sw_extract_candidates(m, na_h, nb_h,
                                                    near_best(s)), na_h, 16,
@@ -1180,9 +1398,9 @@ def kernels_vs_plain(sc, params, seqs_a, seqs_b, dev, width=None, nw=True,
     return err
 
 
-def phase1(scs, rng, dev):
+def phase1(scs, rng, dev, split):
     """Each kernel and mode against its plain version at the main path's
-    widths; then both timed."""
+    widths; then both timed.  ``split`` logs each block's wall by part."""
     from seqalign_tpu_torch import kernel_params
     from seqalign_tpu_torch.ops import kernels
     from seqalign_tpu_torch.ops.dp import (nw_fill_dirs_plain,
@@ -1193,7 +1411,6 @@ def phase1(scs, rng, dev):
                                            sw_fill_gab_plain,
                                            sw_scores_plain)
     from seqalign_tpu_torch.ops.traceback import (nw_walk_plain,
-                                                  sw_hits_plain,
                                                   sw_walk_plain)
 
     nw_sc, sw_sc, prot_sc = scs["nw"], scs["sw"], scs["table"]
@@ -1212,8 +1429,11 @@ def phase1(scs, rng, dev):
                      hi, w, DNA, False, True)]
     for label, k, n, lo, hi, width, alpha, nw, sw in batches:
         t0 = time.perf_counter()
-        e = kernels_vs_plain(scs[k], params[k], seqs(rng, n, lo, hi, alpha),
-                             seqs(rng, n, lo, hi, alpha), dev, width, nw, sw)
+        with split.block(f"phase 1 {label}"):
+            e = kernels_vs_plain(scs[k], params[k],
+                                 seqs(rng, n, lo, hi, alpha),
+                                 seqs(rng, n, lo, hi, alpha), dev, err,
+                                 width, nw, sw)
         log(f"phase 1: kernel vs plain on {label}: max |diff| {e} "
             f"({time.perf_counter() - t0:.1f} s)")
         err.update({r: max(err[r], v) for r, v in e.items()})
@@ -1222,6 +1442,7 @@ def phase1(scs, rng, dev):
                              f"{err}")
 
     times, bounds = {}, {}
+    split.start("phase 1 timing at B=256 L=512")
     for key, alpha in (("nw", DNA), ("sw", DNA), ("table", AMINO)):
         sc, p = scs[key], params[key]
         (ac, bc, na, nb), bp, (na_h, nb_h) = packed(
@@ -1293,35 +1514,44 @@ def phase1(scs, rng, dev):
                                                 bp, 1024), 10),
                 cuda_ms(lambda: sw_walk_plain(d, ac, bc, na, nb, *starts, bp,
                                               1024), 1, warm=False))
-            times["sw_hits" + mode] = (
-                cuda_ms(lambda: kernels.sw_hits(*args), 10),
-                cuda_ms(lambda: sw_hits_plain(*args), 1, warm=False))
             bounds["sw_walk" + mode] = walk_bound(
                 "sw_walk" + mode,
                 kernels.sw_walk(d, ac, bc, na, nb, *starts, bp, 1024), 3,
                 16 * len(starts[0]))
-            bounds["sw_hits" + mode] = hits_bound(args,
-                                                  kernels.sw_hits(*args))
+            out = kernels.sw_hits(*args)
+            bounds["sw_hits" + mode] = hits_bound(args, out)
+            # the plain version timed, and held to the kernel, in a host
+            # worker
+            hits_on_host(err, times, "sw_hits" + mode, args, out,
+                         cuda_ms(lambda: kernels.sw_hits(*args), 10))
             del d, args
+    split.end()
 
     for mode in MODES:
         t0 = time.perf_counter()
-        e = modes_vs_plain(mode, dev, rng, times, bounds)
+        with split.block(f"phase 1 modes {mode}"):
+            e = modes_vs_plain(mode, dev, rng, times, bounds)
         log(f"phase 1: fills under {mode} vs plain, 256 x 512 and ragged, "
             f"equality and BLOSUM62: max |diff| {e} "
             f"({time.perf_counter() - t0:.1f} s)")
         merge(err, e)
-    merge(err, walks_under_modes(dev, rng, times, bounds))
-    merge(err, tiles_vs_plain(scs, dev))
-    wide = wide_modes_vs_plain(dev, rng)
-    e, sample = carry_vs_plain(dev, rng, times, bounds)
+    with split.block("phase 1 walks under modes"):
+        merge(err, walks_under_modes(dev, rng, times, bounds, err))
+    with split.block("phase 1 tile edges"):
+        merge(err, tiles_vs_plain(scs, dev))
+    wide = wide_modes_vs_plain(dev, rng, split)
+    e, sample = carry_vs_plain(dev, rng, times, bounds, split)
     merge(err, e)
-    merge(err, slices_vs_plain(dev, times, bounds))
-    merge(err, ragged_vs_buckets(nw_sc, params["nw"], rng, dev, times,
-                                 bounds))
-    merge(err, sw_ragged_vs_buckets(sw_sc, params["sw"], dev, times,
-                                    bounds))
-    merge(err, gab_pairs_vs_plain(scs, dev, times, bounds))
+    with split.block("phase 1 slices"):
+        merge(err, slices_vs_plain(dev, times, bounds))
+    with split.block("phase 1 ragged rows"):
+        merge(err, ragged_vs_buckets(nw_sc, params["nw"], rng, dev, times,
+                                     bounds))
+    with split.block("phase 1 SW ragged rows"):
+        merge(err, sw_ragged_vs_buckets(sw_sc, params["sw"], dev, times,
+                                        bounds))
+    with split.block("phase 1 dump pairs"):
+        merge(err, gab_pairs_vs_plain(scs, dev, times, bounds))
     if wide or any(err.values()):
         raise AssertionError(f"a mode disagrees with its plain version: wide "
                              f"{wide}, {err}")
@@ -1813,11 +2043,30 @@ def merge(err, e):
         err[k] = max(err.get(k, 0), v)
 
 
+def hits_on_host(late, times, row, args, out, t_kernel=None):
+    """``sw_hits_plain(*args)`` in a host worker (``HOST``) against the
+    kernel's outputs ``out``: ``late[row]`` takes the max |diff| when the
+    run settles its host checks and, with ``t_kernel``, ``times[row]`` the
+    kernel's and the worker's milliseconds."""
+    out = [o.cpu() for o in out]
+
+    def then(want, ms):
+        e = max_abs(*zip(out, want))
+        merge(late, {row: e})
+        if t_kernel is not None:
+            times[row] = (t_kernel, ms)
+        log(f"host check {row}: {int(out[2].clamp(min=0).sum())} hits, "
+            f"plain on a host worker {ms:.1f} ms, max |diff| {e}")
+
+    HOST.hits(then, args)
+    HOST.rows.add(row)
+
+
 # lane instructions of T1's chain an element and step, the fewest its op
 # needs: one VIADDMNMX an add-max, one IADD3 two chained adds; a move's add
-# (its shared-memory or shuffle transfer and barrier left out, as the fills'
-# count leaves out theirs); int16 packs two lanes in one instruction, a move
-# adding a byte permute a word
+# (its shuffle, one a thread's K words, left out, as the fills' count leaves
+# out theirs); int16 packs two lanes in one instruction, a move adding a
+# byte permute a word
 VPU_INSTR = {("addmax", "int32"): 1, ("add", "int32"): 0.5,
              ("roll", "int32"): 1, ("shift", "int32"): 1,
              ("addmax", "int16"): 0.5, ("add", "int16"): 0.5,
@@ -2028,12 +2277,16 @@ def rescore(table, go, ge, ra: str, rb: str, flags=frozenset()) -> int:
 
 
 def witness_scores(table, sc, A, B, scores, idx, what, local=False):
+    """Each score of the pairs ``idx`` is the numpy Gotoh optimum
+    (``check_optimum``)."""
     for i in idx:
-        opt = gotoh(table, sc.gap_open, sc.gap_extend, A[i], B[i], local,
-                    flags_of(sc))
-        if int(scores[i]) != opt:
-            raise AssertionError(f"{what} pair {i}: score {scores[i]} is "
-                                 f"not the numpy Gotoh optimum {opt}")
+        def then(opt, i=i, got=int(scores[i])):
+            if got != opt:
+                raise AssertionError(f"{what} pair {i}: score {got} is not "
+                                     f"the numpy Gotoh optimum {opt}")
+
+        check_optimum(then, table, sc.gap_open, sc.gap_extend, A[i], B[i],
+                      local, flags_of(sc))
 
 
 def witness_alignment(table, sc, a, b, aln, what, opt=None):
@@ -2045,12 +2298,18 @@ def witness_alignment(table, sc, a, b, aln, what, opt=None):
             or any(p == q == "-" for p, q in zip(ra, rb))):
         raise AssertionError(f"{what}: the strings do not spell the pair")
     flags = flags_of(sc)
-    if opt is None:
-        opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, flags=flags)
     got = rescore(table, sc.gap_open, sc.gap_extend, ra, rb, flags)
-    if not aln.score == got == opt:
-        raise AssertionError(f"{what}: score {aln.score}, columns rescore "
-                             f"to {got}, optimum {opt}")
+
+    def then(opt):
+        if not aln.score == got == opt:
+            raise AssertionError(f"{what}: score {aln.score}, columns "
+                                 f"rescore to {got}, optimum {opt}")
+
+    if opt is None:
+        check_optimum(then, table, sc.gap_open, sc.gap_extend, a, b,
+                      flags=flags)
+    else:
+        then(opt)
 
 
 def witness_hits(table, sc, a, b, hits, min_score, what, opt=None,
@@ -2074,13 +2333,19 @@ def witness_hits(table, sc, a, b, hits, min_score, what, opt=None,
                                  f"rescore to {got}")
     if spell_only:
         return
-    if opt is None:
-        opt = gotoh(table, sc.gap_open, sc.gap_extend, a, b, local=True,
-                    flags=flags_of(sc))
     first = hits[0].score if hits else None
-    if (opt >= max(min_score, 1)) != bool(hits) or (hits and first != opt):
-        raise AssertionError(f"{what}: first hit {first}, local optimum "
-                             f"{opt}")
+
+    def then(opt):
+        if (opt >= max(min_score, 1)) != (first is not None) or (
+                first is not None and first != opt):
+            raise AssertionError(f"{what}: first hit {first}, local optimum "
+                                 f"{opt}")
+
+    if opt is None:
+        check_optimum(then, table, sc.gap_open, sc.gap_extend, a, b,
+                      local=True, flags=flags_of(sc))
+    else:
+        then(opt)
 
 
 def rate(label, n_pairs, cells, secs, gpu):
@@ -4254,22 +4519,38 @@ def _self_device_us(e) -> float:
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
+# the names of csrc/'s kernels, as a profiler's device events carry them
+PORT_KERNELS = ("tile_fill_kernel", "tile_carry_kernel", "nw_walk_kernel",
+                "sw_walk_kernel", "sw_hits_kernel", "chain_kernel")
+
+
 def profile(jobs, out_dir):
     """Each job once more under ``torch.profiler``: device self time (the
     sum over device events, as the table's "Self CUDA time total"), busy
-    share = that time / the job's unprofiled wall, and the top items."""
+    share = that time / the job's unprofiled wall, and the top items; and
+    the port's launch counts of the profiled run beside the profiler's
+    records of the port's kernels (``PORT_KERNELS``), so that a kernel
+    record the profiler drops shows."""
+    import seqalign_tpu_torch as port
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     os.makedirs(out_dir, exist_ok=True)
     for k, (label, (fn, wall)) in enumerate(jobs.items()):
+        port.reset_kernel_launch_counts()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             timed(fn)
+        counts = {n: c for n, c in port.kernel_launch_counts().items() if c}
         ka = prof.key_averages()
         dev_ev = [e for e in ka if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
+        ours = {e.key[:48]: e.count for e in dev_ev
+                if any(k in e.key for k in PORT_KERNELS)}
+        log(f"profile {label}: launch counts {counts} ({sum(counts.values())}"
+            f" launches); the profiler's records of them {ours} "
+            f"({sum(ours.values())})")
         dev_us = sum(map(_self_device_us, dev_ev))
         top = sorted(dev_ev, key=_self_device_us, reverse=True)[:3]
         path = os.path.join(out_dir, f"profile_{k}.txt")
@@ -4409,11 +4690,7 @@ def sass_report(old, gpu):
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
     ptxas = new.pop("_ptxas")
     prev.pop("_ptxas", None)
-    for name, ins in sorted(new.items()):
-        if "chain_kernel" in name or "addmax_plain" in name:
-            log(f"sass: {name}: {len(ins)} instructions: {opcode_mix(ins)}")
-    # the tile fills (csrc/tile_fill.cuh): instruction mix, and registers
-    # and spills from ptxas
+    # registers and spills of each kernel, from ptxas
     usage, entry = {}, None
     for line in "\n".join(ptxas).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -4428,11 +4705,23 @@ def sass_report(old, gpu):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             usage.setdefault(entry, {})["regs"] = int(m.group(1))
+
+    def ops_of(ins):
+        return [i.split()[1 if i.startswith("@") else 0].split(".")[0]
+                for i in ins]
+
+    # the probe's kernels (csrc/exp_vpu.cu) and the add-then-max chains
+    for name, ins in sorted(new.items()):
+        if "chain_kernel" in name or "addmax_plain" in name:
+            ops = ops_of(ins)
+            log(f"sass: {demangle(name)}: {len(ins)} instructions, "
+                f"{usage.get(name, {})}, LDL {ops.count('LDL')}, STL "
+                f"{ops.count('STL')}: {opcode_mix(ins, 16)}")
+    # the tile fills (csrc/tile_fill.cuh), carries and walks
     for name, ins in sorted(new.items()):
         if ("tile_fill_kernel" in name or "tile_carry_kernel" in name
                 or "walk_kernel" in name):
-            ops = [i.split()[1 if i.startswith("@") else 0].split(".")[0]
-                   for i in ins]
+            ops = ops_of(ins)
             log(f"sass: {demangle(name)}: {len(ins)} instructions, "
                 f"{usage.get(name, {})}, " + ", ".join(
                     f"{o} {ops.count(o)}" for o in ("VIADDMNMX", "VIMNMX3",
@@ -4572,13 +4861,30 @@ def main() -> int:
     if args.hits_long:
         hits_long(args.hits_long, gpu)
         return 0
+    global HOST
+    HOST = HostChecks()
+    try:
+        return run_all(args, port, t_run, gpu, dev, rng, nw, nwp, sw, swp)
+    finally:
+        HOST.close()
+
+
+def run_all(args, port, t_run, gpu, dev, rng, nw, nwp, sw, swp) -> int:
+    """Phase 1 and the paths, the host checks settled, the ``kernels``
+    line and the last line."""
+    split = Split().on()
     # the plain versions are bound by per-operation overhead on the host;
     # inference mode trims it (phase 1 only: the main paths run as a user
     # calls them)
     with torch.inference_mode():
         err, times, bounds, sample = phase1({"nw": nw.scoring,
                                              "sw": sw.scoring,
-                                             "table": nwp.scoring}, rng, dev)
+                                             "table": nwp.scoring}, rng, dev,
+                                            split)
+    split.off()
+    log(f"phase 1 done in {time.perf_counter() - t_run:.1f} s")
+    # the paths' split leaves the kernels unwrapped: no added synchronise
+    split = Split(("plain",)).on()
 
     jobs: dict = {}
     launches = {}
@@ -4590,44 +4896,55 @@ def main() -> int:
                                                           jobs))):
         t0 = time.perf_counter()
         port.reset_kernel_launch_counts()
-        run()
+        with split.block(f"path {path}"):
+            run()
         launches[path] = port.kernel_launch_counts()
         counted(path, launches[path])
         log(f"path {path} done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    mode_launches = phase_modes(rng, dev, gpu, jobs)
+    with split.block("path modes"):
+        mode_launches = phase_modes(rng, dev, gpu, jobs)
     launches["modes"] = {k: sum(c[k] for c in mode_launches.values())
                          for k in port.kernel_launch_counts()}
     counted("modes", launches["modes"])
     log(f"path modes done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     port.reset_kernel_launch_counts()
-    with PlainGuard():
-        check, long_flagged = phase_long(rng, dev, gpu, jobs, sample)
-    launches["long"] = port.kernel_launch_counts()
-    counted("long", launches["long"])
-    check()
+    with split.block("path long"):
+        with PlainGuard():
+            check, long_flagged = phase_long(rng, dev, gpu, jobs, sample)
+        launches["long"] = port.kernel_launch_counts()
+        counted("long", launches["long"])
+        check()
     log(f"path long done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    vpu_launches = phase_vpu(err, times, bounds)
+    with split.block("path vpu"):
+        vpu_launches = phase_vpu(err, times, bounds)
     log(f"path vpu done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches["cli"] = phase_cli(rng, dev, gpu)
+    with split.block("path cli"):
+        launches["cli"] = phase_cli(rng, dev, gpu)
     counted("cli", launches["cli"])
     log(f"path cli done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     port.reset_kernel_launch_counts()
-    with PlainGuard():
+    with split.block("path parallel"), PlainGuard():
         phase_parallel(dev, gpu)
     launches["parallel"] = port.kernel_launch_counts()
     counted("parallel", launches["parallel"])
     log(f"path parallel done in {time.perf_counter() - t0:.1f} s")
+    split.off()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seqalign_tpu"))
     if loaded:
         raise AssertionError(f"the port loaded {loaded}")
     if args.profile:
         profile(jobs, args.profile)
+    HOST.settle()
+    bad = {k: v for k, v in err.items() if v}
+    if bad:
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{bad}")
 
     rows = []
     for name, (counter, src, rep) in KERNELS.items():
@@ -4652,7 +4969,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": _CSRC + src,
                      "replaces": rep, "launches": n,
                      "max_abs_err": err[name], "ms": times[name][0],
-                     "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                     "plain_ms": times[name][1],
+                     "plain_on": "cpu" if name in HOST.rows else "cuda",
+                     "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1], "library_ms": None})
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))

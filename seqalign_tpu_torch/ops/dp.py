@@ -2,13 +2,16 @@
 
 A transcription of the JAX package's ``dp.dp_fill`` (seqalign_tpu/ops/
 dp.py:126-429), unchunked and chunked, every recurrence mode: a Python loop
-over anti-diagonals ``d = x + y`` whose per-step work is a (B, LB+1)
-vector update, lane = y.  Arithmetic is native int32 and wraps exactly
-like the reference's fill.  Two scoring modes: equality on folded codes
-(``params.sub`` is None) and substitution-table lookup ``sub[a, b]`` on
-compact codes.  NW floors at the sentinel ``params.scal[4]`` and fills its
-boundary with gap runs; SW floors at ``params.scal[5]`` (0), has an
-all-zero boundary and reduces the best M over the valid cells.  The bit
+over anti-diagonals ``d = x + y`` whose per-step work is one (3, B, LB+1)
+update of M, GAP_A and GAP_B, lane = y, in some 14-25 tensor operations
+(the scores and flag masks of a block of diagonals taken at once), since
+on a GPU each operation costs its launch.  Arithmetic is native int32 and
+wraps exactly like the reference's fill.  Two scoring modes: equality on
+folded codes (``params.sub`` is None) and substitution-table lookup
+``sub[a, b]`` on compact codes.  NW floors at the sentinel
+``params.scal[4]`` and fills its boundary with gap runs; SW floors at
+``params.scal[5]`` (0), has an all-zero boundary and reduces the best M
+over the valid cells.  The bit
 word ``params.modes`` carries the scoring flags (``pack.NSG`` .. ``NMM``):
 free start gaps zero the boundary runs, free end gaps take the last
 column's GAP_A and the last row's GAP_B without penalty or floor, the
@@ -47,9 +50,25 @@ from .pack import (DIR_FAIL, GAP_A, GAP_B, MATCH, NEG, NGA, NGB, NMM, NSG,
                    KernelParams)
 
 
-def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
-          emit_dirs: bool = False, m_dtype=None, emit_gab: bool = False,
-          x_off: int = 0, bin=None, top=None, edge=None):
+def _fill(ac, bc, na, nb, params: KernelParams, **kw):
+    """The fill (``_diagonals``), on the CPU in one thread: its stacked and
+    block-wide tensor operations pass PyTorch's grain for intra-op
+    threads, and when processes share the cores (the tests' workers) each
+    such operation's threads wait for the scheduler, far longer than the
+    threads save alone."""
+    threads = torch.get_num_threads()
+    if ac.device.type != "cpu" or threads == 1:
+        return _diagonals(ac, bc, na, nb, params, **kw)
+    torch.set_num_threads(1)
+    try:
+        return _diagonals(ac, bc, na, nb, params, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _diagonals(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
+               emit_dirs: bool = False, m_dtype=None, emit_gab: bool = False,
+               x_off: int = 0, bin=None, top=None, edge=None):
     """Returns (dirs, corner, best, mout, bout); dirs/mout are None unless
     asked for (``m_dtype`` set emits M), bout unless chunked.  With
     ``emit_gab`` (unchunked) ``mout`` is instead the (3, B, D, LB+1) int32
@@ -164,98 +183,181 @@ def _fill(ac, bc, na, nb, params: KernelParams, *, is_sw: bool = False,
     bout = torch.full((B, 3, LBp), 0, dtype=i32, device=dev) \
         if chunked else None
 
-    def sh(v):  # the value at lane y-1
-        return torch.cat([mncol, v[:, :-1]], 1)
-
-    def max3(p, q, r):
-        return torch.maximum(p, torch.maximum(q, r))
-
-    def pick(ga_ok, gb_ok, m_ok):
-        # guard -> equality -> priority GAP_A, GAP_B, MATCH
-        # (alignment.c:311-327)
-        return torch.where(ga_ok, GAP_A, torch.where(
-            gb_ok, GAP_B, torch.where(m_ok, MATCH, DIR_FAIL)))
-
-    for d in range(2, LA + LB + 1):
-        x_idx = (d - 1 - ylong).clamp(0, LA - 1).expand(B, LBp)  # a[x-1]
-        a_lane = a.gather(1, x_idx)
+    # The diagonals d = 2 .. LA+LB in blocks of K: a block's scores (and
+    # flag masks) at once, then per diagonal M, GAP_A and GAP_B as one
+    # (3, B, LB+1) stack, the same sums and maxima as cell by cell
+    # (alignment.c:89-155), in the same order, so that int32 wraps alike:
+    # M the max3 of the shifted diagonal d-2, then plus the score; GAP_A the
+    # max of the shifted diagonal d-1 plus (open, extend, open), GAP_B of
+    # the unshifted one plus (open, open, extend); each floored.  The
+    # stacks live in a ring of K + 2 slots of LB+2 lanes whose lane 0 holds
+    # the floor: a slot's lanes 1.. are the diagonal, its lanes ..LB its
+    # shift (lane y taking y-1).  The codes test the three predecessors of
+    # each matrix (9 bits) and look the byte up (``_code_lut``); the SW
+    # best comes from a block's slots at once.  K keeps a ring near 128 MB.
+    ends = LA + LB + 1
+    K = max(2, min(64, (1 << 27) // (12 * B * LBp + 1)))
+    ring = torch.empty((K + 2, 3, B, LBp + 1), dtype=i32, device=dev)
+    ring[:, :, :, 0] = mn
+    cur = ring[..., 1:]  # the diagonals; ring[..., :-1] their shifts
+    slot = [(cur[j], ring[j, ..., :-1], cur[j, 0], cur[j, 1], cur[j, 2])
+            for j in range(K + 2)]
+    cur[0] = torch.stack((pm2, pga2, pgb2))
+    cur[1] = torch.stack((pm1, pga1, pgb1))
+    ta, tb = (torch.empty((3, B, LBp), dtype=i32, device=dev)
+              for _ in range(2))
+    ca = torch.stack((gop, gap_extend, gop)).view(3, 1, 1)
+    cb = torch.stack((gop, gop, gap_extend)).view(3, 1, 1)
+    lastrow = yv == nbx  # y == nb
+    if neg:  # free end gaps: a gap step on the last column / row is free
+        cb = torch.where(lastrow, zero, cb)
+        lowest = torch.full_like(mn, torch.iinfo(torch.int32).min)
+        floor_b = torch.where(lastrow, lowest, mn)
+    if ngb:
+        off_row = ~lastrow
+        diag_b = (yv == 1) | (yv - 1 == nbx)
+        left_b = (yv == 0) | lastrow
+    if emit_dirs:
+        tm = torch.empty_like(ta)
+        e9 = torch.empty((9, B, LBp), dtype=torch.bool, device=dev)
+        e9u = e9.view(torch.uint8)
+        e_m, e_a, e_b = e9[0:3], e9[3:6], e9[6:9]
+        w9 = (1 << torch.arange(9, dtype=i32, device=dev)).view(9, 1, 1)
+        lut = _code_lut(dev)
+    if not is_sw and top is None:  # the boundary lanes by diagonal
+        dr = torch.arange(ends, dtype=i32, device=dev)
+        mne = mn.expand(ends)
+        run0 = zero.expand(ends) if nsg else \
+            gap_open + (x_off + dr) * gap_extend
+        run = zero.expand(ends) if nsg else gap_open + dr * gap_extend
+        lane0 = torch.stack((mne, mne, run0), 1)[:, :, None].unbind(0)
+        lane_d = torch.stack((mne, run, mne), 1)[:, :, None].unbind(0)
+    if chunked:
+        bin_t = bin.permute(1, 0, 2)
+        bout_t = bout.permute(1, 0, 2)
+    if top is not None:
+        top_t = top.permute(1, 0, 2)
+    nb_idx3 = nb_idx[None].expand(3, B, 1)
+    corner_t = corner.t().contiguous()
+    # the diagonals that hold a corner (x = na, y = nb)
+    at_corner = set((na + nb - x_off).tolist()) if not is_sw else ()
+    for d0 in range(2, ends, K):
+        n = min(K, ends - d0)
+        if d0 > 2:  # the block's two diagonals before, into slots 0, 1
+            cur[0:2] = cur[K:K + 2].clone()
+        dv = torch.arange(d0, d0 + n, device=dev)[:, None]  # (n, 1)
+        x_idx = (dv - 1 - ylong).clamp(0, LA - 1)  # a[x-1], (n, LBp)
+        a_lane = a.gather(1, x_idx.reshape(1, -1).expand(B, -1)).view(
+            B, n, LBp)
+        b_blk = b_lane[:, None]
         if sub is None:
-            ss = torch.where(a_lane == b_lane, match, mismatch)
+            ss_k = torch.where(a_lane == b_blk, match, mismatch).unbind(1)
         else:
-            ss = sub_flat[a_lane * kb + b_row]
-        m2s, ga2s, gb2s = sh(pm2), sh(pga2), sh(pgb2)
-        m1s, ga1s, gb1s = sh(pm1), sh(pga1), sh(pgb1)
-        xv = d - yv
-        gx = xv + x_off  # global x
-        lastcol = gx == nax  # x == na
-        lastrow = yv == nbx  # y == nb
-        # MATCH (alignment.c:89-119)
-        Mv = torch.maximum(max3(m2s, ga2s, gb2s) + ss, mn)
-        if nmm:  # alignment.c:101-104
+            ss_k = sub_flat[a_lane * kb + b_row[:, None]].unbind(1)
+        if nmm:  # no mismatches: M only where the pair is an is-match
             if sub is None:
-                im = a_lane == b_lane
+                off_m = (a_lane != b_blk).unbind(1)
             else:
-                im = im_flat[a_lane * kb + b_row] != 0
-            Mv = torch.where(im, Mv, mn)
-        # GAP_A: reads (y-1, x) (alignment.c:121-137)
-        ga_v = torch.maximum(max3(m1s + gop, ga1s + gap_extend, gb1s + gop),
-                             mn)
+                off_m = (im_flat[a_lane * kb + b_row[:, None]] == 0).unbind(1)
+        del a_lane
+        if neg or nga:
+            gx = (dv - ylong + x_off).to(i32)[:, None]  # global x
+            lastcol = gx == nax  # x == na, (n, B, LBp)
         if neg:
-            ga_v = torch.where(lastcol, max3(m1s, ga1s, gb1s), ga_v)
+            ca_k = torch.where(lastcol[:, None], zero, ca).unbind(0)
+            floor_a = torch.where(lastcol, lowest, mn).unbind(0)
         if nga:
-            ga_v = torch.where(lastcol, ga_v, mn)
-        # GAP_B: reads (y, x-1) (alignment.c:139-155)
-        gb_v = torch.maximum(max3(pm1 + gop, pga1 + gop, pgb1 + gap_extend),
-                             mn)
-        if neg:
-            gb_v = torch.where(lastrow, max3(pm1, pga1, pgb1), gb_v)
-        if ngb:
-            gb_v = torch.where(lastrow, gb_v, mn)
-        if emit_dirs:
-            # a no-gaps matrix is a predecessor only at its boundary
-            # coordinates (alignment.c:312-314, 319-321); the guards take
-            # the predecessor's cell
-            diag_a = ((gx == 1) | (gx - 1 == nax)) if nga else True
-            diag_b = ((yv == 1) | (yv - 1 == nbx)) if ngb else True
-            dm = pick(diag_a & (ga2s + ss == Mv), diag_b & (gb2s + ss == Mv),
-                      m2s + ss == Mv)
-            # free end gaps: a GAP_A step on the last column, a GAP_B step
-            # on the last row, costs nothing (alignment.c:265-268, 287-290)
-            a_open = torch.where(lastcol, zero, gop) if neg else gop
-            a_ext = (torch.where(lastcol, zero, gap_extend) if neg
-                     else gap_extend)
-            up_a = ((gx == 0) | lastcol) if nga else True
-            dga = pick(up_a & (ga1s + a_ext == ga_v),
-                       diag_b & (gb1s + a_open == ga_v),
-                       m1s + a_open == ga_v)
-            b_open = torch.where(lastrow, zero, gop) if neg else gop
-            b_ext = (torch.where(lastrow, zero, gap_extend) if neg
-                     else gap_extend)
-            left_b = ((yv == 0) | lastrow) if ngb else True
-            dgb = pick(diag_a & (pga1 + b_open == gb_v),
-                       left_b & (pgb1 + b_ext == gb_v),
-                       pm1 + b_open == gb_v)
-            dirs[:, d - 2] = (dm | (dga << 2) | (dgb << 4)).to(torch.uint8)
-        if emit_gab:
-            mout[:, :, d - 2] = torch.stack((Mv, ga_v, gb_v))
-        elif mout is not None:
-            mout[:, d - 2] = Mv.to(m_dtype)
-        Mv, ga_v, gb_v = inject(d, Mv, ga_v, gb_v)
-        if is_sw:
-            valid = ((yv >= 1) & (yv <= nbx) & (xv >= 1) & (xv <= LA)
-                     & (gx <= nax))
-            best = torch.maximum(best, torch.where(valid, Mv, mn).amax(1))
-        else:
-            corner = corner_at(d, Mv, ga_v, gb_v, corner)
-        if chunked:  # the chunk's last column goes out, but for row 0
-            last = ((xv == LA) & (yv >= 1))[:, None, :]
-            bout = torch.where(last, torch.stack((Mv, ga_v, gb_v), 1), bout)
-        if edge is not None and 0 <= d - edge[0] <= LA:
-            edge[1][:, :, d - edge[0]] = torch.stack(
-                (Mv[:, edge[0]], ga_v[:, edge[0]], gb_v[:, edge[0]]), 1)
-        pm2, pga2, pgb2 = pm1, pga1, pgb1
-        pm1, pga1, pgb1 = Mv, ga_v, gb_v
+            off_col = (~lastcol).unbind(0)
+            diag_a = ((gx == 1) | (gx - 1 == nax)).unbind(0)
+            up_a = ((gx == 0) | lastcol).unbind(0)
+        for k in range(n):
+            d = d0 + k
+            p1, sh1 = slot[k + 1][:2]
+            sh2 = slot[k][1]
+            h, _, hm, ha, hb = slot[k + 2]
+            ss = ss_k[k]
+            torch.amax(sh2, 0, out=hm)
+            hm += ss
+            torch.add(sh1, ca_k[k] if neg else ca, out=ta)
+            torch.amax(ta, 0, out=ha)
+            torch.add(p1, cb, out=tb)
+            torch.amax(tb, 0, out=hb)
+            if neg:
+                torch.maximum(hm, mn, out=hm)
+                torch.maximum(ha, floor_a[k], out=ha)
+                torch.maximum(hb, floor_b, out=hb)
+            else:
+                torch.maximum(h, mn, out=h)
+            if nmm:
+                hm.masked_fill_(off_m[k], mn)
+            if nga:  # GAP_A only on the last column (alignment.c:131)
+                ha.masked_fill_(off_col[k], mn)
+            if ngb:
+                hb.masked_fill_(off_row, mn)
+            if emit_dirs:
+                torch.add(sh2, ss, out=tm)
+                torch.eq(tm, hm, out=e_m)
+                torch.eq(ta, ha, out=e_a)
+                torch.eq(tb, hb, out=e_b)
+                # a no-gaps matrix is a predecessor only at its boundary
+                # coordinates (alignment.c:312-314, 319-321)
+                if nga:
+                    e9[1::6] &= diag_a[k]
+                    e9[4] &= up_a[k]
+                if ngb:
+                    e9[2:6:3] &= diag_b
+                    e9[8] &= left_b
+                dirs[:, d - 2] = lut[(e9u * w9).sum(0)]
+            if emit_gab:
+                mout[:, :, d - 2] = h
+            elif mout is not None:
+                mout[:, d - 2] = hm
+            # boundary cells (0, x_off + d) and (d, 0) (alignment.c:51-81)
+            if chunked and d < LBp:
+                h[:, :, d] = bin_t[:, :, d]
+            if top is not None:
+                if d <= LA:
+                    h[:, :, 0] = top_t[:, :, d]
+            elif is_sw:
+                h[:, :, 0] = mn
+                if not chunked and d < LBp:
+                    h[:, :, d] = mn
+            else:
+                h[:, :, 0] = lane0[d]
+                if not chunked and d < LBp:
+                    h[:, :, d] = lane_d[d]
+            if d in at_corner:
+                hit = ((na + nb) == d + x_off) & owns
+                torch.where(hit, h.gather(2, nb_idx3)[..., 0], corner_t,
+                            out=corner_t)
+            if chunked and 1 <= d - LA < LBp:  # the chunk's last column
+                bout_t[:, :, d - LA] = h[:, :, d - LA]
+            if edge is not None and 0 <= d - edge[0] <= LA:
+                edge[1][:, :, d - edge[0]] = h[:, :, edge[0]].t()
+        if is_sw:  # the best M over the block's valid cells
+            xv = dv - ylong  # (n, LBp)
+            valid = ((ylong >= 1) & (xv >= 1) & (xv <= LA))[:, None] \
+                & (yv <= nbx) & ((xv + x_off)[:, None] <= nax)
+            best = torch.maximum(best, torch.where(
+                valid, cur[2:n + 2, 0], mn).amax((0, 2)))
+    if not is_sw:
+        corner = corner_t.t().contiguous()
     return dirs, corner, best, mout, bout
+
+
+def _code_lut(dev):
+    """The code byte ``dm | dga << 2 | dgb << 4`` of each 9-bit set of
+    predecessor tests, bits 0-2 M's, 3-5 GAP_A's, 6-8 GAP_B's, each three
+    the tests of the (M, GAP_A, GAP_B) predecessor: a matrix's code is
+    GAP_A, then GAP_B, then MATCH, by priority (alignment.c:311-327), and
+    DIR_FAIL when no test holds."""
+    def pick(bits):
+        return (GAP_A if bits & 2 else GAP_B if bits & 4
+                else MATCH if bits & 1 else DIR_FAIL)
+
+    return torch.tensor([pick(i & 7) | pick(i >> 3 & 7) << 2
+                         | pick(i >> 6) << 4 for i in range(512)],
+                        dtype=torch.uint8, device=dev)
 
 
 def nw_scores_plain(ac, bc, na, nb, params: KernelParams):

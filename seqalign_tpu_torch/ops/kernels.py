@@ -20,7 +20,8 @@ csrc/tile_carry.cuh (a round of a pair's lanes a block,
 :func:`carry_warps` warps), under any scoring flags (``params.modes``).
 The walks run a
 warp a walk over the band of codes it can reach, staged in shared memory
-a block of rows at a time (csrc/walk_band.cuh).
+a block of rows at a time (csrc/walk_band.cuh).  The probe's moves run a
+row's words in a warp's registers (:func:`vpu_layout`).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -854,6 +855,23 @@ def sw_hits(dirs, ac, bc, na, nb, cand_flat, cand_score, lo, hi,
 
 
 VPU_OPS = ("addmax", "add", "roll", "shift")
+def vpu_layout(op: str, words: int, i16: bool = False):
+    """The registers csrc/exp_vpu.cu gives a row of ``words`` 32-bit words
+    (int32 lanes, or with ``i16`` int16 lanes in pairs): ``(T, K)``, T
+    threads of one warp a row and K consecutive words a thread.  A move
+    (``roll``, ``shift``) of a row of more than 32 words takes a warp, K
+    the least power of two >= words / 32 (2 to 32); of up to 32 words a
+    sub-warp group of T = 1, 2, 4 or 8 threads of K = 4 words, 32 / T rows
+    a warp.  ``addmax`` and ``add`` move nothing: two lanes a thread (K =
+    2 int32 words or 1 int16 word) over the whole block, a row's words on
+    as many threads as they fill (T = None)."""
+    if not 1 <= words <= 1024:
+        raise ValueError(f"a row of {words} words does not fit a warp")
+    if op in ("addmax", "add"):
+        return None, 1 if i16 else 2
+    if words <= 32:
+        return max(1, 1 << (-(-words // 4) - 1).bit_length()), 4
+    return 32, 1 << (-(-words // 32) - 1).bit_length()
 
 
 def vpu_chain_plain(x, steps: int, op: str):
@@ -878,8 +896,9 @@ def vpu_chain_plain(x, steps: int, op: str):
 
 def vpu_chain(x, steps: int, op: str):
     """The ALU probe (see ``vpu_chain_plain``; csrc/exp_vpu.cu): returns
-    the (R, L) result, ``addmax`` by the Hopper DPX add-max.  One row a
-    block: L <= 1024 lanes of int32, or an even L <= 2048 of int16."""
+    the (R, L) result, ``addmax`` by the Hopper DPX add-max.  A row's
+    words in registers (:func:`vpu_layout`), a move's row in one warp: L
+    <= 1024 lanes of int32, or an even L <= 2048 of int16."""
     if not isinstance(x, torch.Tensor) or x.dtype not in (torch.int32,
                                                            torch.int16):
         raise ValueError("x must be an int32 or int16 tensor")

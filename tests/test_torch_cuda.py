@@ -655,21 +655,36 @@ def test_matrix_dump_on_cuda_matches_host(dev, monkeypatch):
         range(40), host_dp.HostSwHits(sw.scoring, a, b))]
 
 
-@pytest.mark.parametrize("lanes", [512, 32, 64, 1000])
+@pytest.mark.parametrize("shape", [(64, 300), (37, 300), (37, 0)],
+                         ids=["R64-S300", "R37-S300", "R37-S0"])
+@pytest.mark.parametrize("lanes", [512, 32, 64, 1000, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16],
                          ids=["int32", "int16"])
-def test_vpu_chain_equals_plain_version(dev, dtype, lanes):
+def test_vpu_chain_equals_plain_version(dev, dtype, lanes, shape):
     """The ALU probe, every op, against its plain version: int16 sums wrap
-    as int16 (the DPX add-max included); int32 at 32 lanes and int16 at 32
-    or 64 lanes (one word of two lanes a thread) take the warp-shuffle
-    move, every other case the block-wide one (1,000 lanes of int16 are
-    500 threads, not whole warps)."""
-    rng = np.random.default_rng(lanes)
-    x = torch.from_numpy(rng.integers(-3000, 8000, (64, lanes))).to(
+    as int16 (the DPX add-max included).  The moves take the layout of
+    ``kernels.vpu_layout``: a warp a row of K words a thread past 32 words
+    (int32 at 512 lanes K = 16, at 1,000 K = 32 not K-aligned, at 1,024 K
+    = 32; int16 at 512 lanes K = 8, at 1,000 K = 16 not K-aligned, at
+    1,024 K = 16, at 2,048 K = 32); a sub-warp group of 4-word threads up
+    to 32 words (int32 at 32 lanes 8 threads, 4 rows a warp; at 64 lanes a
+    warp of K = 2; int16 at 32 lanes 4 threads, 8 rows a warp, at 64 lanes
+    8 threads).  addmax and add take two lanes a thread over the whole
+    block (2 int32 words, 1 int16 word).
+    R = 37 leaves dead rows in a sub-warp layout's last warp; S = 0 returns
+    x.  int32 at 2,048 lanes is past a row's 1,024 words: the wrapper
+    raises."""
+    R, S = shape
+    rng = np.random.default_rng(lanes + R + S)
+    x = torch.from_numpy(rng.integers(-3000, 8000, (R, lanes))).to(
         dtype).to(dev)
+    if dtype == torch.int32 and lanes == 2048:
+        with pytest.raises(ValueError):
+            kernels.vpu_chain(x, S, "roll")
+        return
     for op in kernels.VPU_OPS:
-        assert torch.equal(kernels.vpu_chain(x, 300, op),
-                           kernels.vpu_chain_plain(x, 300, op)), op
+        assert torch.equal(kernels.vpu_chain(x, S, op),
+                           kernels.vpu_chain_plain(x, S, op)), op
     with pytest.raises(ValueError):
         kernels.vpu_chain(x[:, :-1] if dtype == torch.int16 else
                           torch.zeros((2, 1025), dtype=dtype, device=dev),

@@ -68,7 +68,8 @@ def test_plain_chain_equals_pallas_kernel(op, dtype):
 
 
 def test_roll_and_shift_at_one_warp_width():
-    """The widths where a row is one warp on the card (32 lanes)."""
+    """Rows of 32 int16 lanes: on the card 16 words, a sub-warp group of
+    4 threads (``kernels.vpu_layout``)."""
     x = np.random.default_rng(5).integers(-1000, 1000, (4, 32)).astype(
         np.int16)
     for op in ("roll", "shift"):
